@@ -1,0 +1,518 @@
+"""Declarative experiment specification (the port's copy of the schema).
+
+The same :class:`ExperimentSpec` as ``repro/api/spec.py``: the same nine
+sections and fields, the same JSON documents, the same canonical JSON and
+therefore the same content hash (the default spec hashes to
+``60fd95ec9d49`` in both packages).  The device a run uses is *not* part of
+the spec: it is an argument of ``api.build``.
+
+Validation is the reference's for everything the port runs.  Sections
+whose planes are not ported yet accept only their defaults and name the
+ROADMAP item that ports them: faults and checkpointing (A12), population
+(A13), topology (A14), mesh (A16); the ``tiny_lm`` models are A11.
+"""
+from __future__ import annotations
+
+import dataclasses
+import hashlib
+import inspect
+import json
+from typing import Any, Dict, Optional, Tuple
+
+from repro_torch.compress import transport
+from repro_torch.core.simulation import PAPER_DELAY_BANDS, SimConfig
+
+SPEC_VERSION = 7
+_READABLE_VERSIONS = (1, 2, 3, 4, 5, 6, 7)
+
+#: the attention backends the reference's transformer models accept
+ATTENTION_BACKENDS = ("auto", "flash", "reference")
+
+
+def _resolve_legacy_task(task: Any, existing_model: Optional[str]) -> str:
+    """The ``data.task`` deprecation shim: map a v1/v2 task value to its
+    registered model name, erroring on unknown values and on conflicts
+    with an explicitly given ``data.model``."""
+    from repro_torch.models.registry import LEGACY_TASKS
+    if task not in LEGACY_TASKS:
+        raise SpecError(
+            f"data.task (deprecated) must be one of "
+            f"{sorted(LEGACY_TASKS)}, got {task!r}; new specs should "
+            f"name a registered model via data.model")
+    model = LEGACY_TASKS[task]
+    if existing_model is not None and existing_model != model:
+        raise SpecError(
+            f"data.task={task!r} (deprecated) conflicts with "
+            f"data.model={existing_model!r}; drop the task key")
+    return model
+
+
+class SpecError(ValueError):
+    """A spec failed validation; the message says how to fix it."""
+
+
+def _strict_fields(cls, d: Dict[str, Any], section: str) -> Dict[str, Any]:
+    fields = {f.name for f in dataclasses.fields(cls)}
+    unknown = sorted(set(d) - fields)
+    if unknown:
+        raise SpecError(
+            f"unknown field(s) {unknown} in {section} spec; "
+            f"valid fields: {sorted(fields)}")
+    return d
+
+
+def _require(cond: bool, msg: str) -> None:
+    if not cond:
+        raise SpecError(msg)
+
+
+def _require_default(section) -> list:
+    """Names of the fields of ``section`` that differ from their default
+    (``seed`` fields excepted: a seed of an unused plane changes nothing)."""
+    default = type(section)()
+    return sorted(f.name for f in dataclasses.fields(section)
+                  if f.name != "seed"
+                  and getattr(section, f.name) != getattr(default, f.name))
+
+
+def _unported(section: str, fields: list, item: str, what: str) -> None:
+    if fields:
+        raise SpecError(
+            f"{section}.{fields[0]}: {what} is not ported to the PyTorch "
+            f"package yet (ROADMAP {item}); leave {section} "
+            f"{fields} at their defaults")
+
+
+# ---------------------------------------------------------------------------
+# sections
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class DataSpec:
+    """What each client holds and trains.  ``model`` is a registry name;
+    ``seed`` drives the whole environment materialization."""
+    model: str = "cnn"
+    n_clients: int = 100
+    n_classes: int = 10
+    partitioner: str = "#class"          # "#class" | "dirichlet:<alpha>"
+    classes_per_client: int = 2          # used by the "#class" partitioner
+    samples_per_client: int = 60
+    image_hw: int = 12                   # image-kind models
+    n_features: int = 128                # features-kind models
+    vocab_size: int = 64                 # tokens-kind models
+    seq_len: int = 16                    # tokens-kind models
+    attention_backend: str = "auto"
+    seed: int = 0
+
+    def validate(self) -> None:
+        from repro_torch.models import registry as model_registry
+        if self.model in model_registry.UNPORTED_MODELS:
+            raise SpecError(
+                f"model {self.model!r} is not ported to the PyTorch package "
+                f"yet (ROADMAP {model_registry.UNPORTED_MODELS[self.model]});"
+                f" ported: {model_registry.registered_models()}")
+        if self.model not in model_registry.MODELS:
+            raise SpecError(
+                f"unknown model {self.model!r}; "
+                f"registered: {model_registry.registered_models()} "
+                f"(register new ones via models/registry.register_model)")
+        _require(self.vocab_size >= 2 and self.seq_len >= 2,
+                 f"data.vocab_size and data.seq_len must be >= 2, got "
+                 f"({self.vocab_size}, {self.seq_len})")
+        _require(self.attention_backend in ATTENTION_BACKENDS,
+                 f"data.attention_backend must be one of "
+                 f"{ATTENTION_BACKENDS}, got {self.attention_backend!r}")
+        _require(self.n_clients >= 1,
+                 f"data.n_clients must be >= 1, got {self.n_clients}")
+        _require(self.n_classes >= 2,
+                 f"data.n_classes must be >= 2, got {self.n_classes}")
+        _require(self.classes_per_client >= 1,
+                 f"data.classes_per_client must be >= 1, "
+                 f"got {self.classes_per_client}")
+        _require(self.samples_per_client >= 1,
+                 f"data.samples_per_client must be >= 1, "
+                 f"got {self.samples_per_client}")
+        from repro_torch.data.federated import parse_partitioner
+        try:
+            parse_partitioner(self.partitioner)
+        except ValueError as e:
+            raise SpecError(f"data.partitioner: {e}")
+
+
+@dataclasses.dataclass
+class TierSpec:
+    """Latency tiers, the dropout profile, and re-tiering cadence."""
+    n_tiers: int = 5
+    clients_per_round: int = 10          # sample size per (tier) round
+    delay_bands: Tuple[Tuple[float, float], ...] = PAPER_DELAY_BANDS
+    base_compute: float = 1.0
+    n_unstable: int = 10                 # permanent dropouts
+    dropout_window: Tuple[float, float] = (50.0, 400.0)
+    retier_every: int = 0
+    retier_drift: float = 0.2
+
+    def __post_init__(self):
+        self.delay_bands = tuple(
+            (float(lo), float(hi)) for lo, hi in self.delay_bands)
+        self.dropout_window = tuple(float(v) for v in self.dropout_window)
+
+    def validate(self, n_clients: int) -> None:
+        _require(1 <= self.n_tiers <= n_clients,
+                 f"tiers.n_tiers must be in [1, n_clients={n_clients}], "
+                 f"got {self.n_tiers}")
+        _require(self.clients_per_round >= 1,
+                 f"tiers.clients_per_round must be >= 1, "
+                 f"got {self.clients_per_round}")
+        _require(len(self.delay_bands) >= 1,
+                 "tiers.delay_bands needs at least one (lo, hi) band")
+        for i, (lo, hi) in enumerate(self.delay_bands):
+            _require(0 <= lo <= hi,
+                     f"tiers.delay_bands[{i}] must satisfy 0 <= lo <= hi, "
+                     f"got ({lo}, {hi})")
+        _require(0 <= self.n_unstable <= n_clients,
+                 f"tiers.n_unstable must be in [0, n_clients={n_clients}], "
+                 f"got {self.n_unstable}")
+        lo, hi = self.dropout_window
+        _require(0 <= lo <= hi,
+                 f"tiers.dropout_window must satisfy 0 <= lo <= hi, "
+                 f"got ({lo}, {hi})")
+        _require(self.retier_every >= 0,
+                 f"tiers.retier_every must be >= 0 (0 = never), "
+                 f"got {self.retier_every}")
+        _require(0 <= self.retier_drift < 1,
+                 f"tiers.retier_drift must be in [0, 1), "
+                 f"got {self.retier_drift}")
+
+
+@dataclasses.dataclass
+class StrategySpec:
+    """Server policy by registry name; kwargs are validated against the
+    strategy constructor's signature."""
+    name: str = "fedat"
+    kwargs: Dict[str, Any] = dataclasses.field(default_factory=dict)
+
+    def validate(self) -> None:
+        from repro_torch.core import strategies
+        if self.name not in strategies.STRATEGIES:
+            raise SpecError(
+                f"unknown strategy {self.name!r}; "
+                f"registered: {sorted(strategies.STRATEGIES)}")
+        if "codec" in self.kwargs:
+            raise SpecError(
+                "the link codec belongs in transport.codec, not "
+                "strategy.kwargs['codec'] (one spec field per dimension)")
+        params = inspect.signature(
+            strategies.STRATEGIES[self.name]).parameters
+        bad = sorted(k for k in self.kwargs if k not in params)
+        if bad:
+            raise SpecError(
+                f"strategy {self.name!r} does not accept kwargs {bad}; "
+                f"accepted: {sorted(params)}")
+
+
+@dataclasses.dataclass
+class TransportSpec:
+    """The link codec, by registry string (``none``, ``polyline:<p>``,
+    ``quantize8``, ``quantize16``, ...).  ``None`` keeps each strategy's
+    paper default."""
+    codec: Optional[str] = None
+
+    def validate(self) -> None:
+        if self.codec is None:
+            return
+        try:
+            transport.get_codec(self.codec)
+        except ValueError as e:
+            raise SpecError(f"transport.codec: {e}")
+
+
+@dataclasses.dataclass
+class EngineSpec:
+    """Run budget and the local-training execution knobs."""
+    total_updates: int = 200
+    eval_every: int = 10
+    seed: int = 0
+    local_epochs: int = 3
+    batch_size: int = 10
+    lr: float = 1e-3
+    prox_lambda: float = 0.4
+
+    def validate(self) -> None:
+        _require(self.total_updates >= 1,
+                 f"engine.total_updates must be >= 1, "
+                 f"got {self.total_updates}")
+        _require(self.eval_every >= 1,
+                 f"engine.eval_every must be >= 1, got {self.eval_every}")
+        _require(self.local_epochs >= 1 and self.batch_size >= 1,
+                 "engine.local_epochs and engine.batch_size must be >= 1")
+
+
+@dataclasses.dataclass
+class MeshSpec:
+    """Device mesh for the round step; only ``single`` is ported."""
+    kind: str = "single"                 # single | host | production
+    n_pods: int = 1
+    shard_tiers: bool = False
+
+    def to_name(self) -> Optional[str]:
+        if self.kind == "single":
+            return None
+        return self.kind if self.n_pods == 1 else f"{self.kind}:{self.n_pods}"
+
+    def validate(self) -> None:
+        _unported("mesh", _require_default(self), "A16",
+                  "multi-device execution")
+
+
+@dataclasses.dataclass
+class FaultSpec:
+    """Deterministic fault plane; not ported yet (all knobs must stay 0)."""
+    churn_rate: float = 0.0
+    churn_events: int = 2
+    churn_downtime: float = 30.0
+    churn_window: Tuple[float, float] = (50.0, 400.0)
+    blackouts: int = 0
+    blackout_duration: float = 60.0
+    blackout_window: Tuple[float, float] = (50.0, 400.0)
+    nan_rate: float = 0.0
+    update_clip: float = 0.0
+    checkpoint_every: int = 0
+    seed: int = 0
+
+    def __post_init__(self):
+        self.churn_window = tuple(float(v) for v in self.churn_window)
+        self.blackout_window = tuple(float(v) for v in self.blackout_window)
+
+    def validate(self) -> None:
+        _unported("faults", _require_default(self), "A12", "the fault plane")
+
+
+@dataclasses.dataclass
+class PopulationSpec:
+    """Million-client population plane; not ported yet (legacy only)."""
+    plane: str = "legacy"
+    availability: str = "always"
+    responsiveness: str = "none"
+    completion: str = "none"
+    profile: str = "none"
+    eval_clients: int = 0
+    seed: int = 0
+
+    def validate(self, n_clients: int) -> None:
+        _unported("population", _require_default(self), "A13",
+                  "the population plane")
+
+
+@dataclasses.dataclass
+class TopologySpec:
+    """Hierarchical geo-distributed federation; not ported yet (flat only)."""
+    n_silos: int = 1
+    edges_per_silo: int = 1
+    clients_per_edge: int = 0
+    delay: Dict[str, Tuple[float, float]] = dataclasses.field(
+        default_factory=dict)
+    codec: Dict[str, str] = dataclasses.field(default_factory=dict)
+    compensation: float = 0.0
+    silo_skew: float = 0.0
+    seed: int = 0
+
+    def __post_init__(self):
+        self.delay = {k: tuple(float(x) for x in v)
+                      for k, v in self.delay.items()}
+        self.codec = dict(self.codec)
+
+    def validate(self, n_clients: int) -> None:
+        _unported("topology", _require_default(self), "A14",
+                  "the topology plane")
+
+
+# ---------------------------------------------------------------------------
+# the composed spec
+# ---------------------------------------------------------------------------
+
+_SECTIONS = {"data": DataSpec, "tiers": TierSpec, "strategy": StrategySpec,
+             "transport": TransportSpec, "engine": EngineSpec,
+             "mesh": MeshSpec, "faults": FaultSpec,
+             "population": PopulationSpec, "topology": TopologySpec}
+
+
+@dataclasses.dataclass
+class ExperimentSpec:
+    data: DataSpec = dataclasses.field(default_factory=DataSpec)
+    tiers: TierSpec = dataclasses.field(default_factory=TierSpec)
+    strategy: StrategySpec = dataclasses.field(default_factory=StrategySpec)
+    transport: TransportSpec = dataclasses.field(
+        default_factory=TransportSpec)
+    engine: EngineSpec = dataclasses.field(default_factory=EngineSpec)
+    mesh: MeshSpec = dataclasses.field(default_factory=MeshSpec)
+    faults: FaultSpec = dataclasses.field(default_factory=FaultSpec)
+    population: PopulationSpec = dataclasses.field(
+        default_factory=PopulationSpec)
+    topology: TopologySpec = dataclasses.field(default_factory=TopologySpec)
+
+    # -- validation -----------------------------------------------------
+    def validate(self) -> "ExperimentSpec":
+        self.data.validate()
+        self.tiers.validate(self.data.n_clients)
+        self.strategy.validate()
+        self.transport.validate()
+        self.engine.validate()
+        self.mesh.validate()
+        self.faults.validate()
+        self.population.validate(self.data.n_clients)
+        self.topology.validate(self.data.n_clients)
+        return self
+
+    # -- serialization --------------------------------------------------
+    def to_dict(self) -> Dict[str, Any]:
+        d = dataclasses.asdict(self)
+        d["tiers"]["delay_bands"] = [list(b)
+                                     for b in self.tiers.delay_bands]
+        d["tiers"]["dropout_window"] = list(self.tiers.dropout_window)
+        d["faults"]["churn_window"] = list(self.faults.churn_window)
+        d["faults"]["blackout_window"] = list(self.faults.blackout_window)
+        d["topology"]["delay"] = {k: list(v) for k, v
+                                  in self.topology.delay.items()}
+        d["spec_version"] = SPEC_VERSION
+        return d
+
+    @classmethod
+    def from_dict(cls, d: Dict[str, Any]) -> "ExperimentSpec":
+        d = dict(d)
+        version = d.pop("spec_version", SPEC_VERSION)
+        if version not in _READABLE_VERSIONS:
+            raise SpecError(f"spec_version {version} not supported "
+                            f"(this build reads {_READABLE_VERSIONS} and "
+                            f"writes {SPEC_VERSION})")
+        unknown = sorted(set(d) - set(_SECTIONS))
+        if unknown:
+            raise SpecError(f"unknown section(s) {unknown} in experiment "
+                            f"spec; valid sections: {sorted(_SECTIONS)}")
+        parts = {}
+        for name, section_cls in _SECTIONS.items():
+            sub = d.get(name, {})
+            if not isinstance(sub, dict):
+                raise SpecError(f"section {name!r} must be an object, "
+                                f"got {type(sub).__name__}")
+            if name == "data":
+                sub = cls._migrate_task(dict(sub))
+            parts[name] = section_cls(
+                **_strict_fields(section_cls, sub, name))
+        return cls(**parts)
+
+    @staticmethod
+    def _migrate_task(data: Dict[str, Any]) -> Dict[str, Any]:
+        """Deprecation shim: the v1/v2 ``data.task`` enum migrates to
+        ``data.model`` (image -> cnn, text -> logreg)."""
+        if "task" not in data:
+            return data
+        task = data.pop("task")
+        data["model"] = _resolve_legacy_task(task, data.get("model"))
+        return data
+
+    def to_json(self, indent: int = 2) -> str:
+        return json.dumps(self.to_dict(), indent=indent, sort_keys=True)
+
+    @classmethod
+    def from_json(cls, s: str) -> "ExperimentSpec":
+        return cls.from_dict(json.loads(s))
+
+    # -- provenance -----------------------------------------------------
+    def canonical_json(self) -> str:
+        """Key-sorted, whitespace-free JSON: the hash input."""
+        return json.dumps(self.to_dict(), sort_keys=True,
+                          separators=(",", ":"))
+
+    def hash(self) -> str:
+        """Stable 12-hex content hash for result provenance."""
+        return hashlib.sha256(
+            self.canonical_json().encode()).hexdigest()[:12]
+
+    def env_dict(self) -> Dict[str, Any]:
+        """The sub-dict that determines :class:`SimEnv` materialization
+        (the environment cache key), as in the reference."""
+        d = self.to_dict()
+        tiers = d["tiers"]
+        tiers.pop("retier_every"), tiers.pop("retier_drift")
+        eng = d["engine"]
+        local = {k: eng[k] for k in ("local_epochs", "batch_size", "lr",
+                                     "prox_lambda")}
+        f = d["faults"]
+        churn = {k: f[k] for k in ("churn_rate", "churn_events",
+                                   "churn_downtime", "churn_window",
+                                   "seed")}
+        return {"data": d["data"], "tiers": tiers, "local": local,
+                "mesh": d["mesh"], "churn": churn,
+                "population": d["population"],
+                "topology": d["topology"]}
+
+    def env_hash(self) -> str:
+        return hashlib.sha256(json.dumps(
+            self.env_dict(), sort_keys=True,
+            separators=(",", ":")).encode()).hexdigest()[:12]
+
+    # -- overrides ------------------------------------------------------
+    def with_overrides(self, overrides: Dict[str, Any]) -> "ExperimentSpec":
+        """A new spec with dotted-path fields replaced, e.g.
+        ``{"strategy.name": "fedavg", "transport.codec": "quantize8"}``.
+        Unknown paths raise :class:`SpecError`; new keys may only be
+        created under the open dicts (``strategy.kwargs``,
+        ``topology.delay``, ``topology.codec``)."""
+        overrides = dict(overrides)
+        if "data.task" in overrides:
+            overrides["data.model"] = _resolve_legacy_task(
+                overrides.pop("data.task"), overrides.get("data.model"))
+        d = self.to_dict()
+        for path, value in overrides.items():
+            parts = path.split(".")
+            cur: Any = d
+            for i, p in enumerate(parts[:-1]):
+                if not isinstance(cur, dict) or p not in cur:
+                    raise SpecError(
+                        f"unknown spec path {path!r}: no section "
+                        f"{'.'.join(parts[:i + 1])!r}; top-level sections: "
+                        f"{sorted(_SECTIONS)}")
+                cur = cur[p]
+            leaf = parts[-1]
+            open_dict = len(parts) >= 2 and (
+                parts[-2] == "kwargs"
+                or (parts[0] == "topology"
+                    and parts[-2] in ("delay", "codec")))
+            if not isinstance(cur, dict) or (leaf not in cur
+                                             and not open_dict):
+                raise SpecError(
+                    f"unknown spec field {path!r}; valid fields under "
+                    f"{'.'.join(parts[:-1]) or 'the spec root'}: "
+                    f"{sorted(cur) if isinstance(cur, dict) else '<leaf>'}")
+            cur[leaf] = value
+        return ExperimentSpec.from_dict(d)
+
+    # -- bridge to the core layer ---------------------------------------
+    def to_sim_config(self) -> SimConfig:
+        """Materialization recipe for :class:`~repro_torch.core.
+        simulation.SimEnv` (the unported planes stay at their defaults,
+        which :meth:`validate` enforces)."""
+        return SimConfig(
+            model=self.data.model, n_clients=self.data.n_clients,
+            n_classes=self.data.n_classes,
+            classes_per_client=self.data.classes_per_client,
+            samples_per_client=self.data.samples_per_client,
+            image_hw=self.data.image_hw, n_features=self.data.n_features,
+            vocab_size=self.data.vocab_size, seq_len=self.data.seq_len,
+            attention_backend=self.data.attention_backend,
+            n_tiers=self.tiers.n_tiers,
+            clients_per_round=self.tiers.clients_per_round,
+            local_epochs=self.engine.local_epochs,
+            batch_size=self.engine.batch_size, lr=self.engine.lr,
+            prox_lambda=self.engine.prox_lambda,
+            n_unstable=self.tiers.n_unstable,
+            base_compute=self.tiers.base_compute, seed=self.data.seed,
+            partitioner=self.data.partitioner,
+            delay_bands=self.tiers.delay_bands,
+            dropout_window=self.tiers.dropout_window,
+            mesh=self.mesh.to_name(), shard_tiers=self.mesh.shard_tiers,
+            churn_rate=self.faults.churn_rate,
+            churn_events=self.faults.churn_events,
+            churn_downtime=self.faults.churn_downtime,
+            churn_window=self.faults.churn_window,
+            fault_seed=self.faults.seed)

@@ -1,0 +1,4 @@
+"""FedAT core of the port: tiering, weighted aggregation, the event
+scheduler, the simulation environment, the round executor and the
+event-driven engine with its server strategies (FedAT, FedAvg, TiFL,
+FedAsync)."""

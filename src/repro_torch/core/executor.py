@@ -1,0 +1,158 @@
+"""Device-resident round execution (the port of ``repro/core/executor.py``,
+single-device steps).
+
+Per popped event a strategy calls one round method; each runs, on the
+environment's device:
+
+* FedAT (:meth:`RoundExecutor.fedat_round`, Algorithm 1 steps 1-5):
+  downlink ``codec.lossy`` -> gather of the sampled clients' rows from the
+  resident train stacks -> local prox+Adam training of the K clients as one
+  client-batched model -> uplink ``codec.lossy`` -> Eq. 4 intra-tier
+  average -> tier-slot update -> Eq. 3 cross-tier average.
+* FedAvg/TiFL (:meth:`fedavg_round`) and FedAsync (:meth:`fedasync_round`).
+
+**Fixed-shape padding contract** (kept from the reference): a sample of
+``n`` live clients is padded to ``clients_per_round`` slots by repeating a
+live id with a zero Eq. 4 weight; exactly-zero terms leave the weighted sum
+unchanged, so every round has the same shapes.
+
+**Permutations.**  The reference shuffles each client's samples per epoch
+with ``jax.random.permutation`` from keys split off the event's
+``draw_seed``.  Here the executor's ``perm_source(seed, n_live, n_slots)``
+returns the ``(n_slots, E, cap)`` permutations; the default draws them
+from a CPU ``torch.Generator`` seeded with ``seed`` (the same permutations
+on any device), and tests substitute the reference's own key path.
+
+Execution is eager.  The Eq. 4 / Eq. 3 weight vectors are computed on the
+host (numpy twins in core/aggregation.py) and uploaded per event.  The
+tier-model stack is updated in place (the strategy owns it).
+"""
+from __future__ import annotations
+
+from typing import Callable, Dict, Optional, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.core import aggregation
+
+Params = Dict[str, torch.Tensor]
+PermSource = Callable[[int, int, int], torch.Tensor]
+
+
+class RoundExecutor:
+    """Owns the per-round data selection and the round bodies for one
+    :class:`~repro_torch.core.simulation.SimEnv`.
+
+    ``perm_source`` (see module doc) may be replaced by the caller; it is
+    a plain attribute.
+    """
+
+    def __init__(self, env, perm_source: Optional[PermSource] = None):
+        self.env = env
+        self.K = int(env.sc.clients_per_round)
+        self.device = env.device
+        self.perm_source: PermSource = perm_source or self.torch_perms
+
+    # ------------------------------------------------------------------
+    # host-side marshalling (tiny per-event vectors)
+    # ------------------------------------------------------------------
+    def _pad_ids(self, ids: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
+        """(ids (n,)) -> (padded ids (K,), padded sample counts (K,)).
+
+        Dead slots repeat a live id (valid gather target, finite params)
+        and get sample count 0, which zeroes them out of Eq. 4 exactly.
+        """
+        n = len(ids)
+        pid = np.empty(self.K, np.int32)
+        pid[:n] = ids
+        pid[n:] = ids[0] if n else 0
+        ns = np.zeros(self.K, np.float32)
+        ns[:n] = self.env.n_train_all[ids]
+        return pid, ns
+
+    def torch_perms(self, seed: int, n_live: int, n_slots: int
+                    ) -> torch.Tensor:
+        """Default permutation source: ``n_slots x E`` permutations of the
+        sample slots from a CPU generator seeded with ``seed``."""
+        sc = self.env.sc
+        cap = self.env.train["y"].shape[1]
+        g = torch.Generator().manual_seed(int(seed))
+        return torch.stack([
+            torch.stack([torch.randperm(cap, generator=g)
+                         for _ in range(sc.local_epochs)])
+            for _ in range(n_slots)])
+
+    def _perms(self, seed: int, n_live: int, n_slots: int) -> torch.Tensor:
+        return self.perm_source(seed, n_live, n_slots).to(
+            self.device, torch.int64)
+
+    def _select(self, pid: np.ndarray) -> Dict[str, torch.Tensor]:
+        """The padded clients' rows of the resident train stacks."""
+        idx = torch.from_numpy(pid.astype(np.int64)).to(self.device)
+        stacks = self.env.train_dev
+        return {k: stacks[k].index_select(0, idx) for k in ("x", "y", "mask")}
+
+    def _weights(self, w: np.ndarray) -> torch.Tensor:
+        return torch.from_numpy(np.asarray(w, np.float32)).to(self.device)
+
+    # ------------------------------------------------------------------
+    # public per-event entry points
+    # ------------------------------------------------------------------
+    def fedat_round(self, w_global: Params, tier_models: Params, m: int,
+                    ids: np.ndarray, seed: int, *, codec, use_prox: bool,
+                    cross_weights) -> Tuple[Params, Params]:
+        """One FedAT tier-completion round (Algorithm 1 steps 1-5).
+
+        ``cross_weights`` is the (M,) Eq. 3 weight vector the strategy
+        computed on the host.  ``tier_models`` slot ``m`` is overwritten in
+        place.  Returns ``(w_global, tier_models)``.
+        """
+        pid, ns = self._pad_ids(ids)
+        perms = self._perms(seed, len(ids), self.K)
+        update = (self.env.update_fn if use_prox
+                  else self.env.update_fn_noprox)
+        w_sent = codec.lossy(w_global)
+        client_params, _ = update(w_sent, self._select(pid), perms)
+        client_params = codec.lossy(client_params)
+        tier_model = aggregation.weighted_average(
+            client_params, self._weights(aggregation.client_weights_host(ns)))
+        for k, v in tier_model.items():
+            tier_models[k][m] = v
+        w_global = aggregation.weighted_average(
+            tier_models, self._weights(cross_weights))
+        return w_global, tier_models
+
+    def fedavg_round(self, w: Params, ids: np.ndarray, seed: int, *,
+                     codec=None) -> Params:
+        """One synchronous FedAvg round over the sampled clients (TiFL
+        rounds run through here too).  ``codec=None`` is the paper's raw
+        f32 link; a codec compresses both links as in the FedAT round."""
+        pid, ns = self._pad_ids(ids)
+        perms = self._perms(seed, len(ids), self.K)
+        w_in = w if codec is None else codec.lossy(w)
+        client_params, _ = self.env.update_fn_noprox(
+            w_in, self._select(pid), perms)
+        if codec is not None:
+            client_params = codec.lossy(client_params)
+        return aggregation.weighted_average(
+            client_params, self._weights(aggregation.client_weights_host(ns)))
+
+    def fedasync_round(self, w: Params, client: int, a_eff: float,
+                       seed: int, *, codec=None) -> Params:
+        """One asynchronous client update with staleness mix-in.
+
+        The interpolation coefficients are rounded to f32 on the host, and
+        both products are formed before the add, as in the reference.
+        """
+        pid = np.asarray([client], np.int32)
+        perms = self._perms(seed, 1, 1)
+        w_in = w if codec is None else codec.lossy(w)
+        client_params, _ = self.env.update_fn_noprox(
+            w_in, self._select(pid), perms)
+        client_w = {k: v[0] for k, v in client_params.items()}
+        if codec is not None:
+            client_w = codec.lossy(client_w)
+        c_glob = torch.tensor(np.float32(1.0 - a_eff), device=self.device)
+        c_loc = torch.tensor(np.float32(a_eff), device=self.device)
+        return {k: c_glob * w[k] + c_loc * client_w[k] for k in w}

@@ -1,0 +1,203 @@
+"""Shared simulation environment for all FL methods (paper §6.1 setup).
+
+100 clients on synthetic non-IID data; latency profile with the paper's
+five delay bands; 10 "unstable" clients that drop out permanently at a
+random time; fixed seeds so every method sees identical partitions,
+latencies, and dropout schedule.
+
+The port of ``repro/core/simulation.py``, legacy data plane only: the same
+``np.random.default_rng(seed)`` stream in the same order, so partitions,
+latencies, tier maps and the dropout schedule equal the reference's
+bitwise.  The padded train stacks live on the environment's device.  The
+initial model comes from a ``torch.Generator`` seeded with ``seed``, or is
+injected (``params0=``, e.g. the reference's, converted with
+models/convert.py).
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict, Optional, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.core import tiering
+from repro_torch.core.clients import make_client_update, make_eval_fn
+from repro_torch.data.federated import make_federated, pad_stack
+from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.models import registry as model_registry
+
+PAPER_DELAY_BANDS = ((0.0, 0.0), (0.0, 5.0), (6.0, 10.0), (11.0, 15.0),
+                     (20.0, 30.0))
+
+
+@dataclasses.dataclass
+class SimConfig:
+    """The reference's SimConfig fields.  The planes the port does not
+    run yet must stay at their defaults: churn (``churn_rate``, ROADMAP
+    A12), ``population`` (A13), ``topology`` (A14) and ``mesh`` (A16)."""
+    model: str = "cnn"
+    n_clients: int = 100
+    n_classes: int = 10
+    classes_per_client: int = 2
+    samples_per_client: int = 60
+    image_hw: int = 12
+    n_features: int = 128
+    vocab_size: int = 64
+    seq_len: int = 16
+    attention_backend: str = "auto"
+    n_tiers: int = 5
+    clients_per_round: int = 10
+    local_epochs: int = 3
+    batch_size: int = 10
+    lr: float = 1e-3
+    prox_lambda: float = 0.4
+    n_unstable: int = 10
+    base_compute: float = 1.0      # seconds per local round before delays
+    seed: int = 0
+    partitioner: str = "#class"
+    delay_bands: Tuple[Tuple[float, float], ...] = PAPER_DELAY_BANDS
+    dropout_window: Tuple[float, float] = (50.0, 400.0)
+    churn_rate: float = 0.0
+    churn_events: int = 2
+    churn_downtime: float = 30.0
+    churn_window: Tuple[float, float] = (50.0, 400.0)
+    fault_seed: int = 0
+    mesh: Optional[str] = None
+    shard_tiers: bool = False
+    population: Optional[Any] = None
+    topology: Optional[Any] = None
+
+    def check_ported(self) -> None:
+        """Raise for a plane the port does not run yet."""
+        for on, what, item in (
+                (self.churn_rate > 0, "client churn (churn_rate > 0)", "A12"),
+                (self.population is not None, "the population plane", "A13"),
+                (self.topology is not None, "the topology plane", "A14"),
+                (self.mesh not in (None, "single") or self.shard_tiers,
+                 "a device mesh", "A16")):
+            if on:
+                raise NotImplementedError(
+                    f"{what} is not ported to the PyTorch package yet: "
+                    f"ROADMAP {item}")
+
+
+class SimEnv:
+    """One materialized scenario: partitions, latencies/tiers, dropout
+    schedule, model init, and the device-resident data plane."""
+
+    def __init__(self, sc: SimConfig, device: DeviceLike = None,
+                 params0: Optional[Dict[str, Any]] = None):
+        sc.check_ported()
+        self.sc = sc
+        self.device = resolve_device(device)
+        rng = np.random.default_rng(sc.seed)
+        self.model = model_registry.build_model(
+            sc.model, model_registry.DataDims(
+                n_classes=sc.n_classes, image_hw=sc.image_hw,
+                n_features=sc.n_features, vocab_size=sc.vocab_size,
+                seq_len=sc.seq_len,
+                attention_backend=sc.attention_backend))
+
+        self.ds = make_federated(
+            task=self.model.data_kind, n_clients=sc.n_clients,
+            n_classes=sc.n_classes,
+            classes_per_client=sc.classes_per_client,
+            samples_per_client=sc.samples_per_client,
+            image_hw=sc.image_hw, n_features=sc.n_features, seed=sc.seed,
+            partitioner=sc.partitioner)
+        self.train = pad_stack(self.ds)
+        self.n_train_all = self.train["n_samples"]
+        self.test = self._stack_test()
+
+        # latency profile -> tiers (paper: 5 delay bands on top of compute)
+        base = np.full(sc.n_clients, sc.base_compute)
+        lat = tiering.profile_latencies(base, sc.delay_bands, rng)
+        self.tm = tiering.assign_tiers(lat, sc.n_tiers)
+
+        # unstable clients drop permanently at a random time (+inf = stable)
+        self.dropout_ids = rng.choice(sc.n_clients, sc.n_unstable,
+                                      replace=False)
+        self.dropout_at = np.full(sc.n_clients, np.inf)
+        self.dropout_at[self.dropout_ids] = rng.uniform(
+            *sc.dropout_window, size=sc.n_unstable)
+
+        if params0 is None:
+            gen = torch.Generator().manual_seed(sc.seed)
+            params0 = self.model.init_params(gen)
+        self.params0 = {
+            k: (v.detach() if isinstance(v, torch.Tensor)
+                else torch.from_numpy(np.array(v))).to(self.device).clone()
+            for k, v in params0.items()}
+        self.update_fn = make_client_update(
+            self.model, local_epochs=sc.local_epochs,
+            batch_size=sc.batch_size, lr=sc.lr, prox_lambda=sc.prox_lambda)
+        self.update_fn_noprox = make_client_update(
+            self.model, local_epochs=sc.local_epochs,
+            batch_size=sc.batch_size, lr=sc.lr, prox_lambda=0.0)
+        self.eval_fn = make_eval_fn(self.model)
+        self.model_bytes = sum(v.numel() * v.element_size()
+                               for v in self.params0.values())
+
+        # device-resident data plane: uploaded once, gathered per round
+        self.train_dev = self._upload(self.train)
+        self._test_dev = None
+        self._executor = None
+
+    def _upload(self, stack: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
+        return {"x": torch.from_numpy(stack["x"]).to(self.device),
+                "y": torch.from_numpy(stack["y"]).to(self.device,
+                                                     torch.int64),
+                "mask": torch.from_numpy(stack["mask"]).to(self.device,
+                                                           torch.float32)}
+
+    def _stack_test(self):
+        cap = max(len(c.y_test) for c in self.ds.clients)
+        n = self.ds.n_clients
+        xs = np.zeros((n, cap) + self.ds.input_shape, self.ds.input_dtype)
+        ys = np.zeros((n, cap), np.int32)
+        mask = np.zeros((n, cap), bool)
+        for i, c in enumerate(self.ds.clients):
+            k = len(c.y_test)
+            xs[i, :k] = c.x_test
+            ys[i, :k] = c.y_test
+            mask[i, :k] = True
+        return {"x": xs, "y": ys, "mask": mask}
+
+    # ------------------------------------------------------------------
+    def executor(self):
+        """The cached round executor for this environment."""
+        if self._executor is None:
+            from repro_torch.core.executor import RoundExecutor
+            self._executor = RoundExecutor(self)
+        return self._executor
+
+    def alive(self, now: float) -> np.ndarray:
+        """Per-client availability at ``now``: not permanently dropped."""
+        return self.dropout_at > now
+
+    def retier(self, rng: np.random.Generator, drift: float = 0.2) -> bool:
+        """Re-profile client latencies and rebuild the tier map; returns
+        True when any tier membership changed."""
+        new_lat = tiering.drift_latencies(self.tm.latencies, rng, drift)
+        old = self.tm
+        self.tm = tiering.retier(self.tm, new_lat)
+        return any(not np.array_equal(a, b)
+                   for a, b in zip(old.members, self.tm.members))
+
+    def sample_clients(self, pool: np.ndarray, k: int,
+                       rng: np.random.Generator) -> np.ndarray:
+        if len(pool) == 0:
+            return pool
+        k = min(k, len(pool))
+        return rng.choice(pool, k, replace=False)
+
+    def evaluate(self, params) -> Tuple[float, float]:
+        """(weighted global accuracy, per-client accuracy variance)."""
+        if self._test_dev is None:  # upload the test stack once
+            self._test_dev = self._upload(self.test)
+        t = self._test_dev
+        accs = self.eval_fn(params, t["x"], t["y"], t["mask"]).cpu().numpy()
+        weights = self.test["mask"].sum(1)
+        glob = float((accs * weights).sum() / weights.sum())
+        return glob, float(np.var(accs))
