@@ -15,7 +15,9 @@ a grid axis.  Values parse as JSON when possible, else as strings.
 summary and the eval trajectory.  ``--device`` picks the device (default
 cuda; without CUDA the run fails unless ``--device cpu`` is given).
 
-Not ported yet: the ``serve`` subcommand (ROADMAP A15) and
+Not ported yet: the ``serve`` subcommand (serving a federated checkpoint:
+the loader of ROADMAP A15, after A11/A12; zoo decoders are served by
+``python -m repro_torch.launch.serve``) and
 ``--checkpoint-dir`` / ``--resume-from`` / ``--resume`` (ROADMAP A12).
 """
 from __future__ import annotations
@@ -67,9 +69,12 @@ def main(argv: Optional[List[str]] = None) -> List[api.Result]:
     if argv is None:
         argv = sys.argv[1:]
     if argv and argv[0] == "serve":
-        raise SystemExit("the serve subcommand is not ported to the "
-                         "PyTorch package yet (ROADMAP A15); use "
-                         "python -m repro.api.cli serve")
+        raise SystemExit("the serve subcommand (serving a federated "
+                         "checkpoint) is not ported to the PyTorch package "
+                         "yet: it needs the checkpoint loader (the rest of "
+                         "ROADMAP A15), which waits for A11/A12; serve a zoo "
+                         "decoder with python -m repro_torch.launch.serve "
+                         "--arch <id>")
     ap = argparse.ArgumentParser(
         prog="repro_torch.api.cli",
         description="Run declarative FL experiments (ExperimentSpec) with "

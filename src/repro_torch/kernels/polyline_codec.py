@@ -10,36 +10,23 @@ Hopper kernel or raises, with no fallback.  Each wrapper counts its kernel
 launches (``launch_counts``), so a run can show that its main path went
 through the kernels.
 
-The kernels are compiled at first use with ``nvcc`` into
-``build/repro_torch_kernels/`` at the repository root (a plain C interface
-loaded with ``ctypes``), keyed by a hash of the source and flags.
+The kernels are compiled at first use with ``nvcc`` (kernels/build.py).
 """
 from __future__ import annotations
 
 import ctypes
 import functools
-import hashlib
-import os
-import shutil
-import subprocess
-import time
-from pathlib import Path
 from typing import Dict
 
 import torch
 
+from repro_torch.kernels import build as kbuild
 from repro_torch.kernels import ref
 
 BLOCK = ref.BLOCK
-SOURCE = Path(__file__).resolve().parent / "csrc" / "polyline_codec.cu"
-BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 #: kernel name -> launches since the last reset (CUDA launches only)
 _LAUNCHES: Dict[str, int] = {"compress": 0, "decompress": 0}
-#: what the last build did: {"path", "seconds", "log"} (seconds 0 if cached)
-BUILD_INFO: Dict[str, object] = {}
 
 
 def launch_counts() -> Dict[str, int]:
@@ -51,36 +38,10 @@ def reset_launch_counts() -> None:
         _LAUNCHES[k] = 0
 
 
-def _nvcc() -> str:
-    from torch.utils.cpp_extension import CUDA_HOME
-    cand = os.path.join(CUDA_HOME, "bin", "nvcc") if CUDA_HOME else None
-    nvcc = cand if cand and os.path.exists(cand) else shutil.which("nvcc")
-    if nvcc is None:
-        raise RuntimeError("nvcc not found (set CUDA_HOME); the codec "
-                           "kernels are built from source at first use")
-    return nvcc
-
-
 @functools.lru_cache(maxsize=None)
 def _lib() -> ctypes.CDLL:
-    """Build (once per source/flags hash) and load the kernel library."""
-    src = SOURCE.read_bytes()
-    tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    out = BUILD_DIR / f"libpolyline_codec_{tag}.so"
-    t0 = time.perf_counter()
-    log = ""
-    if not out.exists():
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-        proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-                               str(SOURCE)], capture_output=True, text=True)
-        log = proc.stdout + proc.stderr
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{log}")
-        os.replace(tmp, out)   # atomic: concurrent builders race safely
-    BUILD_INFO.update(path=str(out), seconds=time.perf_counter() - t0,
-                      log=log)
-    lib = ctypes.CDLL(str(out))
+    """The kernel library (csrc/polyline_codec.cu), built at first use."""
+    lib = kbuild.library("polyline_codec")
     vp, ll, ci = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
     lib.codec_compress.argtypes = [vp, ll, vp, vp, ci, vp]
     lib.codec_compress.restype = ci
@@ -89,13 +50,6 @@ def _lib() -> ctypes.CDLL:
     lib.codec_error_string.argtypes = [ci]
     lib.codec_error_string.restype = ctypes.c_char_p
     return lib
-
-
-def build() -> Dict[str, object]:
-    """Compile and load the kernels now (they are otherwise built at first
-    launch); returns :data:`BUILD_INFO`."""
-    _lib()
-    return dict(BUILD_INFO)
 
 
 def _check(rc: int, what: str) -> None:

@@ -1,10 +1,15 @@
 """Plain PyTorch versions of the port's kernels.
 
 The CPU path of every kernel wrapper, and the yardstick the CUDA kernels
-are held against on the card (chip_smoke.py).  Each repeats its kernel's
-arithmetic exactly, so the comparison is bitwise.
+are held against on the card (chip_smoke.py).  The codec's repeats its
+kernel's arithmetic exactly, so that comparison is bitwise; attention is
+the materialised oracle of the reference (``repro/kernels/ref.py``), held
+to the kernel within a tolerance.
 """
 from __future__ import annotations
+
+import math
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
@@ -46,3 +51,43 @@ def decompress_blocks(q: torch.Tensor, scale: torch.Tensor, n: int
     """Inverse of :func:`compress_blocks`: the first ``n`` values of
     ``float(q) * scale``, flat."""
     return (q.to(torch.float32) * scale).reshape(-1)[:n]
+
+
+# --- attention ---------------------------------------------------------------
+
+NEG_INF = -1e30   # the reference kernel's mask value
+
+
+def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              causal: bool = True, window: Optional[int] = None
+              ) -> torch.Tensor:
+    """q: (BH, S, hd); k/v: (BH, T, hd) -> (BH, S, hd).  The full (S, T)
+    logits, fp32 inside, masked logits -1e30, output in q's dtype."""
+    S, T = q.shape[1], k.shape[1]
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    logits = torch.einsum("bsh,bth->bst", q.float(), k.float()) * scale
+    qpos = torch.arange(S, device=q.device)[:, None]
+    kpos = torch.arange(T, device=q.device)[None, :]
+    mask = torch.ones((S, T), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= qpos >= kpos
+    if window is not None:
+        mask &= (qpos - kpos) < window
+    logits = torch.where(mask, logits, NEG_INF)
+    probs = torch.softmax(logits, dim=-1)
+    return torch.einsum("bst,bth->bsh", probs, v.float()).to(q.dtype)
+
+
+def attention_gqa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  causal: bool = True, window: Optional[int] = None
+                  ) -> torch.Tensor:
+    """:func:`attention` in the kernel's layout: q (B, S, H, hd), k/v
+    (B, T, KV, hd) -> (B, S, H, hd); query head h reads KV head h // G."""
+    B, S, H, hd = q.shape
+    T, KV = k.shape[1], k.shape[2]
+    G = H // KV
+    qf = q.transpose(1, 2).reshape(B * H, S, hd)
+    kf = k.repeat_interleave(G, dim=2).transpose(1, 2).reshape(B * H, T, hd)
+    vf = v.repeat_interleave(G, dim=2).transpose(1, 2).reshape(B * H, T, hd)
+    out = attention(qf, kf, vf, causal=causal, window=window)
+    return out.reshape(B, H, S, hd).transpose(1, 2)
