@@ -8,7 +8,8 @@
     wrapped by the :mod:`flash_attention` module, which this package does
     not shadow with the function); the dense LM's full-sequence attention
     rides it (models/attention.py).
-  * :func:`blocked_attention` — the streaming torch path (CPU, prefix-LM).
+  * :func:`blocked_attention` — the streaming torch path: the CPU path of
+    both names above, and the prefix-LM mask.
   * :mod:`ref` — the plain PyTorch versions each kernel is held against.
 
 Kernels are compiled at first launch (kernels/build.py), never at import.

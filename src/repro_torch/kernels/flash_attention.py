@@ -16,8 +16,8 @@ memory); the output is a new contiguous (B, S, H, hd) tensor.  hd is
 padded inside the kernel, up to 128.
 
 A tensor on the CPU takes the plain version (kernels/ref.py
-``attention_gqa``); a CUDA tensor launches the kernel or raises, with no
-fallback.  CUDA launches are counted (:func:`launch_counts`).
+``blocked_attention``, the same CPU path as ``ops.attention``); a CUDA
+tensor launches the kernel or raises, with no fallback.  CUDA launches are counted (:func:`launch_counts`).
 """
 from __future__ import annotations
 
@@ -94,7 +94,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     0 on both sides)."""
     _check_operands(q, k, v)
     if q.device.type == "cpu":
-        return ref.attention_gqa(q, k, v, causal=causal, window=window)
+        return ref.blocked_attention(q, k, v, causal=causal, window=window)
     B, S, H, hd = q.shape
     T, KV = k.shape[1], k.shape[2]
     if hd > MAX_HEAD_DIM:

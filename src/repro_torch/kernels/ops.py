@@ -5,8 +5,10 @@ each leaf and zero-pads it to a multiple of 8 x 256 (a TPU tiling
 artefact); the CUDA kernel masks the ragged tail itself, so here a leaf is
 only flattened and the blocks are the same 256-value blocks from offset 0.
 Attention: the kernel takes the (B, S, H, hd) / (B, T, KV, hd) layout and
-the GQA grouping by index, so :func:`flash_attention` needs no repeat,
-transpose or padding.
+the GQA grouping by index, so :func:`flash_attention` (the kernel's own
+wrapper, re-exported) needs no repeat, transpose or padding; its CPU path
+and ``attention(impl="blocked")`` are one function, :func:`blocked_attention`
+(kernels/ref.py).
 """
 from __future__ import annotations
 
@@ -15,9 +17,9 @@ from typing import Optional, Tuple
 
 import torch
 
-from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import polyline_codec as codec
-from repro_torch.kernels.ref import NEG_INF
+from repro_torch.kernels.flash_attention import flash_attention  # noqa: F401
+from repro_torch.kernels.ref import blocked_attention  # noqa: F401
 
 
 def compress(x: torch.Tensor, bits: int = 8):
@@ -34,67 +36,6 @@ def decompress(q: torch.Tensor, scale: torch.Tensor,
 
 
 # --- attention ---------------------------------------------------------------
-
-def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                    causal: bool = True, window: Optional[int] = None
-                    ) -> torch.Tensor:
-    """q: (B, S, H, hd); k/v: (B, T, KV, hd) with H % KV == 0 (GQA).
-    Returns (B, S, H, hd): the CUDA kernel on the card, the materialised
-    plain version on the CPU (kernels/flash_attention.py)."""
-    return fa.flash_attention(q, k, v, causal=causal, window=window)
-
-
-def blocked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                      causal: bool = True, window: Optional[int] = None,
-                      block: int = 64, prefix_len: int = 0) -> torch.Tensor:
-    """Flash-style streaming attention in plain torch ops (any device).
-
-    The same contract and masks as :func:`flash_attention` (plus the
-    prefix-LM mask), processed in query blocks of ``block`` rows: each block
-    touches only the K/V rows it can see (causal upper bound, window lower
-    bound), so the (S, T) logits never materialise.  Masks are built on the
-    host per block, and a block that sees all its keys skips the mask.
-    """
-    B, S, H, hd = q.shape
-    T, KV = k.shape[1], k.shape[2]
-    G = H // KV
-    scale = 1.0 / (hd ** 0.5)
-    C = min(block, S)
-    n = -(-S // C)
-    out_blocks = []
-    for i in range(n):
-        s0, s1 = i * C, min((i + 1) * C, S)
-        hi = T
-        if causal and not prefix_len:
-            hi = min(s1, T)
-        lo = 0
-        if window is not None:
-            lo = max(0, s0 + 1 - window)
-        qi = q[:, s0:s1].float() * scale                  # (B, c, H, hd)
-        qi = qi.reshape(B, s1 - s0, KV, G, hd)            # kv-major grouping
-        ki = k[:, lo:hi].float()                          # (B, t, KV, hd)
-        vi = v[:, lo:hi].float()
-        logits = torch.einsum("bckgd,btkd->bckgt", qi, ki)
-        qpos = torch.arange(s0, s1)[:, None]
-        kpos = torch.arange(lo, hi)[None, :]
-        mask = None
-        if causal:
-            m = qpos >= kpos
-            if prefix_len:
-                m = m | (kpos < prefix_len)
-            mask = m
-        if window is not None:
-            m = (qpos - kpos) < window
-            mask = m if mask is None else (mask & m)
-        if mask is not None and not bool(mask.all()):
-            logits = torch.where(mask.to(q.device)[None, :, None, None, :],
-                                 logits, NEG_INF)
-        probs = torch.softmax(logits, dim=-1)
-        o = torch.einsum("bckgt,btkd->bckgd", probs, vi)
-        out_blocks.append(o.reshape(B, s1 - s0, H, hd))
-    out = out_blocks[0] if n == 1 else torch.cat(out_blocks, dim=1)
-    return out.to(q.dtype)
-
 
 ATTENTION_IMPLS = ("auto", "kernel", "blocked")
 

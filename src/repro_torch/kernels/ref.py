@@ -2,9 +2,11 @@
 
 The CPU path of every kernel wrapper, and the yardstick the CUDA kernels
 are held against on the card (chip_smoke.py).  The codec's repeats its
-kernel's arithmetic exactly, so that comparison is bitwise; attention is
-the materialised oracle of the reference (``repro/kernels/ref.py``), held
-to the kernel within a tolerance.
+kernel's arithmetic exactly, so that comparison is bitwise.  Attention has
+two: :func:`blocked_attention`, the streaming CPU path of the kernel's
+wrapper (``repro/kernels/ops.py`` ``blocked_attention``), and
+:func:`attention`, the materialised oracle of the reference
+(``repro/kernels/ref.py``) the kernel is held to within a tolerance.
 """
 from __future__ import annotations
 
@@ -91,3 +93,55 @@ def attention_gqa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     vf = v.repeat_interleave(G, dim=2).transpose(1, 2).reshape(B * H, T, hd)
     out = attention(qf, kf, vf, causal=causal, window=window)
     return out.reshape(B, H, S, hd).transpose(1, 2)
+
+
+def blocked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      causal: bool = True, window: Optional[int] = None,
+                      block: int = 64, prefix_len: int = 0) -> torch.Tensor:
+    """Flash-style streaming attention in plain torch ops (any device).
+
+    The same contract and masks as the flash kernel (plus the prefix-LM
+    mask), processed in query blocks of ``block`` rows: each block
+    touches only the K/V rows it can see (causal upper bound, window lower
+    bound), so the (S, T) logits never materialise.  Masks are built on the
+    host per block, and a block that sees all its keys skips the mask.
+    """
+    B, S, H, hd = q.shape
+    T, KV = k.shape[1], k.shape[2]
+    G = H // KV
+    scale = 1.0 / (hd ** 0.5)
+    C = min(block, S)
+    n = -(-S // C)
+    out_blocks = []
+    for i in range(n):
+        s0, s1 = i * C, min((i + 1) * C, S)
+        hi = T
+        if causal and not prefix_len:
+            hi = min(s1, T)
+        lo = 0
+        if window is not None:
+            lo = max(0, s0 + 1 - window)
+        qi = q[:, s0:s1].float() * scale                  # (B, c, H, hd)
+        qi = qi.reshape(B, s1 - s0, KV, G, hd)            # kv-major grouping
+        ki = k[:, lo:hi].float()                          # (B, t, KV, hd)
+        vi = v[:, lo:hi].float()
+        logits = torch.einsum("bckgd,btkd->bckgt", qi, ki)
+        qpos = torch.arange(s0, s1)[:, None]
+        kpos = torch.arange(lo, hi)[None, :]
+        mask = None
+        if causal:
+            m = qpos >= kpos
+            if prefix_len:
+                m = m | (kpos < prefix_len)
+            mask = m
+        if window is not None:
+            m = (qpos - kpos) < window
+            mask = m if mask is None else (mask & m)
+        if mask is not None and not bool(mask.all()):
+            logits = torch.where(mask.to(q.device)[None, :, None, None, :],
+                                 logits, NEG_INF)
+        probs = torch.softmax(logits, dim=-1)
+        o = torch.einsum("bckgt,btkd->bckgd", probs, vi)
+        out_blocks.append(o.reshape(B, s1 - s0, H, hd))
+    out = out_blocks[0] if n == 1 else torch.cat(out_blocks, dim=1)
+    return out.to(q.dtype)

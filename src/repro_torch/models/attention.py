@@ -162,9 +162,11 @@ def _attend(q, k, v, mask, exact: bool = False):
 
 
 def _attention_core(cfg: ModelConfig, q, k, v, positions: torch.Tensor,
-                    tp: int, prefix_len: int = 0) -> torch.Tensor:
+                    tp: int) -> torch.Tensor:
     """Full-sequence attention of projected q (B,S,kv,G,hd) and k/v
-    (B,S,kv,hd) -> (B, S, H*hd), before the output projection."""
+    (B,S,kv,hd) -> (B, S, H*hd), before the output projection.  No ported
+    family has a prefix-LM frontend (the vlm family is ROADMAP A17), so
+    the mask is causal or bidirectional, with an optional window."""
     B, S = q.shape[:2]
     C = min(cfg.attn_chunk, S)
     W = cfg.swa_window
@@ -173,11 +175,7 @@ def _attention_core(cfg: ModelConfig, q, k, v, positions: torch.Tensor,
         # kernel-layer contract: q (B, S, H, hd), k/v (B, S, kv, hd); q's
         # (kv, G) grouping flattens kv-major, the kernels' GQA mapping
         qf = q.reshape(B, S, -1, cfg.head_dim)
-        impl = "auto"
-        if prefix_len and kops.default_attention_impl(qf) != "blocked":
-            impl = "blocked"  # the flash kernel has no prefix-LM mask
-        out = kops.attention(qf, k, v, causal=cfg.causal, window=W,
-                             impl=impl, block=C, prefix_len=prefix_len)
+        out = kops.attention(qf, k, v, causal=cfg.causal, window=W, block=C)
         return out.reshape(B, S, -1)
 
     def block_mask(pos_q, pos_kv):
@@ -185,8 +183,6 @@ def _attention_core(cfg: ModelConfig, q, k, v, positions: torch.Tensor,
                        device=pos_q.device)
         if cfg.causal:
             m = pos_q[:, None] >= pos_kv[None, :]
-            if prefix_len:  # prefix-LM: bidirectional over the prefix
-                m = m | (pos_kv[None, :] < prefix_len)
         if W is not None:
             m = m & (pos_q[:, None] - pos_kv[None, :] < W)
         return m
@@ -216,24 +212,22 @@ def _attention_core(cfg: ModelConfig, q, k, v, positions: torch.Tensor,
 
 
 def full_attention(cfg: ModelConfig, p, x: torch.Tensor,
-                   positions: torch.Tensor, tp: int, prefix_len: int = 0
-                   ) -> torch.Tensor:
+                   positions: torch.Tensor, tp: int) -> torch.Tensor:
     """Full-sequence attention (train / prefill). x: (B, S, d)."""
     q, k, v = _project_qkv(cfg, p, x, positions, tp)
-    out = _attention_core(cfg, q, k, v, positions, tp, prefix_len)
+    out = _attention_core(cfg, q, k, v, positions, tp)
     return torch.matmul(out, p["wo"])
 
 
 def prefill_attention(cfg: ModelConfig, p, x, positions, tp: int,
-                      cache: KVCache, prefix_len: int = 0
-                      ) -> Tuple[torch.Tensor, KVCache]:
+                      cache: KVCache) -> Tuple[torch.Tensor, KVCache]:
     """Full attention + write this segment's K/V into the (per-layer)
     cache, in place: positions 0..S-1, the last min(S, T) of them kept,
     placed at slot ``pos % T`` (the reference's pad-then-roll)."""
     B, S, _ = x.shape
     q, k, v = _project_qkv(cfg, p, x, positions, tp)
     out = torch.matmul(
-        _attention_core(cfg, q, k, v, positions, tp, prefix_len), p["wo"])
+        _attention_core(cfg, q, k, v, positions, tp), p["wo"])
     T = cache.k.shape[1]
     keep = min(S, T)
     k, v = k[:, -keep:], v[:, -keep:]

@@ -69,11 +69,11 @@ def _ffn(cfg: ModelConfig, lp, h: torch.Tensor) -> torch.Tensor:
     return swiglu(h, f["w_gate"], f["w_in"], f["w_out"])
 
 
-def _block_train(cfg: ModelConfig, tp: int, prefix_len: int,
-                 x: torch.Tensor, positions: torch.Tensor, lp) -> torch.Tensor:
+def _block_train(cfg: ModelConfig, tp: int, x: torch.Tensor,
+                 positions: torch.Tensor, lp) -> torch.Tensor:
     """One layer, full-sequence (forward only)."""
     h = rms_norm(x, lp["ln1"], cfg.rms_eps)
-    x = x + attn.full_attention(cfg, lp["attn"], h, positions, tp, prefix_len)
+    x = x + attn.full_attention(cfg, lp["attn"], h, positions, tp)
     h = rms_norm(x, lp["ln2"], cfg.rms_eps)
     return x + _ffn(cfg, lp, h)
 
@@ -86,11 +86,9 @@ def _block_decode(cfg: ModelConfig, tp: int, x, pos, lp, cache):
     return x + _ffn(cfg, lp, h), cache
 
 
-def _block_prefill(cfg: ModelConfig, tp: int, prefix_len, x, positions, lp,
-                   cache):
+def _block_prefill(cfg: ModelConfig, tp: int, x, positions, lp, cache):
     h = rms_norm(x, lp["ln1"], cfg.rms_eps)
-    y, cache = attn.prefill_attention(cfg, lp["attn"], h, positions, tp, cache,
-                                      prefix_len)
+    y, cache = attn.prefill_attention(cfg, lp["attn"], h, positions, tp, cache)
     x = x + y
     h = rms_norm(x, lp["ln2"], cfg.rms_eps)
     return x + _ffn(cfg, lp, h), cache
@@ -110,10 +108,11 @@ def _index(tree, i: int):
 # ---------------------------------------------------------------------------
 
 def embed_inputs(cfg: ModelConfig, p, batch: Dict[str, torch.Tensor], tp: int
-                 ) -> Tuple[torch.Tensor, int]:
-    """Returns (x (B,S,d), prefix_len)."""
+                 ) -> torch.Tensor:
+    """Returns x (B,S,d).  Only frontend-free families are ported, so
+    there is no prefix (the reference's prefix_len is always 0 here)."""
     check_family(cfg)
-    return p["embed"][batch["tokens"].long()], 0
+    return p["embed"][batch["tokens"].long()]
 
 
 def lm_head(cfg: ModelConfig, p, x: torch.Tensor) -> torch.Tensor:
@@ -123,15 +122,14 @@ def lm_head(cfg: ModelConfig, p, x: torch.Tensor) -> torch.Tensor:
 
 def forward_train(cfg: ModelConfig, p, batch, tp: int
                   ) -> Tuple[torch.Tensor, torch.Tensor, int]:
-    """Returns (features (B,S,d), aux_loss, prefix_len)."""
+    """Returns (features (B,S,d), aux_loss, prefix_len), prefix_len 0."""
     attn.check_tp(tp)
-    x, prefix_len = embed_inputs(cfg, p, batch, tp)
+    x = embed_inputs(cfg, p, batch, tp)
     positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
     for i in range(cfg.n_layers):
-        x = _block_train(cfg, tp, prefix_len, x, positions,
-                         _index(p["layers"], i))
+        x = _block_train(cfg, tp, x, positions, _index(p["layers"], i))
     x = rms_norm(x, p["final_norm"], cfg.rms_eps)
-    return x, torch.zeros((), dtype=torch.float32, device=x.device), prefix_len
+    return x, torch.zeros((), dtype=torch.float32, device=x.device), 0
 
 
 # ---------------------------------------------------------------------------
@@ -156,12 +154,12 @@ def serve_prefill(cfg, p, batch, tp: int, cache: attn.KVCache,
     decode never attends the right-padding.
     """
     attn.check_tp(tp)
-    x, prefix_len = embed_inputs(cfg, p, batch, tp)
+    x = embed_inputs(cfg, p, batch, tp)
     S = x.shape[1]
     positions = torch.arange(S, dtype=torch.int32, device=x.device)
     for i in range(cfg.n_layers):
-        x, _ = _block_prefill(cfg, tp, prefix_len, x, positions,
-                              _index(p["layers"], i), _index(cache, i))
+        x, _ = _block_prefill(cfg, tp, x, positions, _index(p["layers"], i),
+                              _index(cache, i))
     x = rms_norm(x, p["final_norm"], cfg.rms_eps)
     if last_pos is None:
         return lm_head(cfg, p, x[:, -1]), cache

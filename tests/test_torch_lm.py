@@ -225,6 +225,33 @@ def test_convert_nested_roundtrip():
         np.testing.assert_array_equal(a, b)
 
 
+@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("backend", BACKENDS)
+def test_kernel_resolved_prefill_launches_the_kernel_wrapper(
+        arch, backend, monkeypatch):
+    """Where ``auto`` resolves to the kernel (CUDA tensors), every layer's
+    full-sequence attention of the flash backend goes through the kernel
+    wrapper, and no other path: the reference backend never calls it."""
+    from repro_torch.kernels import ops as tops
+    from repro_torch.kernels import ref as tref
+    calls = []
+
+    def kernel(q, k, v, causal=True, window=None):
+        calls.append(tuple(q.shape))
+        return tref.blocked_attention(q, k, v, causal=causal, window=window)
+
+    monkeypatch.setattr(tops, "default_attention_impl", lambda x: "kernel")
+    monkeypatch.setattr(tops, "flash_attention", kernel)
+    _, _, tc, tp = _bind(arch, backend)
+    toks = torch.from_numpy(_tokens(tc, (2, 40)))
+    cache = tlm.init_cache(tc, 2, 48, 1, torch.float32, device="cpu")
+    with torch.no_grad():
+        logits, _ = tlm.serve_prefill(tc, tp, {"tokens": toks}, 1, cache)
+    assert bool(torch.isfinite(logits).all())
+    want = 0 if backend == "reference" else tc.n_layers
+    assert len(calls) == want, (backend, calls)
+
+
 @pytest.mark.parametrize("arch,match", [
     ("deepseek-moe-16b", "A17"), ("rwkv6-3b", "A17"),
     ("zamba2-2.7b", "A17"), ("paligemma-3b", "A17"),
