@@ -37,6 +37,24 @@ only, never JAX or the reference package.  Phases:
    devices give the same tokens, and their prefill logits agree within a
    relative L2 of 1e-4.
 
+9. Hold the chunk-scan kernels against their plain versions on the card:
+   WKV6 (B3) on the reference's WKV_CASES against the token-level oracle
+   (5e-4 fp32, 5e-2 bf16), SSD (B4) on SSD_CASES (5e-4, 1e-1); both with
+   a nonzero state in and the state out against the chunked plain version
+   (relative 1e-4 fp32, 1e-2 bf16), in the models' layouts and at the
+   full-width prefill shapes; WKV6 with logw = -8 finite.  Time kernel
+   and plain version at the prefill shapes beside the bound.
+10. rwkv6-3b at full width (fp32 params drawn on the card): the prototype
+    ``Server`` prefills a wave of 8 prompts of 4..1024 tokens through
+    ``lm.serve_prefill`` (exactly 32 wkv6 launches) and decodes 16 tokens;
+    then ``launch/serve.py`` with its default arch (16 requests, 8 slots,
+    prompts up to 64, 16 new) force-feeds every prompt (no prefill call,
+    no launch); then one profiled wave and step.
+11. zamba2-2.7b likewise: a wave makes 54 ssd and 9 flash launches.
+12. rwkv6-smoke and zamba2-smoke on the card and the CPU from the same
+    params and requests: equal tokens from a Server wave and an engine run
+    that recycles slots, prefill logits within a relative L2 of 1e-4.
+
 Any failed check exits non-zero.  The last three lines of standard output
 are the kernel report (JSON), the card's ``name, power.limit`` and
 ``{"ok": true, "device": {...}}``.  Without CUDA, or without the port's
@@ -312,7 +330,7 @@ def run_main_path(torch, api, pc, dev):
     expect = 2 * n_leaves * rounds
     check(rounds == 10, f"{rounds} FedAT rounds ran, expected 10")
     check(counts == {"compress": expect, "decompress": expect,
-                     "flash_attention": 0},
+                     "flash_attention": 0, "wkv6": 0, "ssd": 0},
           f"launch counts {counts}, expected {expect} of each codec kernel "
           f"(2 x {n_leaves} leaves x {rounds} rounds)")
     steps = (env.train["y"].shape[1] // env.sc.batch_size) \
@@ -635,8 +653,9 @@ def run_serving(torch, kernels, serve_launch):
     check(counts["flash_attention"] == waves * cfg.n_layers == 56,
           f"flash launches {counts}, expected {waves} waves x "
           f"{cfg.n_layers} layers")
-    check(counts["compress"] == 0 and counts["decompress"] == 0,
-          f"codec kernels ran while serving: {counts}")
+    check(counts["compress"] == 0 and counts["decompress"] == 0
+          and counts["wkv6"] == 0 and counts["ssd"] == 0,
+          f"codec or scan kernels ran while serving qwen2-7b: {counts}")
     check(len(done) == 16 and sorted(r.rid for r in done) == list(range(16)),
           f"{len(done)} requests done")
     check(all(len(r.out) == 16 and not r.truncated for r in done),
@@ -692,8 +711,9 @@ def run_serving(torch, kernels, serve_launch):
 
 
 def _leaves(tree):
-    if isinstance(tree, dict):
-        for v in tree.values():
+    """Every tensor of a tree of dicts and (named) tuples."""
+    if isinstance(tree, (dict, tuple)):
+        for v in (tree.values() if isinstance(tree, dict) else tree):
             yield from _leaves(v)
     else:
         yield tree
@@ -800,6 +820,535 @@ def serving_card_vs_cpu(torch, kernels, lm, convert, serve):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 9: the chunk-scan kernels against their plain versions
+# ---------------------------------------------------------------------------
+
+# the reference's sweeps (tests/test_kernels.py): (BH, S, N, chunk) and
+# (BH, S, P, N, chunk), at the reference's tolerances against the
+# token-level oracles
+WKV_CASES = [(2, 64, 16, 32), (3, 100, 16, 32), (1, 256, 32, 64),
+             (4, 33, 8, 16)]
+SSD_CASES = [(2, 64, 16, 8, 32), (3, 100, 32, 16, 32), (1, 256, 64, 64, 64)]
+WKV_TOL = {"float32": 5e-4, "bfloat16": 5e-2}
+SSD_TOL = {"float32": 5e-4, "bfloat16": 1e-1}
+#: kernel against the chunked plain version from a nonzero state, as
+#: max |err| / max |want| over y and over the final state: fp32 sums in
+#: another order agree to a few ulps of the largest value; bf16 outputs
+#: round once to bf16 (2^-9 relative), the state stays fp32
+SCAN_RTOL = {"float32": 1e-4, "bfloat16": 1e-2}
+#: the prefill waves' scan shapes: rwkv6-3b (8 slots x 1024 tokens, 40
+#: heads of 64) and zamba2-2.7b (80 SSD heads, P = N = 64)
+WKV_FULL = dict(B=8, S=1024, H=40, N=64)
+SSD_FULL = dict(B=8, S=1024, H=80, P=64, N=64)
+#: smaller shapes in the models' own layouts: several heads sharing u
+#: (rwkv6) and B/C (mamba2), a ragged last chunk
+WKV_MODEL_CASES = [dict(B=2, S=100, H=4, N=16), dict(B=3, S=70, H=5, N=64)]
+SSD_MODEL_CASES = [dict(B=2, S=100, H=8, P=16, N=16),
+                   dict(B=2, S=77, H=6, P=64, N=64)]
+SCAN_CHUNK = 32   # both kernels' own chunk (csrc/wkv6.cu, csrc/ssd.cu)
+SSD_MODEL_CHUNK = 128   # zamba2-2.7b's configured chunk, the plain path's
+
+
+def _rel(got, want) -> float:
+    return float((got.float() - want.float()).abs().max()
+                 / want.float().abs().max().clamp_min(1e-30))
+
+
+def _randn(torch, g):
+    return lambda *s: torch.randn(*s, device="cuda", generator=g)
+
+
+def wkv_inputs(torch, g, B, S, H, N, dtype, strong=False):
+    dt, rnd = getattr(torch, dtype), _randn(torch, g)
+    r, k, v = (rnd(B, S, H, N).to(dt) for _ in range(3))
+    logw = (torch.full((B, S, H, N), -8.0, device="cuda") if strong
+            else -torch.exp(rnd(B, S, H, N)))
+    return r, k, v, logw, rnd(H, N), rnd(B, H, N, N)
+
+
+def ssd_inputs(torch, g, B, S, H, P, N, dtype):
+    dt, rnd = getattr(torch, dtype), _randn(torch, g)
+    return (rnd(B, S, H, P).to(dt), rnd(B, S, N).to(dt),
+            rnd(B, S, N).to(dt), -rnd(B, S, H).abs(), rnd(B, H, P, N))
+
+
+def _bound(nbytes, flops, dtype):
+    peak = FP32_OPS_PER_S if dtype == "float32" else BF16_OPS_PER_S
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / peak * 1e3
+    return {"bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bytes": nbytes, "flops": flops}
+
+
+def wkv_bound(B, S, H, N, dtype):
+    """Least time for one launch: r, k, v, y (dtype) and logw (f32) moved
+    once, the state read and written once; operations of the chunked form
+    at the kernel's chunk (a multiply-add counts 2, an exp 1): per chunk
+    (r exp(cum_prev)) @ S and the state update (2 C N^2 multiply-adds), the
+    strictly-lower pairwise decayed products and their product with v
+    (C(C-1)/2 N each), the bonus (2 C N), and C(C-1)/2 N + 2 C N exps."""
+    size = 4 if dtype == "float32" else 2
+    nbytes = (4 * size + 4) * B * S * H * N + 8 * B * H * N * N + 4 * H * N
+    C = SCAN_CHUNK
+    pairs = C * (C - 1) // 2
+    fma = 2 * C * N * N + 2 * pairs * N + 2 * C * N
+    flops = B * H * (-(-S // C)) * (2 * fma + pairs * N + 2 * C * N)
+    return _bound(nbytes, flops, dtype)
+
+
+def ssd_bound(B, S, H, P, N, dtype):
+    """Least time for one launch: x, y (B,S,H,P), B, C (B,S,N) in dtype
+    and da (f32) moved once, h read and written once; operations of the
+    chunked form at the kernel's chunk: C.h and the state update (2 C P N
+    multiply-adds per head), the visible C.B products once per batch row
+    and chunk (C(C+1)/2 N: B and C are shared by the heads, though the
+    kernel recomputes them per head), their product with x (C(C+1)/2 P per
+    head), and C(C+1)/2 + 2 C exps per head."""
+    size = 4 if dtype == "float32" else 2
+    nbytes = (size * (2 * B * S * H * P + 2 * B * S * N) + 4 * B * S * H
+              + 8 * B * H * P * N)
+    C = SCAN_CHUNK
+    vis = C * (C + 1) // 2
+    per_head = 2 * (2 * C * P * N + vis * P) + vis + 2 * C
+    flops = B * (-(-S // C)) * (H * per_head + 2 * vis * N)
+    return _bound(nbytes, flops, dtype)
+
+
+def _time_pair(torch, kern, plain):
+    """plain, kernel, kernel, plain: the order cancels drift."""
+    p1 = event_time_ms(torch, plain, 3)
+    k1 = event_time_ms(torch, kern)
+    k2 = event_time_ms(torch, kern)
+    p2 = event_time_ms(torch, plain, 3)
+    return {"ms": min(k1, k2), "ms_runs": [k1, k2], "plain_ms": min(p1, p2),
+            "plain_ms_runs": [p1, p2]}
+
+
+def check_wkv6(torch, ops, scan, ref):
+    """B3 against its plain versions on the card; times at the rwkv6-3b
+    prefill shape.  Returns {dtype: {...}}."""
+    g = torch.Generator(device="cuda").manual_seed(9)
+    rnd = _randn(torch, g)
+    out = {}
+    for dtype in ("float32", "bfloat16"):
+        worst_oracle, worst_rel = 0.0, 0.0
+        dt = getattr(torch, dtype)
+        for BH, S, N, chunk in WKV_CASES:
+            r, k, v = (rnd(BH, S, N).to(dt) for _ in range(3))
+            logw, u = -torch.exp(rnd(BH, S, N)), rnd(BH, N)
+            got = ops.wkv6(r, k, v, logw, u, chunk=chunk)
+            want = ref.wkv6(r, k, v, logw, u)
+            torch.cuda.synchronize()
+            check(got.shape == want.shape and got.dtype == dt,
+                  f"wkv6 output {tuple(got.shape)} {got.dtype}")
+            err = float((got.float() - want.float()).abs().max())
+            check(err < WKV_TOL[dtype], f"wkv6 kernel vs oracle ({BH},{S},"
+                  f"{N}) {dtype}: max abs err {err}")
+            worst_oracle = max(worst_oracle, err)
+            # a nonzero state in, the final state out, u per batch row
+            s0 = rnd(BH, 1, N, N)
+            s_k = s0.clone()
+            view = lambda a: a[:, :, None]  # noqa: E731
+            got = scan.wkv6(view(r), view(k), view(v), view(logw),
+                            u[:, None], s_k)
+            want, s_p = ref.wkv6_chunked(view(r), view(k), view(v),
+                                         view(logw), u[:, None], s0, chunk)
+            rel = max(_rel(got, want), _rel(s_k, s_p))
+            check(rel < SCAN_RTOL[dtype], f"wkv6 with state ({BH},{S},{N}) "
+                  f"{dtype}: rel err {rel}")
+            worst_rel = max(worst_rel, rel)
+        for case in WKV_MODEL_CASES + [WKV_FULL]:
+            r, k, v, logw, u, s0 = wkv_inputs(torch, g, dtype=dtype, **case)
+            s_k = s0.clone()
+            got = scan.wkv6(r, k, v, logw, u, s_k)
+            want, s_p = ref.wkv6_chunked(r, k, v, logw, u, s0, SCAN_CHUNK)
+            torch.cuda.synchronize()
+            rel = max(_rel(got, want), _rel(s_k, s_p))
+            check(rel < SCAN_RTOL[dtype], f"wkv6 model layout {case} "
+                  f"{dtype}: rel err {rel}")
+            worst_rel = max(worst_rel, rel)
+            del r, k, v, logw, got, want
+        # strong decay: the pairwise exp must not overflow
+        r, k, v, logw, u, _ = wkv_inputs(torch, g, 2, 128, 1, 16, dtype,
+                                         strong=True)
+        y = ops.wkv6(r[:, :, 0], k[:, :, 0], v[:, :, 0], logw[:, :, 0],
+                     torch.zeros(2, 16, device="cuda"), chunk=64)
+        torch.cuda.synchronize()
+        check(bool(torch.isfinite(y).all()), "wkv6 strong decay not finite")
+        F_ = WKV_FULL
+        r, k, v, logw, u, s0 = wkv_inputs(torch, g, dtype=dtype, **F_)
+        s = s0.clone()
+        times = _time_pair(
+            torch, lambda: scan.wkv6(r, k, v, logw, u, s),
+            lambda: ref.wkv6_chunked(r, k, v, logw, u, s0, SCAN_CHUNK))
+        o = out[dtype] = dict(wkv_bound(dtype=dtype, **F_), **times,
+                              max_abs_err=worst_oracle, max_rel_err=worst_rel)
+        log(f"phase 9: wkv6 {dtype}: {len(WKV_CASES)} reference sweeps "
+            f"within {WKV_TOL[dtype]} of the oracle (max abs err "
+            f"{worst_oracle:.3g}); with a state in and out, "
+            f"{len(WKV_CASES) + len(WKV_MODEL_CASES) + 1} shapes within "
+            f"{SCAN_RTOL[dtype]} relative of the chunked plain version "
+            f"(worst {worst_rel:.3g}); strong decay finite; prefill shape "
+            f"{F_}: kernel {o['ms']:.4f} ms (runs {o['ms_runs'][0]:.4f}/"
+            f"{o['ms_runs'][1]:.4f}), plain {o['plain_ms']:.4f} ms, bound "
+            f"{o['bound_ms']:.4f} ms ({o['bound_by']}: "
+            f"{o['flops'] / 1e9:.2f} GFLOP, {o['bytes'] / 1e6:.1f} MB)")
+        del r, k, v, logw, s, s0
+    torch.cuda.empty_cache()
+    return out
+
+
+def check_ssd(torch, ops, scan, ref):
+    """B4 against its plain versions on the card; times at the zamba2-2.7b
+    prefill shape.  Returns {dtype: {...}}."""
+    g = torch.Generator(device="cuda").manual_seed(10)
+    rnd = _randn(torch, g)
+    out = {}
+    for dtype in ("float32", "bfloat16"):
+        worst_oracle, worst_rel = 0.0, 0.0
+        dt = getattr(torch, dtype)
+        for BH, S, P, N, chunk in SSD_CASES:
+            x, Bm, Cm = (rnd(BH, S, d).to(dt) for d in (P, N, N))
+            da = -rnd(BH, S, 1).abs()
+            got = ops.ssd(x, Bm, Cm, da, chunk=chunk)
+            want = ref.ssd(x, Bm, Cm, da)
+            torch.cuda.synchronize()
+            check(got.shape == want.shape and got.dtype == dt,
+                  f"ssd output {tuple(got.shape)} {got.dtype}")
+            err = float((got.float() - want.float()).abs().max())
+            check(err < SSD_TOL[dtype], f"ssd kernel vs oracle ({BH},{S},"
+                  f"{P},{N}) {dtype}: max abs err {err}")
+            worst_oracle = max(worst_oracle, err)
+            h0 = rnd(BH, 1, P, N)
+            h_k = h0.clone()
+            got = scan.ssd_scan(x[:, :, None], Bm, Cm, da, h_k)
+            want, h_p = ref.ssd_chunked(x[:, :, None], Bm, Cm, da, h0, chunk)
+            rel = max(_rel(got, want), _rel(h_k, h_p))
+            check(rel < SCAN_RTOL[dtype], f"ssd with state ({BH},{S},{P},"
+                  f"{N}) {dtype}: rel err {rel}")
+            worst_rel = max(worst_rel, rel)
+        for case in SSD_MODEL_CASES + [SSD_FULL]:
+            x, Bm, Cm, da, h0 = ssd_inputs(torch, g, dtype=dtype, **case)
+            h_k = h0.clone()
+            got = scan.ssd_scan(x, Bm, Cm, da, h_k)
+            want, h_p = ref.ssd_chunked(x, Bm, Cm, da, h0, SSD_MODEL_CHUNK)
+            torch.cuda.synchronize()
+            rel = max(_rel(got, want), _rel(h_k, h_p))
+            check(rel < SCAN_RTOL[dtype], f"ssd model layout {case} {dtype}"
+                  f": rel err {rel}")
+            worst_rel = max(worst_rel, rel)
+            del x, got, want
+        F_ = SSD_FULL
+        x, Bm, Cm, da, h0 = ssd_inputs(torch, g, dtype=dtype, **F_)
+        h = h0.clone()
+        times = _time_pair(
+            torch, lambda: scan.ssd_scan(x, Bm, Cm, da, h),
+            lambda: ref.ssd_chunked(x, Bm, Cm, da, h0, SSD_MODEL_CHUNK))
+        o = out[dtype] = dict(ssd_bound(dtype=dtype, **F_), **times,
+                              max_abs_err=worst_oracle, max_rel_err=worst_rel)
+        log(f"phase 9: ssd {dtype}: {len(SSD_CASES)} reference sweeps "
+            f"within {SSD_TOL[dtype]} of the oracle (max abs err "
+            f"{worst_oracle:.3g}); with a state in and out, "
+            f"{len(SSD_CASES) + len(SSD_MODEL_CASES) + 1} shapes within "
+            f"{SCAN_RTOL[dtype]} relative of the chunked plain version "
+            f"(worst {worst_rel:.3g}); prefill shape {F_}: kernel "
+            f"{o['ms']:.4f} ms (runs {o['ms_runs'][0]:.4f}/"
+            f"{o['ms_runs'][1]:.4f}), plain {o['plain_ms']:.4f} ms (chunk "
+            f"{SSD_MODEL_CHUNK}), bound {o['bound_ms']:.4f} ms "
+            f"({o['bound_by']}: {o['flops'] / 1e9:.2f} GFLOP, "
+            f"{o['bytes'] / 1e6:.1f} MB)")
+        del x, Bm, Cm, da, h, h0
+    torch.cuda.empty_cache()
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phases 10-11: the recurrent families at full width
+# ---------------------------------------------------------------------------
+
+#: the launches one prefill wave must make: rwkv6 runs B3 once per layer;
+#: zamba2 runs B4 once per mamba2 layer and B2 once per application of the
+#: shared attention block
+RECURRENT = {
+    "rwkv6-3b": {"wkv6": 32, "ssd": 0, "flash_attention": 0},
+    "zamba2-2.7b": {"wkv6": 0, "ssd": 54, "flash_attention": 9},
+}
+WAVE = dict(slots=8, max_prompt=1024, max_new=16, seed=0)
+ENGINE_ARGV = ["--requests", "16", "--slots", "8", "--prompt-len", "64",
+               "--max-new", "16", "--seed", "0", "--device", "cuda"]
+
+
+class timed_calls:
+    """Wraps functions of a module for a ``with`` block: each call is
+    synchronised and its host seconds recorded in ``seconds[name]``."""
+
+    def __init__(self, torch, module, *names):
+        self.torch, self.module, self.names = torch, module, names
+        self.seconds = {n: [] for n in names}
+
+    def _wrap(self, name, fn):
+        def timed(*a, **k):
+            self.torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*a, **k)
+            self.torch.cuda.synchronize()
+            self.seconds[name].append(time.perf_counter() - t0)
+            return out
+        return timed
+
+    def __enter__(self):
+        self.orig = {n: getattr(self.module, n) for n in self.names}
+        for n, fn in self.orig.items():
+            setattr(self.module, n, self._wrap(n, fn))
+        return self
+
+    def __exit__(self, *exc):
+        for n, fn in self.orig.items():
+            setattr(self.module, n, fn)
+
+
+def profile_recurrent(torch, lm, cfg, params, plen, wave_s, step_s, tag):
+    """One prefill wave (8 x plen) and one decode step under torch.profiler,
+    outside the counted runs: kernel time, busy share against the
+    unprofiled wave and median step, and the B3, B4 and B2 milliseconds."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    B = WAVE["slots"]
+    rng = np.random.default_rng(11)
+    toks = torch.as_tensor(rng.integers(0, cfg.vocab_size, (B, plen)),
+                           dtype=torch.int32, device="cuda")
+    pos = torch.full((B,), plen, dtype=torch.int32, device="cuda")
+    cache = lm.init_cache(cfg, B, plen + 8, 1, torch.float32, "cuda")
+    out = {}
+    for name, call, base_s in (
+            ("prefill", lambda: lm.serve_prefill(
+                cfg, params, {"tokens": toks}, 1, cache), wave_s),
+            ("decode", lambda: lm.serve_step(
+                cfg, params, toks[:, 0], pos, 1, cache), step_s)):
+        torch.cuda.synchronize()
+        with torch.no_grad(), profile(activities=[
+                ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            call()
+            torch.cuda.synchronize()
+        per_kernel = {}
+        for e in prof.key_averages():
+            if getattr(e, "device_type", None) != DeviceType.CUDA:
+                continue
+            per_kernel[e.key] = per_kernel.get(e.key, 0.0) + \
+                e.self_device_time_total / 1e3
+        dev_ms = sum(per_kernel.values())
+        if dev_ms == 0:
+            log(f"phase {tag}: profiler saw no kernel time in {name}: busy "
+                f"share not measured")
+            out[name] = {"device_ms": None}
+            continue
+        pick = lambda s: sum(t for k, t in per_kernel.items()  # noqa: E731
+                             if s in k)
+        top = sorted(per_kernel.items(), key=lambda kv: -kv[1])[:6]
+        o = out[name] = {
+            "device_ms": dev_ms, "call_ms": 1e3 * base_s,
+            "busy_share": dev_ms / (1e3 * base_s),
+            "wkv6_ms": pick("wkv6_kernel"), "ssd_ms": pick("ssd_kernel"),
+            "flash_ms": pick("flash_fwd"), "n_kernels": len(per_kernel),
+            "top_kernels_ms": {k[:100]: t for k, t in top}}
+        log(f"phase {tag}: profiled {name}: kernels {dev_ms:.2f} ms against "
+            f"a {o['call_ms']:.2f} ms unprofiled call (busy "
+            f"{100 * o['busy_share']:.1f}%, idle "
+            f"{100 * (1 - o['busy_share']):.1f}%); B3 wkv6 "
+            f"{o['wkv6_ms']:.3f} ms, B4 ssd {o['ssd_ms']:.3f} ms, B2 flash "
+            f"{o['flash_ms']:.3f} ms")
+        for k, t in top:
+            log(f"  {t:10.3f} ms  {k[:100]}")
+    del cache
+    return out
+
+
+def run_recurrent(torch, kernels, serve_launch, lm, arch, tag):
+    """``arch`` at full width: (a) the prototype Server, one prefill wave
+    through lm.serve_prefill and 16 decode steps, counted; (b) the engine
+    through launch/serve.py, which force-feeds every prompt (no prefill
+    call, no scan launch); then one profiled wave and step."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models.common import iter_specs
+    cfg = get_config(arch)
+    want = RECURRENT[arch]
+    rng = np.random.default_rng(WAVE["seed"])
+    prompts = [rng.integers(0, cfg.vocab_size,
+                            int(rng.integers(4, WAVE["max_prompt"] + 1))
+                            ).astype(np.int32) for _ in range(WAVE["slots"])]
+    plen = max(len(p) for p in prompts)
+    info = {"prompt_lens": sorted(len(p) for p in prompts)}
+
+    # (a) the prototype Server: one wave of 8 prompts, 16 tokens each
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    server = serve_launch.Server(cfg, batch_slots=WAVE["slots"],
+                                 max_len=plen + WAVE["max_new"] + 8,
+                                 seed=WAVE["seed"], dtype=torch.float32,
+                                 device="cuda")
+    n_params = sum(t.numel() for t in _leaves(server.params))
+    n_spec = sum(math.prod(s.shape)
+                 for _, s in iter_specs(lm.param_specs(cfg, 1)))
+    check(n_params == n_spec and all(
+        t.is_cuda and t.dtype == torch.float32
+        for t in _leaves(server.params)),
+        f"{arch}: {n_params} params (spec: {n_spec}), or not fp32 on the "
+        f"card")
+    reqs = [serve_launch.Request(i, p, WAVE["max_new"])
+            for i, p in enumerate(prompts)]
+    kernels.reset_launch_counts()
+    torch.cuda.synchronize()
+    with timed_calls(torch, serve_launch.lm, "serve_prefill",
+                     "serve_step") as tc:
+        t0 = time.perf_counter()
+        done, steps = server.run(reqs)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    peak_a = torch.cuda.max_memory_allocated()
+    check(len(tc.seconds["serve_prefill"]) == 1 and steps == WAVE["max_new"],
+          f"{arch} Server: {len(tc.seconds['serve_prefill'])} waves, "
+          f"{steps} steps")
+    check(all(counts[k] == v for k, v in want.items()) and
+          counts["compress"] == 0 and counts["decompress"] == 0,
+          f"{arch} Server wave launches {counts}, expected {want}")
+    check(len(done) == 8 and all(len(r.out) == WAVE["max_new"]
+                                 and not r.truncated for r in done),
+          f"{arch} Server: a request did not finish with 16 tokens")
+    check(all(0 <= t < cfg.vocab_size for r in done for t in r.out),
+          f"{arch} Server: token ids out of range")
+    check(all(bool(torch.isfinite(t).all()) for t in _leaves(server.cache)
+              if t.is_floating_point()), f"{arch} Server: non-finite state")
+    n_tok = sum(len(r.out) for r in done)
+    wave_s = tc.seconds["serve_prefill"][0]
+    step_med = float(np.median(tc.seconds["serve_step"]))
+    info["server"] = {
+        "wall_s": wall, "tok_per_s": n_tok / wall, "tokens": n_tok,
+        # every request of the wave finishes at the last step
+        "latency_p50_s": wall, "latency_p95_s": wall,
+        "prefill_wave_s": wave_s, "prefill_len": plen,
+        "decode_step_s_median": step_med, "decode_steps": steps,
+        "launches": counts, "peak_mem_bytes": peak_a, "n_params": n_params}
+    log(f"phase {tag}: {arch} full width ({n_params} params, fp32), "
+        f"Server: one prefill wave of 8 prompts (lengths "
+        f"{info['prompt_lens']}, padded to {plen}) in {wave_s:.4f} s, "
+        f"{steps} decode steps (median {1e3 * step_med:.2f} ms); {n_tok} "
+        f"tokens in {wall:.3f} s: {n_tok / wall:.2f} tok/s, latency p50 "
+        f"{wall:.3f} s / p95 {wall:.3f} s; launches {counts}; peak "
+        f"{peak_a / 2**30:.2f} GiB")
+    del server, done
+    torch.cuda.empty_cache()
+
+    # (b) the engine through the launcher: every prompt force-fed
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    argv = ENGINE_ARGV if arch == "rwkv6-3b" else ["--arch", arch] + \
+        ENGINE_ARGV
+    t0 = time.perf_counter()
+    engine, done, rep = serve_launch.run(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    peak_b = torch.cuda.max_memory_allocated()
+    check(engine.cfg.name == arch, f"launcher served {engine.cfg.name}")
+    check(not engine.call_seconds["prefill"]
+          and not engine.call_shapes["prefill"],
+          f"{arch} engine called prefill {engine.call_shapes['prefill']}")
+    check(all(v == 0 for v in counts.values()),
+          f"{arch} engine launched kernels while force-feeding: {counts}")
+    check(len(done) == 16 and all(len(r.out) == 16 and not r.truncated
+                                  for r in done),
+          f"{arch} engine: a request did not finish with 16 tokens")
+    check(all(len(engine.call_shapes[k]) == 1 for k in ("decode", "reset")),
+          f"{arch} engine: more than one shape per call "
+          f"{engine.call_shapes}")
+    dec = engine.call_seconds["decode"]
+    info["engine"] = {
+        "wall_s": wall, "report": rep, "launches": counts,
+        "decode_steps": len(dec),
+        "decode_step_s_median": float(np.median(dec)),
+        "peak_mem_bytes": peak_b}
+    log(f"phase {tag}: {arch} engine (launch/serve.py "
+        f"{' '.join(argv)}): {rep['tok_per_s']:.2f} tok/s, latency p50 "
+        f"{rep['latency_p50_s']:.3f} s / p95 {rep['latency_p95_s']:.3f} s, "
+        f"TTFT p50 {rep['ttft_p50_s']:.3f} s; {len(dec)} decode steps "
+        f"(median {1e3 * info['engine']['decode_step_s_median']:.2f} ms), "
+        f"no prefill call, launches {counts}; peak "
+        f"{peak_b / 2**30:.2f} GiB")
+    info["profile"] = profile_recurrent(
+        torch, lm, cfg, engine.params, plen, wave_s,
+        info["engine"]["decode_step_s_median"], tag)
+    del engine
+    torch.cuda.empty_cache()
+    return info
+
+
+# ---------------------------------------------------------------------------
+# phase 12: recurrent serving, card against CPU at smoke size
+# ---------------------------------------------------------------------------
+
+def recurrent_card_vs_cpu(torch, kernels, lm, convert, serve, serve_launch):
+    """rwkv6-smoke and zamba2-smoke from the same params and requests on
+    the card and the CPU: equal tokens from one Server wave and from an
+    engine run that recycles slots (the nested cache reset), and prefill
+    logits within SERVE_LOGITS_RTOL."""
+    from repro_torch.configs.registry import get_smoke_config
+    out = {}
+    for arch, scan in (("rwkv6-3b", "wkv6"), ("zamba2-2.7b", "ssd")):
+        cfg = get_smoke_config(arch)
+        p_cpu = lm.init_params(cfg, seed=1, device="cpu")
+        p_card = convert.params_from_numpy(convert.params_to_numpy(p_cpu),
+                                           device="cuda")
+        rng = np.random.default_rng(4)
+        prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
+                   for n in (40, 13, 27, 9, 33)]
+        spec = serve.ServeSpec(slots=3, max_len=96, prefill_len=48,
+                               max_new=12)
+        toks, launches = {}, {}
+        for dev, p in (("card", p_card), ("cpu", p_cpu)):
+            d = "cuda" if dev == "card" else "cpu"
+            kernels.reset_launch_counts()
+            server = serve_launch.Server(cfg, batch_slots=3, max_len=96,
+                                         device=d)
+            server.params = p
+            sdone, _ = server.run([serve_launch.Request(i, q.copy(), 6)
+                                   for i, q in enumerate(prompts)])
+            reqs = serve.make_requests(6, 0.0, 48, 12, cfg.vocab_size,
+                                       seed=5)
+            edone = serve.ServeEngine(cfg, p, spec).run(reqs)
+            toks[dev] = ([(r.rid, r.out, r.truncated) for r in sdone],
+                         [(r.rid, r.out, r.truncated) for r in edone])
+            launches[dev] = kernels.launch_counts()
+        check(launches["card"][scan] > 0,
+              f"{arch}: the card run did not launch {scan}")
+        check(toks["card"] == toks["cpu"],
+              f"{arch}: card and CPU generated different tokens")
+        batch = rng.integers(0, cfg.vocab_size, (3, 40)).astype(np.int32)
+        logits = {}
+        for dev, p in (("card", p_card), ("cpu", p_cpu)):
+            d = "cuda" if dev == "card" else "cpu"
+            cache = lm.init_cache(cfg, 3, 48, 1, torch.float32, device=d)
+            with torch.no_grad():
+                lg, _ = lm.serve_prefill(
+                    cfg, p, {"tokens": torch.as_tensor(batch, device=d)}, 1,
+                    cache)
+            logits[dev] = lg.float().cpu()
+        rel = float((logits["card"] - logits["cpu"]).norm()
+                    / logits["cpu"].norm())
+        check(rel <= SERVE_LOGITS_RTOL,
+              f"{arch}: prefill logits card vs CPU rel L2 {rel}")
+        n_tok = sum(len(o) for part in toks["card"] for _, o, _ in part)
+        out[arch] = {"tokens": n_tok, "rel_l2_prefill_logits": rel,
+                     "launches": launches["card"]}
+        log(f"phase 12: {cfg.name}: card and CPU generated the same {n_tok} "
+            f"tokens (Server: 5 requests over 3 slots; engine: 6 requests "
+            f"over 3 slots, slots recycled); prefill logits |card - cpu| / "
+            f"|cpu| = {rel:.3g} (tolerance {SERVE_LOGITS_RTOL}); card "
+            f"launches {launches['card']}")
+    return out
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="also write every number as JSON here")
@@ -816,7 +1365,9 @@ def main() -> None:
     from repro_torch.core.simulation import SimEnv
     from repro_torch.kernels import build as kbuild
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops as kops
     from repro_torch.kernels import polyline_codec as pc, ref
+    from repro_torch.kernels import rwkv6_scan, ssd as ssd_scan
     from repro_torch.launch import serve as serve_launch
     from repro_torch.models import convert, lm
     check("jax" not in sys.modules and "repro" not in sys.modules,
@@ -870,6 +1421,18 @@ def main() -> None:
     # phase 8
     serve_agree = serving_card_vs_cpu(torch, kernels, lm, convert, serve)
 
+    # phase 9
+    wkv = check_wkv6(torch, kops, rwkv6_scan, ref)
+    ssd = check_ssd(torch, kops, ssd_scan, ref)
+    # phases 10-11: the recurrent families, counts from 0 per run
+    recurrent = {}
+    for tag, arch in (("10", "rwkv6-3b"), ("11", "zamba2-2.7b")):
+        recurrent[arch] = run_recurrent(torch, kernels, serve_launch, lm,
+                                        arch, tag)
+    # phase 12
+    recurrent_agree = recurrent_card_vs_cpu(torch, kernels, lm, convert,
+                                            serve, serve_launch)
+
     src = "src/repro_torch/kernels/csrc/polyline_codec.cu"
     report = []
     for name, line in (("compress", 52), ("decompress", 69)):
@@ -890,6 +1453,18 @@ def main() -> None:
         "max_abs_err": f32["max_abs_err"], "ms": f32["ms"],
         "plain_ms": f32["plain_ms"], "bound_ms": f32["bound_ms"],
         "bound_by": f32["bound_by"], "library_ms": f32["library_ms"]})
+    for name, src, line, arch, res in (
+            ("wkv6", "wkv6.cu", "rwkv6_scan.py:68", "rwkv6-3b", wkv),
+            ("ssd", "ssd.cu", "ssd.py:64", "zamba2-2.7b", ssd)):
+        t = res["float32"]   # the serving paths' dtype
+        report.append({
+            "name": name, "route": "cuda",
+            "source": f"src/repro_torch/kernels/csrc/{src}",
+            "replaces": f"src/repro/kernels/{line}",
+            "launches": recurrent[arch]["server"]["launches"][name],
+            "max_abs_err": t["max_abs_err"], "ms": t["ms"],
+            "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"], "library_ms": None})
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps({
@@ -898,7 +1473,9 @@ def main() -> None:
             "kernels": report, "kernel_times": times,
             "main_path": main_path, "card_vs_cpu": agree,
             "baselines": base, "flash": flash, "serving": serving,
-            "serving_card_vs_cpu": serve_agree}, indent=2))
+            "serving_card_vs_cpu": serve_agree, "wkv6": wkv, "ssd": ssd,
+            "recurrent": recurrent,
+            "recurrent_card_vs_cpu": recurrent_agree}, indent=2))
     print(json.dumps({"kernels": report}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

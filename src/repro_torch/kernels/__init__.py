@@ -10,6 +10,11 @@
     rides it (models/attention.py).
   * :func:`blocked_attention` — the streaming torch path: the CPU path of
     both names above, and the prefix-LM mask.
+  * ``ops.wkv6`` and :mod:`rwkv6_scan` — the RWKV-6 WKV chunk scan (CUDA
+    C++, ``csrc/wkv6.cu``); rwkv6's prefill rides it (models/rwkv6.py).
+  * ``ops.ssd`` and :mod:`ssd` — the Mamba2 SSD chunk scan (CUDA C++,
+    ``csrc/ssd.cu``); zamba2's mamba2 layers ride it (models/mamba2.py).
+    Neither scan function is re-exported here: ``ssd`` names the module.
   * :mod:`ref` — the plain PyTorch versions each kernel is held against.
 
 Kernels are compiled at first launch (kernels/build.py), never at import.
@@ -19,6 +24,8 @@ from typing import Dict
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import polyline_codec as _codec
 from repro_torch.kernels import ref  # noqa: F401
+from repro_torch.kernels import rwkv6_scan as _wkv
+from repro_torch.kernels import ssd as _ssd
 from repro_torch.kernels.ops import (  # noqa: F401
     attention, blocked_attention, compress, decompress,
     default_attention_impl)
@@ -26,9 +33,10 @@ from repro_torch.kernels.ops import (  # noqa: F401
 
 def launch_counts() -> Dict[str, int]:
     """CUDA launches of every kernel since the last reset."""
-    return {**_codec.launch_counts(), **_fa.launch_counts()}
+    return {**_codec.launch_counts(), **_fa.launch_counts(),
+            **_wkv.launch_counts(), **_ssd.launch_counts()}
 
 
 def reset_launch_counts() -> None:
-    _codec.reset_launch_counts()
-    _fa.reset_launch_counts()
+    for mod in (_codec, _fa, _wkv, _ssd):
+        mod.reset_launch_counts()

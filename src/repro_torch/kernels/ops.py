@@ -8,7 +8,11 @@ Attention: the kernel takes the (B, S, H, hd) / (B, T, KV, hd) layout and
 the GQA grouping by index, so :func:`flash_attention` (the kernel's own
 wrapper, re-exported) needs no repeat, transpose or padding; its CPU path
 and ``attention(impl="blocked")`` are one function, :func:`blocked_attention`
-(kernels/ref.py).
+(kernels/ref.py).  Chunk scans: the kernels take the model's (B, S, H, N)
+layout with a state in and out (kernels/rwkv6_scan.py, kernels/ssd.py);
+:func:`wkv6` and :func:`ssd` keep the reference's flattened (BH, S, .)
+contract on top of them, as H = 1 from a zero state, and need no padding:
+the kernels mask the ragged last chunk, and their CPU path pads it.
 """
 from __future__ import annotations
 
@@ -18,6 +22,8 @@ from typing import Optional, Tuple
 import torch
 
 from repro_torch.kernels import polyline_codec as codec
+from repro_torch.kernels import rwkv6_scan
+from repro_torch.kernels import ssd as ssd_mod
 from repro_torch.kernels.flash_attention import flash_attention  # noqa: F401
 from repro_torch.kernels.ref import blocked_attention  # noqa: F401
 
@@ -66,3 +72,31 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return flash_attention(q, k, v, causal=causal, window=window)
     return blocked_attention(q, k, v, causal=causal, window=window,
                              block=block, prefix_len=prefix_len)
+
+
+# --- wkv6 ---------------------------------------------------------------------
+
+def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+         logw: torch.Tensor, u: torch.Tensor, chunk: int = 64
+         ) -> torch.Tensor:
+    """r/k/v/logw: (BH, S, N); u: (BH, N) -> y (BH, S, N), from a zero
+    state.  ``chunk`` is the CPU path's chunk; the kernel takes its own."""
+    BH, S, N = r.shape
+    state = torch.zeros((BH, 1, N, N), dtype=torch.float32, device=r.device)
+    y = rwkv6_scan.wkv6(r[:, :, None], k[:, :, None], v[:, :, None],
+                        logw[:, :, None], u[:, None], state, chunk=chunk)
+    return y[:, :, 0]
+
+
+# --- ssd ----------------------------------------------------------------------
+
+def ssd(x: torch.Tensor, Bm: torch.Tensor, Cm: torch.Tensor,
+        da: torch.Tensor, chunk: int = 64) -> torch.Tensor:
+    """x: (BH, S, P); Bm/Cm: (BH, S, N); da: (BH, S, 1) -> y (BH, S, P),
+    from a zero state.  ``chunk`` is the CPU path's chunk; the kernel takes
+    its own."""
+    BH, S, P = x.shape
+    h = torch.zeros((BH, 1, P, Bm.shape[-1]), dtype=torch.float32,
+                    device=x.device)
+    y = ssd_mod.ssd_scan(x[:, :, None], Bm, Cm, da, h, chunk=chunk)
+    return y[:, :, 0]

@@ -6,12 +6,16 @@ kernel's arithmetic exactly, so that comparison is bitwise.  Attention has
 two: :func:`blocked_attention`, the streaming CPU path of the kernel's
 wrapper (``repro/kernels/ops.py`` ``blocked_attention``), and
 :func:`attention`, the materialised oracle of the reference
-(``repro/kernels/ref.py``) the kernel is held to within a tolerance.
+(``repro/kernels/ref.py``) the kernel is held to within a tolerance.  So
+have the two chunk scans: the token-level oracles :func:`wkv6` and
+:func:`ssd`, and the chunked forms with a state in and out,
+:func:`wkv6_chunked` and :func:`ssd_chunked` (the models' own chunk scans,
+which are the CPU path of the scan kernels' wrappers).
 """
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -145,3 +149,131 @@ def blocked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         out_blocks.append(o.reshape(B, s1 - s0, H, hd))
     out = out_blocks[0] if n == 1 else torch.cat(out_blocks, dim=1)
     return out.to(q.dtype)
+
+
+# --- wkv6 -------------------------------------------------------------------
+
+def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+         logw: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
+    """Token-level WKV6 recurrence (the definitional form, the oracle of
+    ``repro/kernels/ref.py`` ``wkv6``).  r/k/v/logw: (BH, S, N); u:
+    (BH, N) -> y (BH, S, N) in r's dtype, from a zero state."""
+    r32, k32, v32 = r.float(), k.float(), v.float()
+    lw, u32 = logw.float(), u.float()
+    BH, S, N = r.shape
+    state = torch.zeros((BH, N, N), dtype=torch.float32, device=r.device)
+    ys = []
+    for t in range(S):
+        kv = k32[:, t, :, None] * v32[:, t, None, :]          # (BH, N, N)
+        ys.append(torch.einsum("bi,bij->bj", r32[:, t],
+                               state + u32[:, :, None] * kv))
+        state = torch.exp(lw[:, t])[:, :, None] * state + kv
+    return torch.stack(ys, dim=1).to(r.dtype)
+
+
+def wkv6_chunked(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                 logw: torch.Tensor, u: torch.Tensor, state: torch.Tensor,
+                 chunk: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Chunk-parallel WKV6 (``repro/models/rwkv6.py`` ``_wkv_chunked``).
+
+    r/k/v/logw: (B, S, H, N); u: (H, N), or (B, H, N) for a bonus per
+    batch row; state: (B, H, N, N) f32.  Returns
+    (y (B, S, H, N) f32, final state).  The ragged tail is zero-padded:
+    k = 0 adds nothing to the state and logw = 0 keeps its decay at 1.
+    The intra-chunk decay is exponentiated pairwise in log space (the
+    difference is <= 0 below the diagonal): a factored
+    ``exp(cum_prev_t) * exp(-cum_s)`` overflows for strong decays.
+    """
+    B, S, H, N = r.shape
+    C = min(chunk, S)
+    nc = -(-S // C)
+    Sp = nc * C
+    if Sp != S:
+        pad = lambda a: F.pad(a, (0, 0, 0, 0, 0, Sp - S))  # noqa: E731
+        r, k, v, logw = pad(r), pad(k), pad(v), pad(logw)
+    rs = lambda a: a.reshape(B, nc, C, H, N).permute(1, 0, 3, 2, 4)  # noqa
+    r, k, v = (rs(a).float() for a in (r, k, v))              # (nc,B,H,C,N)
+    logw = rs(logw).float()
+    uu = u.float()
+    uu = uu[None] if uu.dim() == 2 else uu                     # (1|B,H,N)
+    mask = torch.tril(torch.ones((C, C), dtype=torch.bool, device=r.device),
+                      diagonal=-1)
+    ys = []
+    for c in range(nc):
+        rc, kc, vc, lw = r[c], k[c], v[c], logw[c]             # (B,H,C,N)
+        cum = torch.cumsum(lw, dim=2)
+        cum_prev = cum - lw
+        y = torch.einsum("bhti,bhij->bhtj", rc * torch.exp(cum_prev), state)
+        diff = cum_prev[:, :, :, None, :] - cum[:, :, None, :, :]
+        diff = torch.where(mask[None, None, :, :, None], diff, -math.inf)
+        att = torch.einsum("bhti,bhsi,bhtsi->bhts", rc, kc, torch.exp(diff))
+        diag = torch.einsum("bhti,bhti->bht", rc, kc * uu[:, :, None, :])
+        y = y + torch.einsum("bhts,bhsj->bhtj", att, vc) + diag[..., None] * vc
+        last = cum[:, :, -1:, :]                                # (B,H,1,N)
+        kdec = kc * torch.exp(last - cum)
+        state = torch.exp(last[:, :, 0])[..., None] * state + \
+            torch.einsum("bhsi,bhsj->bhij", kdec, vc)
+        ys.append(y)
+    y = torch.stack(ys).permute(1, 0, 3, 2, 4).reshape(B, Sp, H, N)[:, :S]
+    return y, state
+
+
+# --- ssd --------------------------------------------------------------------
+
+def ssd(x: torch.Tensor, Bm: torch.Tensor, Cm: torch.Tensor,
+        da: torch.Tensor) -> torch.Tensor:
+    """Token-level SSD recurrence (the oracle of ``repro/kernels/ref.py``
+    ``ssd``).  x: (BH, S, P); Bm/Cm: (BH, S, N); da: (BH, S, 1) -> y
+    (BH, S, P) in x's dtype, from a zero state."""
+    x32, B32, C32, da32 = x.float(), Bm.float(), Cm.float(), da.float()
+    BH, S, P = x.shape
+    h = torch.zeros((BH, P, Bm.shape[-1]), dtype=torch.float32,
+                    device=x.device)
+    ys = []
+    for t in range(S):
+        h = torch.exp(da32[:, t])[..., None] * h + \
+            torch.einsum("bp,bn->bpn", x32[:, t], B32[:, t])
+        ys.append(torch.einsum("bn,bpn->bp", C32[:, t], h))
+    return torch.stack(ys, dim=1).to(x.dtype)
+
+
+def ssd_chunked(x: torch.Tensor, Bm: torch.Tensor, Cm: torch.Tensor,
+                da: torch.Tensor, h: torch.Tensor, chunk: int
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Chunked SSD (``repro/models/mamba2.py`` ``_ssd_chunked``).
+
+    x: (B, S, H, P) with dt folded in; Bm/Cm: (B, S, N), shared by the
+    heads; da: (B, S, H) log decay <= 0; h: (B, H, P, N) f32.  Returns
+    (y (B, S, H, P) f32, final state).  The ragged tail is zero-padded
+    (x = 0 adds nothing, da = 0 keeps the decay at 1).
+    """
+    B, S, H, P = x.shape
+    C = min(chunk, S)
+    nc = -(-S // C)
+    Sp = nc * C
+    if Sp != S:
+        x = F.pad(x, (0, 0, 0, 0, 0, Sp - S))
+        da = F.pad(da, (0, 0, 0, Sp - S))
+        Bm = F.pad(Bm, (0, 0, 0, Sp - S))
+        Cm = F.pad(Cm, (0, 0, 0, Sp - S))
+    xc = x.reshape(B, nc, C, H, P).permute(1, 0, 3, 2, 4).float()
+    dac = da.reshape(B, nc, C, H).permute(1, 0, 3, 2).float()
+    Bc = Bm.reshape(B, nc, C, -1).permute(1, 0, 2, 3).float()
+    Cc = Cm.reshape(B, nc, C, -1).permute(1, 0, 2, 3).float()
+    mask = torch.tril(torch.ones((C, C), dtype=torch.bool, device=x.device))
+    ys = []
+    for c in range(nc):
+        x_, da_, B_, C_ = xc[c], dac[c], Bc[c], Cc[c]
+        cum = torch.cumsum(da_, dim=-1)                         # (B,H,C)
+        y = torch.einsum("btn,bhpn,bht->bhtp", C_, h, torch.exp(cum))
+        g = torch.einsum("btn,bsn->bts", C_, B_)                # (B,C,C)
+        diff = cum[:, :, :, None] - cum[:, :, None, :]          # (B,H,t,s)
+        ldec = torch.where(mask[None, None], torch.exp(diff), 0.0)
+        y = y + torch.einsum("bts,bhts,bhsp->bhtp", g, ldec, x_)
+        dtot = torch.exp(cum[:, :, -1])                         # (B,H)
+        kdec = torch.exp(cum[:, :, -1:] - cum)                  # (B,H,C)
+        h = dtot[..., None, None] * h + \
+            torch.einsum("bhs,bhsp,bsn->bhpn", kdec, x_, B_)
+        ys.append(y)
+    y = torch.stack(ys).permute(1, 0, 3, 2, 4).reshape(B, Sp, H, P)[:, :S]
+    return y, h

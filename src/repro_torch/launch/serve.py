@@ -6,8 +6,7 @@ batching with per-slot positions, exact prompt handoff, and cache-row
 reset on slot recycle — over a decoder arch of the registry with random
 params drawn on the device from ``--seed``.  The flags are the
 reference's, plus ``--device`` (default ``cuda``; ``cpu`` only when asked
-for).  The default arch is ``qwen2-7b``: the reference's default
-(``rwkv6-3b``) is not ported yet (ROADMAP A17).
+for).
 
 Example (CPU):
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \\
@@ -133,7 +132,7 @@ class Server:
 
 def parse_args(argv=None) -> argparse.Namespace:
     ap = argparse.ArgumentParser(prog="repro_torch.launch.serve")
-    ap.add_argument("--arch", default="qwen2-7b")
+    ap.add_argument("--arch", default="rwkv6-3b")
     ap.add_argument("--smoke", action="store_true")
     ap.add_argument("--requests", type=int, default=8)
     ap.add_argument("--slots", type=int, default=4)

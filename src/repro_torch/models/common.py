@@ -80,6 +80,16 @@ def init_from_specs(specs: Dict[str, Any], generator: torch.Generator,
     return out
 
 
+def index_tree(tree, i: int):
+    """Entry ``i`` of every leaf of a stacked tree of dicts and NamedTuples
+    (views, no copies: writing a leaf writes the stacked tensor)."""
+    if isinstance(tree, dict):
+        return {k: index_tree(v, i) for k, v in tree.items()}
+    if isinstance(tree, tuple):
+        return type(tree)(*(index_tree(t, i) for t in tree))
+    return tree[i]
+
+
 # ---------------------------------------------------------------------------
 # numerics
 # ---------------------------------------------------------------------------

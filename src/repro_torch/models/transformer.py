@@ -16,19 +16,22 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
-from repro_torch.models.common import PSpec, rms_norm, swiglu
+from repro_torch.models.common import PSpec, index_tree, rms_norm, swiglu
 
 PORTED_FAMILIES = ("dense",)
 
 
 def check_family(cfg: ModelConfig) -> None:
-    """Only the dense family is ported; every other family (moe, the
-    vlm/audio frontends, ssm, hybrid) raises naming ROADMAP A17."""
+    """Of the transformer families only dense is ported; moe and the
+    vlm/audio frontends raise naming ROADMAP A17.  (The ssm and hybrid
+    families never reach this module: models/lm.py dispatches them to
+    rwkv6.py and zamba2.py, as the reference does.)"""
     if cfg.family not in PORTED_FAMILIES or cfg.frontend != "none":
         raise NotImplementedError(
             f"model family {cfg.family!r} (frontend {cfg.frontend!r}) of "
             f"{cfg.name!r} is not ported to the PyTorch package yet (ROADMAP "
-            f"A17); ported: dense decoders without a frontend")
+            f"A17); ported: dense decoders without a frontend, and the "
+            f"ssm (rwkv6) and hybrid (zamba2) families through models/lm.py")
 
 
 # ---------------------------------------------------------------------------
@@ -94,15 +97,6 @@ def _block_prefill(cfg: ModelConfig, tp: int, x, positions, lp, cache):
     return x + _ffn(cfg, lp, h), cache
 
 
-def _index(tree, i: int):
-    """Layer ``i`` of a stacked tree (views, no copies)."""
-    if isinstance(tree, dict):
-        return {k: _index(v, i) for k, v in tree.items()}
-    if isinstance(tree, attn.KVCache):
-        return attn.KVCache(*(t[i] for t in tree))
-    return tree[i]
-
-
 # ---------------------------------------------------------------------------
 # model entry points
 # ---------------------------------------------------------------------------
@@ -127,7 +121,7 @@ def forward_train(cfg: ModelConfig, p, batch, tp: int
     x = embed_inputs(cfg, p, batch, tp)
     positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
     for i in range(cfg.n_layers):
-        x = _block_train(cfg, tp, x, positions, _index(p["layers"], i))
+        x = _block_train(cfg, tp, x, positions, index_tree(p["layers"], i))
     x = rms_norm(x, p["final_norm"], cfg.rms_eps)
     return x, torch.zeros((), dtype=torch.float32, device=x.device), 0
 
@@ -158,8 +152,8 @@ def serve_prefill(cfg, p, batch, tp: int, cache: attn.KVCache,
     S = x.shape[1]
     positions = torch.arange(S, dtype=torch.int32, device=x.device)
     for i in range(cfg.n_layers):
-        x, _ = _block_prefill(cfg, tp, x, positions, _index(p["layers"], i),
-                              _index(cache, i))
+        x, _ = _block_prefill(cfg, tp, x, positions,
+                              index_tree(p["layers"], i), index_tree(cache, i))
     x = rms_norm(x, p["final_norm"], cfg.rms_eps)
     if last_pos is None:
         return lm_head(cfg, p, x[:, -1]), cache
@@ -178,7 +172,7 @@ def serve_step(cfg: ModelConfig, p, tokens: torch.Tensor, pos, tp: int,
     check_family(cfg)
     x = p["embed"][tokens.long()[:, None]]
     for i in range(cfg.n_layers):
-        x, _ = _block_decode(cfg, tp, x, pos, _index(p["layers"], i),
-                             _index(cache, i))
+        x, _ = _block_decode(cfg, tp, x, pos, index_tree(p["layers"], i),
+                             index_tree(cache, i))
     x = rms_norm(x, p["final_norm"], cfg.rms_eps)
     return lm_head(cfg, p, x[:, -1]), cache

@@ -1,0 +1,119 @@
+"""Zamba2 hybrid: Mamba2 backbone + ONE shared attention block applied every
+``attn_every`` layers with the same weights (Zamba2's parameter sharing).
+
+The port of ``repro/models/zamba2.py`` for serving (prefill and decode) at
+tensor parallelism 1.  The backbone runs groups of ``attn_every`` Mamba2
+layers (models/mamba2.py; the SSD kernel B4 on a prompt), and between
+groups the shared full-attention (+SwiGLU) block runs with the port's
+attention (models/attention.py; the flash kernel B2 on a prompt).  Decode
+carries per-layer Mamba states plus one KV cache per shared-block
+application point, stacked ``(n_apps, ...)``; every state and KV row is
+written in place into the stacked cache.
+
+Simplifications vs. the released checkpoints (the reference's, recorded
+in DESIGN.md): the shared block consumes the running stream x rather than
+concat(x, x_emb), and per-application LoRA deltas are omitted.  Forward
+only: ``loss_fn`` waits for training (ROADMAP A17).
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, NamedTuple
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import attention as attn
+from repro_torch.models import mamba2
+from repro_torch.models.common import PSpec, index_tree, rms_norm, swiglu
+
+
+def n_attn_apps(cfg: ModelConfig) -> int:
+    return cfg.n_layers // cfg.attn_every
+
+
+def param_specs(cfg: ModelConfig, tp: int) -> Dict[str, Any]:
+    attn.check_tp(tp)
+    d, L = cfg.d_model, cfg.n_layers
+    vp = cfg.padded_vocab(tp)
+    return {
+        "embed": PSpec((vp, d), ("tp", "fsdp"), init="small"),
+        "backbone": mamba2.layer_specs(cfg, tp, L),
+        "shared": {
+            "attn": attn.attn_specs(cfg, tp),
+            "ln1": PSpec((d,), (None,), init="ones"),
+            "ln2": PSpec((d,), (None,), init="ones"),
+            "ffn": {
+                "w_gate": PSpec((d, cfg.d_ff), ("fsdp", "tp")),
+                "w_in": PSpec((d, cfg.d_ff), ("fsdp", "tp")),
+                "w_out": PSpec((cfg.d_ff, d), ("tp", "fsdp")),
+            },
+        },
+        "final_norm": PSpec((d,), (None,), init="ones"),
+        "lm_head": PSpec((d, vp), ("fsdp", "tp"), init="small"),
+    }
+
+
+class ZambaCache(NamedTuple):
+    mamba: mamba2.MambaState      # stacked (L, ...)
+    kv: attn.KVCache              # stacked (n_apps, ...)
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_len: int, tp: int,
+               dtype=torch.bfloat16, device=None) -> ZambaCache:
+    return ZambaCache(
+        mamba=mamba2.init_state(cfg, batch, stacked=cfg.n_layers,
+                                device=device),
+        kv=attn.init_cache(cfg, batch, max_len, tp, dtype,
+                           stacked=n_attn_apps(cfg), device=device),
+    )
+
+
+def _shared_block(cfg, sp, x, positions, tp, mode, kv_cache, pos=None):
+    """The shared attention + SwiGLU block; ``kv_cache`` is this
+    application's (B, T, kv, hd) views, written in place."""
+    h = rms_norm(x, sp["ln1"], cfg.rms_eps)
+    if mode == "prefill":
+        y, _ = attn.prefill_attention(cfg, sp["attn"], h, positions, tp,
+                                      kv_cache)
+    else:
+        y, _ = attn.decode_attention(cfg, sp["attn"], h, pos, tp, kv_cache)
+    x = x + y
+    h = rms_norm(x, sp["ln2"], cfg.rms_eps)
+    f = sp["ffn"]
+    return x + swiglu(h, f["w_gate"], f["w_in"], f["w_out"])
+
+
+def _run(cfg: ModelConfig, p, x, tp: int, mode: str, cache: ZambaCache,
+         pos=None) -> torch.Tensor:
+    """Shared forward of ``prefill`` and ``decode``. x: (B,S,d).  Writes
+    every layer's state and every application's KV rows into ``cache`` in
+    place; returns x."""
+    every = cfg.attn_every
+    single = mode == "decode"
+    positions = None if single else torch.arange(
+        x.shape[1], dtype=torch.int32, device=x.device)
+    for g in range(n_attn_apps(cfg)):
+        for j in range(g * every, (g + 1) * every):
+            x, _ = mamba2.block(cfg, index_tree(p["backbone"], j), x,
+                                index_tree(cache.mamba, j), tp, single)
+        x = _shared_block(cfg, p["shared"], x, positions, tp, mode,
+                          index_tree(cache.kv, g), pos)
+    return x
+
+
+def serve_prefill(cfg: ModelConfig, p, batch, tp: int, cache: ZambaCache):
+    """Process the prompt from ``cache``'s state; returns (last-position
+    logits (B, V), cache), the cache written in place."""
+    x = p["embed"][batch["tokens"].long()]
+    x = _run(cfg, p, x, tp, "prefill", cache)
+    x = rms_norm(x, p["final_norm"], cfg.rms_eps)
+    return torch.matmul(x[:, -1], p["lm_head"]), cache
+
+
+def serve_step(cfg: ModelConfig, p, tokens: torch.Tensor, pos, tp: int,
+               cache: ZambaCache):
+    """One decode step. tokens: (B,) int32; pos: int or (B,) int32."""
+    x = p["embed"][tokens.long()[:, None]]
+    x = _run(cfg, p, x, tp, "decode", cache, pos=pos)
+    x = rms_norm(x, p["final_norm"], cfg.rms_eps)
+    return torch.matmul(x[:, -1], p["lm_head"]), cache

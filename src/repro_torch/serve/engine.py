@@ -18,7 +18,9 @@ cache-row reset, over the port's LM facade (models/lm.py).
     K/V ``0``), so a recycled slot is indistinguishable from a fresh one.
   * **Exact handoff.**  A request admitted mid-flight force-feeds its
     remaining prompt tokens through decode steps (logits discarded until
-    the last prompt token); nothing of the prompt is dropped.
+    the last prompt token); nothing of the prompt is dropped.  Batched
+    prefill is only exact for attention-only families — recurrent state
+    (ssm/hybrid) integrates padding, so those families always force-feed.
 
 One deliberate difference: a prefilled request's first-token time is
 taken when the prefill wave has returned its tokens.  The reference stamps
@@ -60,6 +62,18 @@ class ServeRequest:
     @property
     def done(self) -> bool:
         return len(self.out) >= self.max_new
+
+
+def _leaves_with_axes(cache, axes):
+    """(tensor, logical axes) for every leaf of a cache tree, walked as the
+    reference's ``jax.tree.map(fn, cache, axes)`` walks it: the cache's
+    NamedTuples may nest (zamba2's ZambaCache holds a MambaState and a
+    KVCache); an axes leaf is a plain tuple."""
+    if isinstance(cache, torch.Tensor):
+        yield cache, axes
+        return
+    for c, a in zip(cache, axes):
+        yield from _leaves_with_axes(c, a)
 
 
 class ServeEngine:
@@ -138,7 +152,7 @@ class ServeEngine:
         t0 = time.perf_counter()
         self.call_shapes["reset"].add((mask.shape,))
         m = torch.as_tensor(mask, device=self.device)
-        for leaf, ax in zip(self.cache, self._axes):
+        for leaf, ax in _leaves_with_axes(self.cache, self._axes):
             idx = [slice(None)] * leaf.dim()
             idx[ax.index("cache_batch")] = m
             leaf[tuple(idx)] = -1 if not leaf.is_floating_point() else 0

@@ -66,6 +66,10 @@ ENGINE_CASES = [
      5, 40, 30),
     # a 12-position budget truncates long prompts mid-generation
     ("qwen2-7b", "auto", dict(slots=2, max_len=12, prefill_len=8), 4, 8, 8),
+    # the recurrent families force-feed every prompt through decode steps
+    ("rwkv6-3b", "auto", dict(slots=3, max_len=48, prefill_len=16), 7, 16, 6),
+    ("zamba2-2.7b", "auto", dict(slots=3, max_len=48, prefill_len=16),
+     5, 16, 6),
 ]
 
 
@@ -82,8 +86,11 @@ def test_engine_matches_reference_tokens(arch, backend, fields, n, plen,
     for t, j in zip(tdone, jdone):
         assert t.out == j.out, f"rid {t.rid}"
         assert t.truncated == j.truncated
-    assert all(len(s) == 1 for s in eng.call_shapes.values()), \
-        eng.call_shapes
+    # one input shape per call kind; recurrent families never prefill
+    used = ("prefill", "decode", "reset") if eng.is_transformer else \
+        ("decode", "reset")
+    assert {k: len(v) for k, v in eng.call_shapes.items() if v} == \
+        {k: 1 for k in used}, eng.call_shapes
 
 
 @pytest.mark.parametrize("rate", [0.0, 5.0])
@@ -269,3 +276,138 @@ def test_checkpoint_serving_is_not_ported_yet(capsys):
     assert "A11/A12" in msg and "python -m repro_torch.launch.serve" in msg
     # the LM facade is the same object the launcher and engine use
     assert tlaunch.lm is tlm
+
+
+# --- the recurrent families (ssm: rwkv6, hybrid: zamba2) ---------------------
+
+RECURRENT = ["rwkv6-3b", "zamba2-2.7b"]
+
+
+def _tree_leaves(tree):
+    if isinstance(tree, torch.Tensor):
+        return [tree]
+    return [t for sub in tree for t in _tree_leaves(sub)]
+
+
+@pytest.mark.parametrize("arch", RECURRENT)
+def test_recurrent_engine_force_feeds_and_never_prefills(arch):
+    """Prompts that fit the prefill width, all admitted at once: an
+    attention family would prefill them in one wave; a recurrent one
+    force-feeds them through decode steps (call_shapes["prefill"] stays
+    empty), as the reference's _can_prefill rules."""
+    _, _, tc, tp = _bind(arch)
+    eng = TEngine(tc, tp, TSpec(slots=3, max_len=40, prefill_len=16,
+                                max_new=4))
+    done = eng.run(tserve.make_requests(3, 0.0, 16, 4, tc.vocab_size,
+                                        seed=3))
+    assert sorted(r.rid for r in done) == [0, 1, 2]
+    assert eng.call_shapes["prefill"] == set()
+    assert eng.call_seconds["prefill"] == []
+    assert eng.call_shapes["decode"] == {((3,), (3,))}
+
+
+@pytest.mark.parametrize("arch", RECURRENT)
+def test_recycled_slot_nested_state_is_zeroed_bitwise(arch):
+    """After a run has filled every slot's state, resetting one slot sets
+    each of its leaves (zamba2: conv and SSD state, KV rows and positions
+    nested two deep) to the init_cache state bit for bit, and leaves the
+    other slots untouched."""
+    _, _, tc, tp = _bind(arch)
+    spec = TSpec(slots=3, max_len=40, prefill_len=16, max_new=4)
+    eng = TEngine(tc, tp, spec)
+    eng.run(tserve.make_requests(5, 0.0, 16, 4, tc.vocab_size, seed=4))
+    before = [t.clone() for t in _tree_leaves(eng.cache)]
+    eng._reset(np.array([False, True, False]))
+    fresh = _tree_leaves(tlm.init_cache(tc, 3, 40, 1, torch.float32,
+                                        device="cpu"))
+    axes = _tree_leaves_axes(tlm.cache_axes_tree(tc, 1))
+    assert len(axes) == len(fresh) == len(before)
+    for got, old, new, ax in zip(_tree_leaves(eng.cache), before, fresh,
+                                 axes):
+        b = ax.index("cache_batch")
+        row = lambda t, i: t.select(b, i)  # noqa: E731
+        assert torch.equal(row(got, 1), row(new, 1))
+        assert bool(row(old, 1).ne(row(new, 1)).any()), "slot 1 was empty"
+        for i in (0, 2):
+            assert torch.equal(row(got, i), row(old, i))
+
+
+def _tree_leaves_axes(tree):
+    if isinstance(tree, tuple) and all(
+            isinstance(a, (str, type(None))) for a in tree):
+        return [tree]
+    return [a for sub in tree for a in _tree_leaves_axes(sub)]
+
+
+def test_prototype_server_matches_reference_rwkv6():
+    """The prototype Server on rwkv6-smoke: its first wave prefills through
+    lm.serve_prefill (the chunk scan), and a recycled slot force-feeds its
+    prompt into the carried state; the same tokens as the reference."""
+    cfg = jsmoke("rwkv6-3b")
+    rng = np.random.default_rng(6)
+    prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
+               for n in (6, 40, 4, 7, 5)]
+    mk = lambda cls: [cls(i, p.copy(), 4) for i, p in enumerate(prompts)]  # noqa
+    js = jlaunch.Server(cfg, batch_slots=2, max_len=64, seed=0)
+    ts = tlaunch.Server(tsmoke("rwkv6-3b"), batch_slots=2, max_len=64,
+                        seed=0, device="cpu")
+    ts.params = params_from_numpy(jax.tree.map(np.asarray, js.params),
+                                  device="cpu")
+    jdone, jsteps = js.run(mk(jlaunch.Request))
+    tdone, tsteps = ts.run(mk(tlaunch.Request))
+    assert tsteps == jsteps
+    assert [(r.rid, r.out, r.truncated) for r in tdone] == \
+        [(r.rid, r.out, r.truncated) for r in jdone]
+
+
+def test_launch_serve_defaults_to_rwkv6_like_the_reference():
+    assert tlaunch.parse_args([]).arch == "rwkv6-3b"
+    eng, done, rep = tlaunch.run(["--device", "cpu", "--smoke", "--requests",
+                                  "3", "--slots", "2", "--prompt-len", "10",
+                                  "--max-new", "3"])
+    assert eng.cfg.name == "rwkv6-smoke"
+    assert rep["requests"] == 3 and rep["tokens"] == 9
+    assert eng.call_shapes["prefill"] == set()
+
+
+@pytest.mark.parametrize("arch", RECURRENT)
+def test_prefill_routes_each_layer_through_the_scan_kernel_wrapper(
+        arch, monkeypatch):
+    """Every layer's chunk scan of a prompt goes through the kernel
+    wrapper (which launches the CUDA kernel for CUDA tensors), once per
+    layer; zamba2's shared attention goes through the flash kernel
+    wrapper once per application.  A decode step calls neither."""
+    from repro_torch.kernels import ops as tops
+    from repro_torch.kernels import ref as tref
+    from repro_torch.kernels import rwkv6_scan as twkv
+    from repro_torch.kernels import ssd as tssd
+    calls = {"wkv6": 0, "ssd": 0, "flash_attention": 0}
+
+    def counted(name, fn):
+        def wrapper(*a, **k):
+            calls[name] += 1
+            return fn(*a, **k)
+        return wrapper
+
+    monkeypatch.setattr(twkv, "wkv6", counted("wkv6", twkv.wkv6))
+    monkeypatch.setattr(tssd, "ssd_scan", counted("ssd", tssd.ssd_scan))
+    monkeypatch.setattr(tops, "default_attention_impl", lambda x: "kernel")
+    monkeypatch.setattr(tops, "flash_attention", counted(
+        "flash_attention", lambda q, k, v, causal=True, window=None:
+        tref.blocked_attention(q, k, v, causal=causal, window=window)))
+    _, _, tc, tp = _bind(arch)
+    toks = torch.from_numpy(np.random.default_rng(8).integers(
+        0, tc.vocab_size, (2, 40)).astype(np.int32))
+    cache = tlm.init_cache(tc, 2, 48, 1, torch.float32, device="cpu")
+    with torch.no_grad():
+        logits, _ = tlm.serve_prefill(tc, tp, {"tokens": toks}, 1, cache)
+    assert bool(torch.isfinite(logits).all())
+    if arch == "rwkv6-3b":
+        want = {"wkv6": tc.n_layers, "ssd": 0, "flash_attention": 0}
+    else:
+        want = {"wkv6": 0, "ssd": tc.n_layers,
+                "flash_attention": tc.n_layers // tc.attn_every}
+    assert calls == want
+    with torch.no_grad():
+        tlm.serve_step(tc, tp, toks[:, 0], 40, 1, cache)
+    assert calls == want
