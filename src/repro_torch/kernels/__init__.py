@@ -19,24 +19,13 @@
 
 Kernels are compiled at first launch (kernels/build.py), never at import.
 """
-from typing import Dict
-
-from repro_torch.kernels import flash_attention as _fa
-from repro_torch.kernels import polyline_codec as _codec
+from repro_torch.kernels import flash_attention  # noqa: F401
+from repro_torch.kernels import polyline_codec  # noqa: F401
 from repro_torch.kernels import ref  # noqa: F401
-from repro_torch.kernels import rwkv6_scan as _wkv
-from repro_torch.kernels import ssd as _ssd
+from repro_torch.kernels import rwkv6_scan  # noqa: F401
+from repro_torch.kernels import ssd  # noqa: F401
+from repro_torch.kernels.build import (  # noqa: F401
+    launch_counts, reset_launch_counts)
 from repro_torch.kernels.ops import (  # noqa: F401
     attention, blocked_attention, compress, decompress,
     default_attention_impl)
-
-
-def launch_counts() -> Dict[str, int]:
-    """CUDA launches of every kernel since the last reset."""
-    return {**_codec.launch_counts(), **_fa.launch_counts(),
-            **_wkv.launch_counts(), **_ssd.launch_counts()}
-
-
-def reset_launch_counts() -> None:
-    for mod in (_codec, _fa, _wkv, _ssd):
-        mod.reset_launch_counts()

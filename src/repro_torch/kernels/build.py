@@ -8,6 +8,11 @@ the source and the flags, so an edited source is rebuilt and an unchanged
 one is loaded as it is.  The output is renamed into place atomically, so
 processes that build at once race safely.  :func:`build` compiles several
 sources in parallel, one ``nvcc`` process each, all started together.
+
+:class:`Library` is what a kernel wrapper holds: the library's C
+functions bound at first call, the check of the CUDA error code each
+returns, and the launch count of each kernel, which
+:func:`launch_counts` gathers over every library.
 """
 from __future__ import annotations
 
@@ -19,7 +24,7 @@ import subprocess
 import threading
 import time
 from pathlib import Path
-from typing import Dict
+from typing import Dict, List, Sequence
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
@@ -31,6 +36,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 BUILD_INFO: Dict[str, Dict[str, object]] = {}
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()
+#: the launch counts of every :class:`Library`
+_COUNTS: List[Dict[str, int]] = []
 
 
 def _nvcc() -> str:
@@ -92,3 +99,62 @@ def library(name: str) -> ctypes.CDLL:
 def sources():
     """Stems of every CUDA source of the port."""
     return sorted(p.stem for p in CSRC.glob("*.cu"))
+
+
+class Library:
+    """``csrc/<name>.cu`` bound through ctypes at first call, and the CUDA
+    launch counts of its kernels.
+
+    ``functions`` maps each C entry point to its argument types; every one
+    returns a CUDA error code (0 on success), which ``error_fn`` turns
+    into its message.  ``kernels`` names the launch counters."""
+
+    def __init__(self, name: str, error_fn: str,
+                 functions: Dict[str, Sequence[type]],
+                 kernels: Sequence[str]):
+        self.name = name
+        self._error_fn = error_fn
+        self._functions = functions
+        self._counts = dict.fromkeys(kernels, 0)
+        _COUNTS.append(self._counts)
+        self._lib = None
+
+    def _bound(self) -> ctypes.CDLL:
+        if self._lib is None:
+            lib = library(self.name)
+            for fn, argtypes in self._functions.items():
+                getattr(lib, fn).argtypes = list(argtypes)
+                getattr(lib, fn).restype = ctypes.c_int
+            getattr(lib, self._error_fn).argtypes = [ctypes.c_int]
+            getattr(lib, self._error_fn).restype = ctypes.c_char_p
+            self._lib = lib
+        return self._lib
+
+    def launch(self, kernel: str, fn: str, *args) -> None:
+        """Call ``fn(*args)`` and count one launch of ``kernel``; raise
+        RuntimeError, counting nothing, if it returns a CUDA error."""
+        lib = self._bound()
+        rc = getattr(lib, fn)(*args)
+        if rc != 0:
+            msg = getattr(lib, self._error_fn)(rc).decode()
+            raise RuntimeError(f"{kernel} kernel launch failed: CUDA error "
+                               f"{rc} ({msg})")
+        self._counts[kernel] += 1
+
+    def launch_counts(self) -> Dict[str, int]:
+        return dict(self._counts)
+
+    def reset_launch_counts(self) -> None:
+        for k in self._counts:
+            self._counts[k] = 0
+
+
+def launch_counts() -> Dict[str, int]:
+    """CUDA launches of every kernel since the last reset."""
+    return {k: n for counts in _COUNTS for k, n in counts.items()}
+
+
+def reset_launch_counts() -> None:
+    for counts in _COUNTS:
+        for k in counts:
+            counts[k] = 0

@@ -65,7 +65,7 @@ struct Params {
   const void* k;
   const void* v;
   const float* logw;
-  const float* u;
+  const float* u;  // contiguous (H, N)
   void* y;         // contiguous (B, S, H, N), r's type
   float* state;    // contiguous (B, H, N, N), read and written in place
   int B, S, H, N;
@@ -73,7 +73,6 @@ struct Params {
   long long sk_b, sk_s, sk_h;
   long long sv_b, sv_s, sv_h;
   long long sw_b, sw_s, sw_h;
-  long long su_b, su_h;
 };
 
 __device__ __forceinline__ float to_float(float x) { return x; }
@@ -122,7 +121,7 @@ wkv6_kernel(const Params p) {
   const T* kg = static_cast<const T*>(p.k) + b * p.sk_b + h * p.sk_h;
   const T* vg = static_cast<const T*>(p.v) + b * p.sv_b + h * p.sv_h;
   const float* wg = p.logw + b * p.sw_b + h * p.sw_h;
-  const float* ug = p.u + b * p.su_b + h * p.su_h;
+  const float* ug = p.u + static_cast<long long>(h) * N;
   float* sg = p.state + (static_cast<long long>(b) * p.H + h) * N * N;
   T* yg = static_cast<T*>(p.y) + (static_cast<long long>(b) * p.S * p.H + h) * N;
   const long long sy = static_cast<long long>(p.H) * N;
@@ -268,21 +267,22 @@ extern "C" {
 
 // dtype (of r, k, v and y): 0 = float32, 1 = bfloat16.  logw and u are
 // float32.  Strides are in elements, the last dim of every input has
-// stride 1, y is contiguous (B, S, H, N) and state contiguous (B, H, N, N).
+// stride 1, u is contiguous (H, N), y contiguous (B, S, H, N) and state
+// contiguous (B, H, N, N).
 // Returns the CUDA error of the launch (0 on success).
 int wkv6_fwd(const void* r, const void* k, const void* v, const float* logw,
              const float* u, void* y, float* state, int dtype, int B, int S,
              int H, int N, long long sr_b, long long sr_s, long long sr_h,
              long long sk_b, long long sk_s, long long sk_h, long long sv_b,
              long long sv_s, long long sv_h, long long sw_b, long long sw_s,
-             long long sw_h, long long su_b, long long su_h, void* stream) {
+             long long sw_h, void* stream) {
   if (N < 1 || N > 64 || B < 1 || S < 1 || H < 1 ||
       static_cast<long long>(B) * H > 2147483647LL ||
       (dtype != 0 && dtype != 1))
     return static_cast<int>(cudaErrorInvalidValue);
-  const Params p{r,    k,    v,    logw, u,    y,    state, B,    S,
+  const Params p{r,    k,    v,    logw, u,    y,    state, B,   S,
                  H,    N,    sr_b, sr_s, sr_h, sk_b, sk_s,  sk_h, sv_b,
-                 sv_s, sv_h, sw_b, sw_s, sw_h, su_b, su_h};
+                 sv_s, sv_h, sw_b, sw_s, sw_h};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const cudaError_t err = dtype == 0 ? dispatch<float>(p, st)
                                      : dispatch<__nv_bfloat16>(p, st);

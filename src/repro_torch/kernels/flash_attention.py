@@ -22,8 +22,7 @@ tensor launches the kernel or raises, with no fallback.  CUDA launches are count
 from __future__ import annotations
 
 import ctypes
-import functools
-from typing import Dict, Optional
+from typing import Optional
 
 import torch
 
@@ -33,30 +32,14 @@ from repro_torch.kernels import ref
 MAX_HEAD_DIM = 128
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
-#: CUDA launches since the last reset
-_LAUNCHES: Dict[str, int] = {"flash_attention": 0}
-
-
-def launch_counts() -> Dict[str, int]:
-    return dict(_LAUNCHES)
-
-
-def reset_launch_counts() -> None:
-    _LAUNCHES["flash_attention"] = 0
-
-
-@functools.lru_cache(maxsize=None)
-def _lib() -> ctypes.CDLL:
-    """The kernel library (csrc/flash_attention.cu), built at first use."""
-    lib = kbuild.library("flash_attention")
-    vp, ci, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.flash_attention_fwd.argtypes = (
-        [vp, vp, vp, vp] + [ci] * 7 + [ll] * 9
-        + [ci, ci, ctypes.c_float, vp])
-    lib.flash_attention_fwd.restype = ci
-    lib.flash_attention_error_string.argtypes = [ci]
-    lib.flash_attention_error_string.restype = ctypes.c_char_p
-    return lib
+_vp, _ci, _ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_LIB = kbuild.Library(
+    "flash_attention", "flash_attention_error_string",
+    {"flash_attention_fwd": [_vp] * 4 + [_ci] * 7 + [_ll] * 9
+     + [_ci, _ci, ctypes.c_float, _vp]},
+    kernels=("flash_attention",))
+launch_counts = _LIB.launch_counts
+reset_launch_counts = _LIB.reset_launch_counts
 
 
 def _check_operands(q, k, v) -> None:
@@ -110,7 +93,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          "have stride 1")
     out = torch.empty((B, S, H, hd), dtype=q.dtype, device=q.device)
     with torch.cuda.device(q.device):
-        rc = _lib().flash_attention_fwd(
+        _LIB.launch(
+            "flash_attention", "flash_attention_fwd",
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             _DTYPES[q.dtype], B, S, T, H, KV, hd,
             q.stride(0), q.stride(1), q.stride(2),
@@ -118,10 +102,4 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             v.stride(0), v.stride(1), v.stride(2),
             int(causal), int(window or 0), 1.0 / (hd ** 0.5),
             torch.cuda.current_stream().cuda_stream)
-    if rc != 0:
-        msg = _lib().flash_attention_error_string(rc).decode()
-        raise RuntimeError(f"flash_attention kernel launch failed: CUDA "
-                           f"error {rc} ({msg})")
-    _LAUNCHES["flash_attention"] += 1
     return out
-

@@ -11,8 +11,10 @@ and ``attention(impl="blocked")`` are one function, :func:`blocked_attention`
 (kernels/ref.py).  Chunk scans: the kernels take the model's (B, S, H, N)
 layout with a state in and out (kernels/rwkv6_scan.py, kernels/ssd.py);
 :func:`wkv6` and :func:`ssd` keep the reference's flattened (BH, S, .)
-contract on top of them, as H = 1 from a zero state, and need no padding:
-the kernels mask the ragged last chunk, and their CPU path pads it.
+contract on top of them from a zero state (wkv6 as one batch row of BH
+heads, read through strides; ssd as BH batch rows of one head, since B
+and C come per row), and need no padding: the kernels mask the ragged
+last chunk, and their CPU path pads it.
 """
 from __future__ import annotations
 
@@ -82,10 +84,11 @@ def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """r/k/v/logw: (BH, S, N); u: (BH, N) -> y (BH, S, N), from a zero
     state.  ``chunk`` is the CPU path's chunk; the kernel takes its own."""
     BH, S, N = r.shape
-    state = torch.zeros((BH, 1, N, N), dtype=torch.float32, device=r.device)
-    y = rwkv6_scan.wkv6(r[:, :, None], k[:, :, None], v[:, :, None],
-                        logw[:, :, None], u[:, None], state, chunk=chunk)
-    return y[:, :, 0]
+    state = torch.zeros((1, BH, N, N), dtype=torch.float32, device=r.device)
+    heads = lambda a: a.transpose(0, 1)[None]   # noqa: E731  (1, S, BH, N)
+    y = rwkv6_scan.wkv6(heads(r), heads(k), heads(v), heads(logw), u, state,
+                        chunk=chunk)
+    return y[0].transpose(0, 1)
 
 
 # --- ssd ----------------------------------------------------------------------

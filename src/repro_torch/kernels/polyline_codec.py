@@ -15,8 +15,6 @@ The kernels are compiled at first use with ``nvcc`` (kernels/build.py).
 from __future__ import annotations
 
 import ctypes
-import functools
-from typing import Dict
 
 import torch
 
@@ -25,38 +23,14 @@ from repro_torch.kernels import ref
 
 BLOCK = ref.BLOCK
 
-#: kernel name -> launches since the last reset (CUDA launches only)
-_LAUNCHES: Dict[str, int] = {"compress": 0, "decompress": 0}
-
-
-def launch_counts() -> Dict[str, int]:
-    return dict(_LAUNCHES)
-
-
-def reset_launch_counts() -> None:
-    for k in _LAUNCHES:
-        _LAUNCHES[k] = 0
-
-
-@functools.lru_cache(maxsize=None)
-def _lib() -> ctypes.CDLL:
-    """The kernel library (csrc/polyline_codec.cu), built at first use."""
-    lib = kbuild.library("polyline_codec")
-    vp, ll, ci = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-    lib.codec_compress.argtypes = [vp, ll, vp, vp, ci, vp]
-    lib.codec_compress.restype = ci
-    lib.codec_decompress.argtypes = [vp, vp, ll, vp, ci, vp]
-    lib.codec_decompress.restype = ci
-    lib.codec_error_string.argtypes = [ci]
-    lib.codec_error_string.restype = ctypes.c_char_p
-    return lib
-
-
-def _check(rc: int, what: str) -> None:
-    if rc != 0:
-        msg = _lib().codec_error_string(rc).decode()
-        raise RuntimeError(f"{what} kernel launch failed: CUDA error {rc} "
-                           f"({msg})")
+_vp, _ci, _ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_LIB = kbuild.Library(
+    "polyline_codec", "codec_error_string",
+    {"codec_compress": [_vp, _ll, _vp, _vp, _ci, _vp],
+     "codec_decompress": [_vp, _vp, _ll, _vp, _ci, _vp]},
+    kernels=("compress", "decompress"))
+launch_counts = _LIB.launch_counts
+reset_launch_counts = _LIB.reset_launch_counts
 
 
 def _check_bits(bits: int) -> None:
@@ -85,11 +59,10 @@ def compress_blocks(x: torch.Tensor, bits: int = 8):
     scale = torch.empty((nb, 1), dtype=torch.float32, device=x.device)
     if nb:
         with torch.cuda.device(x.device):
-            rc = _lib().codec_compress(
+            _LIB.launch(
+                "compress", "codec_compress",
                 x.data_ptr(), n, q.data_ptr(), scale.data_ptr(), bits,
                 torch.cuda.current_stream().cuda_stream)
-        _check(rc, "compress")
-        _LAUNCHES["compress"] += 1
     return q, scale
 
 
@@ -114,9 +87,8 @@ def decompress_blocks(q: torch.Tensor, scale: torch.Tensor, n: int
     if nb:
         bits = 8 if q.dtype == torch.int8 else 16
         with torch.cuda.device(q.device):
-            rc = _lib().codec_decompress(
+            _LIB.launch(
+                "decompress", "codec_decompress",
                 q.data_ptr(), scale.data_ptr(), n, out.data_ptr(), bits,
                 torch.cuda.current_stream().cuda_stream)
-        _check(rc, "decompress")
-        _LAUNCHES["decompress"] += 1
     return out

@@ -176,9 +176,8 @@ def wkv6_chunked(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                  chunk: int) -> Tuple[torch.Tensor, torch.Tensor]:
     """Chunk-parallel WKV6 (``repro/models/rwkv6.py`` ``_wkv_chunked``).
 
-    r/k/v/logw: (B, S, H, N); u: (H, N), or (B, H, N) for a bonus per
-    batch row; state: (B, H, N, N) f32.  Returns
-    (y (B, S, H, N) f32, final state).  The ragged tail is zero-padded:
+    r/k/v/logw: (B, S, H, N); u: (H, N); state: (B, H, N, N) f32.
+    Returns (y (B, S, H, N) f32, final state).  The ragged tail is zero-padded:
     k = 0 adds nothing to the state and logw = 0 keeps its decay at 1.
     The intra-chunk decay is exponentiated pairwise in log space (the
     difference is <= 0 below the diagonal): a factored
@@ -194,8 +193,7 @@ def wkv6_chunked(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     rs = lambda a: a.reshape(B, nc, C, H, N).permute(1, 0, 3, 2, 4)  # noqa
     r, k, v = (rs(a).float() for a in (r, k, v))              # (nc,B,H,C,N)
     logw = rs(logw).float()
-    uu = u.float()
-    uu = uu[None] if uu.dim() == 2 else uu                     # (1|B,H,N)
+    uu = u.float()[None]                                       # (1,H,N)
     mask = torch.tril(torch.ones((C, C), dtype=torch.bool, device=r.device),
                       diagonal=-1)
     ys = []

@@ -1,15 +1,15 @@
 """Wrapper of the WKV6 chunk-scan kernel (csrc/wkv6.cu).
 
-    wkv6(r, k, v, logw (B, S, H, N), u (H, N) | (B, H, N),
-         state (B, H, N, N) f32) -> y (B, S, H, N)
+    wkv6(r, k, v, logw (B, S, H, N), u (H, N), state (B, H, N, N) f32)
+        -> y (B, S, H, N)
 
 The port of ``repro/kernels/rwkv6_scan.py`` with a state in and out: the
 RWKV-6 WKV recurrence from ``state``, whose final value is written back
 into ``state`` in place.  This one entry serves both callers: the model's
 chunk scan (``models/rwkv6.py`` ``_wkv_chunked``: (B, S, H, N) projections
-read in place, ``u`` shared by the batch) and ``ops.wkv6`` (the reference's
-(BH, S, N) contract, viewed as H = 1 with a ``u`` row per batch row and a
-zero state).  y comes out in r's dtype; arithmetic is f32.
+read in place) and ``ops.wkv6`` (the reference's (BH, S, N) contract,
+viewed through strides as B = 1 with BH heads and a zero state).  y comes
+out in r's dtype; arithmetic is f32.
 
 A tensor on the CPU takes the plain version (kernels/ref.py
 ``wkv6_chunked`` at ``chunk``); a CUDA tensor launches the kernel, which
@@ -20,8 +20,6 @@ the same), or raises, with no fallback.  CUDA launches are counted
 from __future__ import annotations
 
 import ctypes
-import functools
-from typing import Dict
 
 import torch
 
@@ -33,28 +31,13 @@ MAX_HEAD_SIZE = 64
 KERNEL_CHUNK = 32
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
-#: CUDA launches since the last reset
-_LAUNCHES: Dict[str, int] = {"wkv6": 0}
-
-
-def launch_counts() -> Dict[str, int]:
-    return dict(_LAUNCHES)
-
-
-def reset_launch_counts() -> None:
-    _LAUNCHES["wkv6"] = 0
-
-
-@functools.lru_cache(maxsize=None)
-def _lib() -> ctypes.CDLL:
-    """The kernel library (csrc/wkv6.cu), built at first use."""
-    lib = kbuild.library("wkv6")
-    vp, ci, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.wkv6_fwd.argtypes = [vp] * 7 + [ci] * 5 + [ll] * 14 + [vp]
-    lib.wkv6_fwd.restype = ci
-    lib.wkv6_error_string.argtypes = [ci]
-    lib.wkv6_error_string.restype = ctypes.c_char_p
-    return lib
+_vp, _ci, _ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_LIB = kbuild.Library(
+    "wkv6", "wkv6_error_string",
+    {"wkv6_fwd": [_vp] * 7 + [_ci] * 5 + [_ll] * 12 + [_vp]},
+    kernels=("wkv6",))
+launch_counts = _LIB.launch_counts
+reset_launch_counts = _LIB.reset_launch_counts
 
 
 def _check_operands(r, k, v, logw, u, state) -> None:
@@ -63,9 +46,9 @@ def _check_operands(r, k, v, logw, u, state) -> None:
                          f"N), got {tuple(r.shape)}, {tuple(k.shape)}, "
                          f"{tuple(v.shape)}, {tuple(logw.shape)}")
     B, S, H, N = r.shape
-    if tuple(u.shape) not in ((H, N), (B, H, N)):
-        raise ValueError(f"wkv6: u must be (H, N) or (B, H, N) = {(H, N)} "
-                         f"or {(B, H, N)}, got {tuple(u.shape)}")
+    if tuple(u.shape) != (H, N):
+        raise ValueError(f"wkv6: u must be (H, N) = {(H, N)}, got "
+                         f"{tuple(u.shape)}")
     if tuple(state.shape) != (B, H, N, N) or state.dtype != torch.float32:
         raise ValueError(f"wkv6: state must be float32 {(B, H, N, N)}, got "
                          f"{state.dtype} {tuple(state.shape)}")
@@ -88,7 +71,7 @@ def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
          chunk: int = KERNEL_CHUNK) -> torch.Tensor:
     """WKV6 over r/k/v/logw (B, S, H, N) from ``state`` (B, H, N, N) f32,
     which ends holding the final state; returns y (B, S, H, N) in r's
-    dtype.  ``u`` is (H, N), or (B, H, N) for a bonus per batch row."""
+    dtype; ``u`` is (H, N), the bonus of each head."""
     _check_operands(r, k, v, logw, u, state)
     if r.device.type == "cpu":
         y, new = ref.wkv6_chunked(r, k, v, logw, u, state, chunk)
@@ -108,21 +91,16 @@ def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if lw.stride(-1) != 1:
         lw = lw.contiguous()
     uu = u.float().contiguous()
-    su_b, su_h = (0, N) if uu.dim() == 2 else (uu.stride(0), uu.stride(1))
     y = torch.empty((B, S, H, N), dtype=r.dtype, device=r.device)
     with torch.cuda.device(r.device):
-        rc = _lib().wkv6_fwd(
+        _LIB.launch(
+            "wkv6", "wkv6_fwd",
             r.data_ptr(), k.data_ptr(), v.data_ptr(), lw.data_ptr(),
             uu.data_ptr(), y.data_ptr(), state.data_ptr(),
             _DTYPES[r.dtype], B, S, H, N,
             r.stride(0), r.stride(1), r.stride(2),
             k.stride(0), k.stride(1), k.stride(2),
             v.stride(0), v.stride(1), v.stride(2),
-            lw.stride(0), lw.stride(1), lw.stride(2), su_b, su_h,
+            lw.stride(0), lw.stride(1), lw.stride(2),
             torch.cuda.current_stream().cuda_stream)
-    if rc != 0:
-        msg = _lib().wkv6_error_string(rc).decode()
-        raise RuntimeError(f"wkv6 kernel launch failed: CUDA error {rc} "
-                           f"({msg})")
-    _LAUNCHES["wkv6"] += 1
     return y

@@ -10,8 +10,8 @@ C have no head axis (``n_groups = 1``): the kernel reads one row of each
 for all the heads of a batch row, never H copies.  This one entry serves
 both callers: the model's chunk scan (``models/mamba2.py``
 ``_ssd_chunked``) and ``ops.ssd`` (the reference's (BH, S, P) contract,
-viewed as H = 1 with a zero state).  y comes out in x's dtype; arithmetic
-is f32.
+viewed as BH batch rows of one head with a zero state).  y comes out in
+x's dtype; arithmetic is f32.
 
 A tensor on the CPU takes the plain version (kernels/ref.py
 ``ssd_chunked`` at ``chunk``); a CUDA tensor launches the kernel, which
@@ -22,8 +22,6 @@ the same), or raises, with no fallback.  CUDA launches are counted
 from __future__ import annotations
 
 import ctypes
-import functools
-from typing import Dict
 
 import torch
 
@@ -35,28 +33,13 @@ MAX_DIM = 64
 KERNEL_CHUNK = 32
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
-#: CUDA launches since the last reset
-_LAUNCHES: Dict[str, int] = {"ssd": 0}
-
-
-def launch_counts() -> Dict[str, int]:
-    return dict(_LAUNCHES)
-
-
-def reset_launch_counts() -> None:
-    _LAUNCHES["ssd"] = 0
-
-
-@functools.lru_cache(maxsize=None)
-def _lib() -> ctypes.CDLL:
-    """The kernel library (csrc/ssd.cu), built at first use."""
-    lib = kbuild.library("ssd")
-    vp, ci, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.ssd_fwd.argtypes = [vp] * 6 + [ci] * 6 + [ll] * 10 + [vp]
-    lib.ssd_fwd.restype = ci
-    lib.ssd_error_string.argtypes = [ci]
-    lib.ssd_error_string.restype = ctypes.c_char_p
-    return lib
+_vp, _ci, _ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_LIB = kbuild.Library(
+    "ssd", "ssd_error_string",
+    {"ssd_fwd": [_vp] * 6 + [_ci] * 6 + [_ll] * 10 + [_vp]},
+    kernels=("ssd",))
+launch_counts = _LIB.launch_counts
+reset_launch_counts = _LIB.reset_launch_counts
 
 
 def _check_operands(x, Bm, Cm, da, h) -> None:
@@ -113,16 +96,12 @@ def ssd_scan(x: torch.Tensor, Bm: torch.Tensor, Cm: torch.Tensor,
     d = da.float()
     y = torch.empty((B, S, H, P), dtype=x.dtype, device=x.device)
     with torch.cuda.device(x.device):
-        rc = _lib().ssd_fwd(
+        _LIB.launch(
+            "ssd", "ssd_fwd",
             x.data_ptr(), Bm.data_ptr(), Cm.data_ptr(), d.data_ptr(),
             y.data_ptr(), h.data_ptr(), _DTYPES[x.dtype], B, S, H, P, N,
             x.stride(0), x.stride(1), x.stride(2),
             Bm.stride(0), Bm.stride(1), Cm.stride(0), Cm.stride(1),
             d.stride(0), d.stride(1), d.stride(2),
             torch.cuda.current_stream().cuda_stream)
-    if rc != 0:
-        msg = _lib().ssd_error_string(rc).decode()
-        raise RuntimeError(f"ssd kernel launch failed: CUDA error {rc} "
-                           f"({msg})")
-    _LAUNCHES["ssd"] += 1
     return y

@@ -28,6 +28,8 @@ from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro.models import mamba2 as jmamba2
 from repro.models import rwkv6 as jrwkv6
+from repro_torch import kernels as tkernels
+from repro_torch.kernels import build as tbuild
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import ref as tref
 from repro_torch.kernels import rwkv6_scan as twkv
@@ -200,8 +202,34 @@ def test_cpu_wrappers_launch_nothing():
     assert tssd.launch_counts() == {"ssd": 0}
 
 
+def test_launch_counts_gather_every_kernel():
+    tkernels.reset_launch_counts()
+    assert tkernels.launch_counts() == {
+        "compress": 0, "decompress": 0, "flash_attention": 0, "wkv6": 0,
+        "ssd": 0}
+
+
+def test_library_counts_only_successful_launches(monkeypatch):
+    """A launch that returns a CUDA error raises with its message and is
+    not counted; a clean one counts once (a stand-in for the ctypes
+    library: nothing is built)."""
+    monkeypatch.setattr(tbuild, "_COUNTS", [])
+    lib = tbuild.Library("stand_in", "err", {"fwd": []}, kernels=("k",))
+    rcs = iter([0, 700])
+    lib._lib = type("Lib", (), {"fwd": staticmethod(lambda: next(rcs)),
+                                "err": staticmethod(lambda rc: b"boom")})
+    lib.launch("k", "fwd")
+    with pytest.raises(RuntimeError, match=r"k kernel launch failed: CUDA "
+                       r"error 700 \(boom\)"):
+        lib.launch("k", "fwd")
+    assert lib.launch_counts() == tbuild.launch_counts() == {"k": 1}
+    tbuild.reset_launch_counts()
+    assert lib.launch_counts() == {"k": 0}
+
+
 @pytest.mark.parametrize("which,match", [
     ("wkv_shape", "one shape"), ("wkv_u", "u must be"),
+    ("wkv_u_per_row", "u must be"),
     ("wkv_state", "state must be float32"), ("wkv_dtype", "float32 or"),
     ("ssd_shape", "do not match"), ("ssd_h", "h must be float32"),
     ("ssd_dtype", "float32 or"),
@@ -214,6 +242,8 @@ def test_wrappers_reject_bad_operands(which, match):
                       z(1, 5, 2, 8), z(2, 8), z(1, 2, 8, 8))
         elif which == "wkv_u":
             twkv.wkv6(*[z(1, 4, 2, 8)] * 4, z(3, 8), z(1, 2, 8, 8))
+        elif which == "wkv_u_per_row":   # u is one (H, N) bonus per head
+            twkv.wkv6(*[z(1, 4, 2, 8)] * 4, z(1, 2, 8), z(1, 2, 8, 8))
         elif which == "wkv_state":
             twkv.wkv6(*[z(1, 4, 2, 8)] * 4, z(2, 8),
                       z(1, 2, 8, 8, dt=torch.bfloat16))
