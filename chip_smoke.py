@@ -22,16 +22,25 @@ only, never JAX or the reference package.  Phases:
 5. Drive the baselines (FedAvg, TiFL, FedAsync) with quantize8.
 6. Hold the flash attention kernel against its plain version (the
    materialised oracle) on the card: the reference's seven ATTN_CASES,
-   head dims 16 and 120, and the serving prefill shape, in fp32 (max abs
-   error 2e-5) and bf16 (2e-2).  Time kernel, plain version and
+   head dims 16 and 120, the qwen2-7b prefill shape and zamba2's shared
+   block (32 heads of 80), in fp32 (max abs error 2e-5; the FFMA design)
+   and bf16 (2e-2, and within one bf16 rounding of the fp32 result; the
+   tensor-core design, whose SASS must hold HGMMA and UTMALDG
+   instructions), and on layouts that take the designs' other paths
+   (unaligned fp32, padded bf16 head dims, strides in no order, cross
+   attention, S > T); a bf16 operand TMA cannot load must be refused.
+   Time kernel, plain version and
    ``scaled_dot_product_attention`` (the yardstick, never called by the
-   port) at the prefill shape in both dtypes, beside the bound.
+   port) at both serving shapes in both dtypes, beside the bound.
 7. Run the serving path: ``repro_torch.launch.serve`` at qwen2-7b full
    width (fp32 params drawn on the card, fp32 cache), 16 requests over 8
    slots, prompts up to 1024 tokens, 16 new tokens each, with the launch
    counts set to 0 just before and read just after: the flash kernel must
    have run once per layer per prefill wave.  Then profile one prefill
-   wave and one decode step.
+   wave and one decode step.  Then, with the fp32 engine freed, one
+   qwen2-7b prefill wave in bf16 (8 x 1024 tokens) through the prototype
+   ``Server``: exactly 28 flash launches and finite logits, its time and
+   flash's share of it under the profiler.
 8. Hold the card against the CPU for serving: qwen2-smoke and
    h2o-danube-smoke (window 64) from the same params and requests on both
    devices give the same tokens, and their prefill logits agree within a
@@ -65,6 +74,7 @@ from __future__ import annotations
 import argparse
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -484,8 +494,16 @@ ATTN_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 #: result, plus the fp32 tolerance for the order of the sums.  A wrong scale
 #: or a dropped key moves typical outputs (about 0.05) by far more.
 BF16_ROUND_REL = 2.0 ** -8
-#: the serving prefill shape: 8 slots x 1024 tokens at qwen2-7b's heads
-PREFILL = dict(B=8, S=1024, H=28, KV=4, hd=128)
+#: the shapes the serving paths give the kernel, checked and timed: a
+#: qwen2-7b prefill wave (8 slots x 1024 tokens) and the zamba2-2.7b
+#: shared attention block at the same wave (32 heads of 80, no GQA)
+ATTN_SHAPES = {
+    "qwen2-7b prefill": dict(B=8, S=1024, H=28, KV=4, hd=128),
+    "zamba2-2.7b shared block": dict(B=8, S=1024, H=32, KV=32, hd=80),
+}
+#: SASS instructions the bf16 design must contain: the wgmma products
+#: (HGMMA) and the TMA tile loads (UTMALDG)
+TC_OPCODES = ("HGMMA", "UTMALDG")
 
 
 def visible_pairs(S: int, T: int, causal: bool, window) -> int:
@@ -533,14 +551,45 @@ def attn_inputs(torch, g, B, S, T, H, KV, hd, dtype):
             torch.randn(B, T, KV, hd, device="cuda", generator=g).to(dt))
 
 
-def check_flash(torch, fa, ref):
+def sass_counts(lib_path: str) -> dict:
+    """{kernel symbol: {opcode: count}} for TC_OPCODES, from ``cuobjdump
+    -sass`` of a built library."""
+    from repro_torch.kernels import build as kbuild
+    tool = Path(kbuild._nvcc()).with_name("cuobjdump")
+    res = subprocess.run([str(tool), "-sass", lib_path], capture_output=True,
+                         text=True)
+    check(res.returncode == 0, f"cuobjdump -sass failed: {res.stderr}")
+    out, fn = {}, None
+    for line in res.stdout.splitlines():
+        if "Function :" in line:
+            fn = line.split("Function :")[1].strip()
+            out[fn] = dict.fromkeys(TC_OPCODES, 0)
+        elif fn is not None:
+            for op in TC_OPCODES:
+                out[fn][op] += op in line
+    return out
+
+
+def check_flash(torch, fa, ref, lib_path):
     """Kernel vs plain version on every case and dtype; then times at the
-    prefill shape.  Returns {dtype: {...}}."""
+    serving shapes.  Returns {dtype: {...}, "sass": {kernel: counts}}."""
+    sass = sass_counts(lib_path)
+    tc = {fn: c for fn, c in sass.items() if "wgmma" in fn}
+    ffma = {fn: c for fn, c in sass.items() if "ffma" in fn}
+    check(tc and all(c["HGMMA"] > 0 and c["UTMALDG"] > 0
+                     for c in tc.values()),
+          f"the bf16 kernels lack wgmma or TMA instructions: {tc}")
+    check(ffma and all(sum(c.values()) == 0 for c in ffma.values()),
+          f"the fp32 kernels use tensor cores or TMA: {ffma}")
+    for fn, c in sorted(tc.items()):
+        m = re.search(r"(flash_fwd_\w+?_kernel)ILi(\d+)E", fn)
+        log(f"phase 6: SASS of {m[1]}<{m[2]}>: {c['HGMMA']} HGMMA, "
+            f"{c['UTMALDG']} UTMALDG" if m else f"phase 6: SASS of {fn}: {c}")
     g = torch.Generator(device="cuda").manual_seed(6)
-    P = PREFILL
     cases = [(c, 2) for c in ATTN_CASES] + \
-        [((P["S"], P["S"], P["H"], P["KV"], P["hd"], True, None), P["B"])]
-    out = {}
+        [((P["S"], P["S"], P["H"], P["KV"], P["hd"], True, None), P["B"])
+         for P in ATTN_SHAPES.values()]
+    out = {"sass": sass}
     for dtype in ("float32", "bfloat16"):
         worst, worst_round = 0.0, 0.0
         for (S, T, H, KV, hd, causal, window), B in cases:
@@ -569,37 +618,8 @@ def check_flash(torch, fa, ref):
                 worst_round = max(worst_round, excess)
                 del want32
             del got, want
-        q, k, v = attn_inputs(torch, g, P["B"], P["S"], P["S"], P["H"],
-                              P["KV"], P["hd"], dtype)
-        kern = lambda: fa.flash_attention(q, k, v, causal=True)  # noqa: E731
-        plain = lambda: ref.attention_gqa(q, k, v, causal=True)  # noqa: E731
-
-        def library():
-            return torch.nn.functional.scaled_dot_product_attention(
-                q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-                is_causal=True, enable_gqa=True)
-        lib_note = None
-        try:
-            lib = library()
-            torch.cuda.synchronize()
-            lib_err = float((lib.transpose(1, 2).float()
-                             - kern().float()).abs().max())
-        except Exception as e:  # the yardstick only: never on the path
-            lib, lib_err, lib_note = None, None, f"{type(e).__name__}: {e}"
-        # plain, kernel, kernel, plain (library between): cancels drift
-        p1 = event_time_ms(torch, plain, 3)
-        k1 = event_time_ms(torch, kern)
-        l1 = event_time_ms(torch, library) if lib is not None else None
-        k2 = event_time_ms(torch, kern)
-        p2 = event_time_ms(torch, plain, 3)
-        b = attention_bound(P["B"], P["S"], P["S"], P["H"], P["KV"],
-                            P["hd"], True, None, dtype)
-        out[dtype] = dict(b, max_abs_err=worst, ms=min(k1, k2),
-                          ms_runs=[k1, k2], plain_ms=min(p1, p2),
-                          plain_ms_runs=[p1, p2], library_ms=l1,
-                          library_vs_kernel_max_abs=lib_err,
-                          library_note=lib_note, cases=len(cases))
-        o = out[dtype]
+        o = out[dtype] = {"max_abs_err": worst, "cases": len(cases),
+                          "shapes": {}}
         rounding = ""
         if dtype == "bfloat16":
             o["bf16_rounding_ratio"] = worst_round
@@ -607,18 +627,124 @@ def check_flash(torch, fa, ref):
                         f"(worst ratio {worst_round:.3g} <= 1)")
         log(f"phase 6: flash {dtype}: {len(cases)} shapes within "
             f"{ATTN_TOL[dtype]} of the plain version (max abs err "
-            f"{worst:.3g}){rounding}; prefill shape B={P['B']} S=T={P['S']} "
-            f"H={P['H']} KV={P['KV']} hd={P['hd']} causal: kernel "
-            f"{o['ms']:.4f} ms (runs {k1:.4f}/{k2:.4f}), plain "
-            f"{o['plain_ms']:.4f} ms, SDPA "
-            f"{'n/a' if l1 is None else f'{l1:.4f}'} ms, bound "
-            f"{o['bound_ms']:.4f} ms ({o['bound_by']}: {o['flops'] / 1e9:.1f}"
-            f" GFLOP, {o['bytes'] / 1e6:.1f} MB); achieved "
-            f"{o['flops'] / o['ms'] / 1e9:.2f} TFLOP/s"
-            + (f"; SDPA unavailable: {lib_note}" if lib_note else ""))
-        del q, k, v
+            f"{worst:.3g}){rounding}")
+        for name, P in ATTN_SHAPES.items():
+            o["shapes"][name] = time_flash(torch, fa, ref, g, P, dtype)
+            t = o["shapes"][name]
+            lib = t["library_ms"]
+            log(f"phase 6: flash {dtype} {name} B={P['B']} S=T={P['S']} "
+                f"H={P['H']} KV={P['KV']} hd={P['hd']} causal: kernel "
+                f"{t['ms']:.4f} ms (runs {t['ms_runs'][0]:.4f}/"
+                f"{t['ms_runs'][1]:.4f}), plain {t['plain_ms']:.4f} ms, SDPA "
+                f"{'n/a' if lib is None else f'{lib:.4f}'} ms, bound "
+                f"{t['bound_ms']:.4f} ms ({t['bound_by']}: "
+                f"{t['flops'] / 1e9:.1f} GFLOP, {t['bytes'] / 1e6:.1f} MB);"
+                f" achieved {t['flops'] / t['ms'] / 1e9:.2f} TFLOP/s"
+                + (f"; SDPA unavailable: {t['library_note']}"
+                   if t["library_note"] else ""))
+    out["layouts_max_abs_err"] = check_flash_layouts(torch, fa, ref, g)
     torch.cuda.empty_cache()
     return out
+
+
+def flash_layouts(torch, g):
+    """Operands that take the designs' other paths, as (name, q, k, v,
+    causal, window): fp32 with head dims that are not multiples of 4 and
+    a misaligned pointer (4-byte copies); bf16 sliced from padded rows
+    with hd not a multiple of 8 (element-wise output stores), a q read
+    through (B, H, S, hd) memory and K/V sliced from one fused tensor
+    (strides in no order), cross attention and S > T."""
+    def rnd(*shape, dt="float32"):
+        return torch.randn(*shape, device="cuda", generator=g).to(
+            getattr(torch, dt))
+    B, S, H, KV = 2, 200, 4, 2
+    out = [(f"fp32 hd {hd}", rnd(B, S, H, hd), rnd(B, S, KV, hd),
+            rnd(B, S, KV, hd), True, None) for hd in (1, 6, 17)]
+    out.append(("fp32 misaligned q", rnd(B * S * H * 64 + 1)[1:].view(
+        B, S, H, 64), rnd(B, S, KV, 64), rnd(B, S, KV, 64), True, 37))
+    for hd in (4, 12, 100):
+        pad = -(-hd // 8) * 8 + 8
+        q, k, v = (rnd(B, S, n, pad, dt="bfloat16")[..., :hd]
+                   for n in (H, KV, KV))
+        out.append((f"bf16 padded hd {hd}", q, k, v, True, 37))
+    kv = rnd(B, S, 2, KV, 64, dt="bfloat16")
+    out.append(("bf16 (B, H, S, hd) q, fused K/V",
+                rnd(B, H, S, 64, dt="bfloat16").transpose(1, 2),
+                kv[:, :, 0], kv[:, :, 1], True, None))
+    for dt in ("float32", "bfloat16"):
+        out.append((f"{dt} cross attention", rnd(B, 77, H, 64, dt=dt),
+                    rnd(B, 333, KV, 64, dt=dt), rnd(B, 333, KV, 64, dt=dt),
+                    False, None))
+        out.append((f"{dt} S > T", rnd(B, 300, H, 64, dt=dt),
+                    rnd(B, 130, KV, 64, dt=dt), rnd(B, 130, KV, 64, dt=dt),
+                    True, None))
+    return out
+
+
+def check_flash_layouts(torch, fa, ref, g):
+    """The kernel against its plain version on :func:`flash_layouts`, and
+    the wrapper's refusal of a bf16 operand that breaks TMA's rule."""
+    worst, cases = {}, flash_layouts(torch, g)
+    for name, q, k, v, causal, window in cases:
+        dtype = str(q.dtype).split(".")[1]
+        got = fa.flash_attention(q, k, v, causal=causal, window=window)
+        want = ref.attention_gqa(q, k, v, causal=causal, window=window)
+        err = float((got.float() - want.float()).abs().max())
+        check(bool(torch.isfinite(got).all()) and err < ATTN_TOL[dtype],
+              f"flash kernel vs plain, {name}: max abs err {err}")
+        if dtype == "bfloat16":
+            want32 = ref.attention_gqa(q.float(), k.float(), v.float(),
+                                       causal=causal, window=window)
+            excess = float(((got.float() - want32).abs()
+                            / (BF16_ROUND_REL * want32.abs()
+                               + ATTN_TOL["float32"])).max())
+            check(excess <= 1.0, f"flash kernel bf16, {name}: not the fp32 "
+                  f"result rounded to bf16 (ratio {excess})")
+        worst[dtype] = max(worst.get(dtype, 0.0), err)
+    x = torch.zeros(2, 8, 2, 6, device="cuda", dtype=torch.bfloat16)
+    try:
+        fa.flash_attention(x, x, x)
+        fail("flash_attention took a bf16 operand TMA cannot load")
+    except ValueError as e:
+        check("multiples of 8 elements" in str(e), f"refusal: {e}")
+    log(f"phase 6: flash on {len(cases)} other layouts (head dims off the "
+        f"aligned paths, a misaligned pointer, strides in no order, cross "
+        f"attention, S > T) within tolerance of the plain version (max abs "
+        f"err {worst}); a bf16 hd-6 tensor is refused naming TMA's rule")
+    return worst
+
+
+def time_flash(torch, fa, ref, g, P, dtype):
+    """Kernel, plain version and SDPA (the yardstick, never called by the
+    port) at one shape, beside the bound."""
+    q, k, v = attn_inputs(torch, g, P["B"], P["S"], P["S"], P["H"], P["KV"],
+                          P["hd"], dtype)
+    kern = lambda: fa.flash_attention(q, k, v, causal=True)  # noqa: E731
+    plain = lambda: ref.attention_gqa(q, k, v, causal=True)  # noqa: E731
+
+    def library():
+        return torch.nn.functional.scaled_dot_product_attention(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+            is_causal=True, enable_gqa=True)
+    note = None
+    try:
+        lib = library()
+        torch.cuda.synchronize()
+        lib_err = float((lib.transpose(1, 2).float()
+                         - kern().float()).abs().max())
+    except Exception as e:  # the yardstick only: never on the path
+        lib, lib_err, note = None, None, f"{type(e).__name__}: {e}"
+    # plain, kernel, kernel, plain (library between): cancels drift
+    p1 = event_time_ms(torch, plain, 3)
+    k1 = event_time_ms(torch, kern)
+    l1 = event_time_ms(torch, library) if lib is not None else None
+    k2 = event_time_ms(torch, kern)
+    p2 = event_time_ms(torch, plain, 3)
+    b = attention_bound(P["B"], P["S"], P["S"], P["H"], P["KV"], P["hd"],
+                        True, None, dtype)
+    return dict(b, ms=min(k1, k2), ms_runs=[k1, k2], plain_ms=min(p1, p2),
+                plain_ms_runs=[p1, p2], library_ms=l1,
+                library_vs_kernel_max_abs=lib_err, library_note=note)
 
 
 # ---------------------------------------------------------------------------
@@ -768,6 +894,84 @@ def profile_serving(torch, engine, info):
         for k, t in top:
             log(f"  {t:10.3f} ms  {k[:100]}")
     return out
+
+
+#: phase 7's bf16 wave: one qwen2-7b prefill of 8 prompts of 1024 tokens
+#: through the prototype Server in bf16, the kernel's tensor-core design
+BF16_WAVE = dict(slots=8, prompt=1024, seed=0)
+
+
+def run_bf16_wave(torch, kernels, serve_launch, lm):
+    """qwen2-7b at full width in bf16 through the prototype Server: one
+    counted prefill wave (one flash launch per layer, finite logits), one
+    more timed, and one under torch.profiler for flash's share of it."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.configs.registry import get_config
+    cfg = get_config("qwen2-7b")
+    B, P = BF16_WAVE["slots"], BF16_WAVE["prompt"]
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    server = serve_launch.Server(cfg, batch_slots=B, max_len=P + 8,
+                                 seed=BF16_WAVE["seed"],
+                                 dtype=torch.bfloat16, device="cuda")
+    check(all(t.is_cuda and t.dtype == torch.bfloat16
+              for t in _leaves(server.params)),
+          "bf16 Server: params not bf16 on the card")
+    rng = np.random.default_rng(BF16_WAVE["seed"])
+    toks = torch.as_tensor(rng.integers(0, cfg.vocab_size, (B, P)),
+                           dtype=torch.int32, device="cuda")
+
+    def wave():
+        with torch.no_grad():
+            return lm.serve_prefill(cfg, server.params, {"tokens": toks}, 1,
+                                    server.cache)[0]
+    kernels.reset_launch_counts()
+    torch.cuda.synchronize()
+    logits = wave()
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    check(counts["flash_attention"] == cfg.n_layers == 28
+          and all(n == 0 for k, n in counts.items()
+                  if k != "flash_attention"),
+          f"bf16 wave launches {counts}, expected 28 flash and nothing else")
+    check(logits.dtype == torch.bfloat16 and logits.shape[0] == B
+          and bool(torch.isfinite(logits.float()).all()),
+          f"bf16 wave logits {tuple(logits.shape)} {logits.dtype} not "
+          f"finite")
+    t0 = time.perf_counter()
+    wave()
+    torch.cuda.synchronize()
+    wave_s = time.perf_counter() - t0
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        wave()
+        torch.cuda.synchronize()
+    per_kernel = {}
+    for e in prof.key_averages():
+        if getattr(e, "device_type", None) == DeviceType.CUDA:
+            per_kernel[e.key] = per_kernel.get(e.key, 0.0) + \
+                e.self_device_time_total / 1e3
+    dev_ms = sum(per_kernel.values())
+    flash_ms = sum(t for k, t in per_kernel.items() if "flash_fwd" in k)
+    info = {"wave_s": wave_s, "launches": counts,
+            "peak_mem_bytes": torch.cuda.max_memory_allocated(),
+            "device_ms": dev_ms or None, "flash_ms": flash_ms,
+            "top_kernels_ms": {k[:100]: t for k, t in sorted(
+                per_kernel.items(), key=lambda kv: -kv[1])[:6]}}
+    share = (f"flash {flash_ms:.3f} ms of {dev_ms:.2f} ms of kernels "
+             f"({100 * flash_ms / dev_ms:.2f}%), busy "
+             f"{100 * dev_ms / (1e3 * wave_s):.1f}%" if dev_ms else
+             "profiler saw no kernel time: flash share not measured")
+    log(f"phase 7: qwen2-7b bf16 Server prefill wave (8 x 1024 tokens): "
+        f"{counts['flash_attention']} flash launches, finite logits; wave "
+        f"{wave_s:.4f} s; {share}; peak "
+        f"{info['peak_mem_bytes'] / 2**30:.2f} GiB")
+    for k, t in list(info["top_kernels_ms"].items()):
+        log(f"  {t:10.3f} ms  {k}")
+    del server, logits
+    torch.cuda.empty_cache()
+    return info
 
 
 def serving_card_vs_cpu(torch, kernels, lm, convert, serve):
@@ -1413,12 +1617,14 @@ def main() -> None:
     torch.cuda.empty_cache()
 
     # phase 6
-    flash = check_flash(torch, fa, ref)
+    flash = check_flash(torch, fa, ref, built["flash_attention"]["path"])
     # phase 7: the serving path, counts from 0 (the profile runs after)
     serving, engine = run_serving(torch, kernels, serve_launch)
     serving["profile"] = profile_serving(torch, engine, serving)
     del engine
     torch.cuda.empty_cache()
+    # phase 7, bf16: the tensor-core design on the model path, counts from 0
+    serving["bf16_wave"] = run_bf16_wave(torch, kernels, serve_launch, lm)
     # phase 8
     serve_agree = serving_card_vs_cpu(torch, kernels, lm, convert, serve)
 
@@ -1445,15 +1651,29 @@ def main() -> None:
             "max_abs_err": errs[name], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": None})
-    f32 = flash["float32"]   # the serving path's dtype
+    # fp32 at the qwen2-7b prefill shape is the serving path's; bf16 (the
+    # tensor-core design) and zamba2's hd 80 ride along
+    f32, bf16 = (flash[d]["shapes"]["qwen2-7b prefill"]
+                 for d in ("float32", "bfloat16"))
+    z32, z16 = (flash[d]["shapes"]["zamba2-2.7b shared block"]
+                for d in ("float32", "bfloat16"))
     report.append({
         "name": "flash_attention", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention.py:91",
         "launches": serving["launches"]["flash_attention"],
-        "max_abs_err": f32["max_abs_err"], "ms": f32["ms"],
+        "max_abs_err": flash["float32"]["max_abs_err"], "ms": f32["ms"],
         "plain_ms": f32["plain_ms"], "bound_ms": f32["bound_ms"],
-        "bound_by": f32["bound_by"], "library_ms": f32["library_ms"]})
+        "bound_by": f32["bound_by"], "library_ms": f32["library_ms"],
+        "bf16_ms": bf16["ms"], "bf16_plain_ms": bf16["plain_ms"],
+        "bf16_bound_ms": bf16["bound_ms"],
+        "bf16_library_ms": bf16["library_ms"],
+        "bf16_max_abs_err": flash["bfloat16"]["max_abs_err"],
+        "bf16_launches": serving["bf16_wave"]["launches"]["flash_attention"],
+        "hd80_ms": z32["ms"], "hd80_bound_ms": z32["bound_ms"],
+        "hd80_library_ms": z32["library_ms"], "hd80_bf16_ms": z16["ms"],
+        "hd80_bf16_bound_ms": z16["bound_ms"],
+        "hd80_bf16_library_ms": z16["library_ms"]})
     for name, src, line, arch, res in (
             ("wkv6", "wkv6.cu", "rwkv6_scan.py:68", "rwkv6-3b", wkv),
             ("ssd", "ssd.cu", "ssd.py:64", "zamba2-2.7b", ssd)):

@@ -4,7 +4,7 @@
 // _attn_kernel (the Pallas TPU kernel behind ops.flash_attention), which
 // the dense LM's full-sequence attention runs once per layer: the serving
 // plane's batched prefill (models/attention.py prefill_attention ->
-// full_attention -> ops.attention).
+// full_attention -> ops.attention) and zamba2's shared attention block.
 //
 // What it computes, for every batch b, query head h and query row s:
 //   o[b,s,h,:] = softmax_t(scale * q[b,s,h,:] . k[b,t,h/G,:]) @ v[b,t,h/G,:]
@@ -18,42 +18,72 @@
 //
 // What bounds it on an H100: operations.  At the serving prefill shape
 // (B*H = 224 heads, S = T = 1024, hd = 128, causal) the visible pairs need
-// 60.2 GFLOP against 268 MB of q, k, v and o; in fp32 that is 0.90 ms of
-// FFMA at 67 TFLOP/s against 0.08 ms of bytes at 3.35 TB/s.  fp32 inputs
-// must stay on the CUDA cores (TF32 tensor cores would break the 2e-5
-// tolerance the reference holds the kernel to).
+// 60.2 GFLOP against 268 MB of q, k, v and o (fp32): 0.90 ms of FFMA at 67
+// TFLOP/s, or 0.061 ms on the bf16 tensor cores at 989 TFLOP/s, against
+// 0.08 ms (fp32) or 0.04 ms (bf16) of bytes at 3.35 TB/s.  Two designs:
 //
-// Design (FA2-style, simple and right first): one CTA of 256 threads per
-// (batch*head, 64-row query tile), heaviest causal tiles launched first.
-// The tile's scaled Q is staged once in shared memory; K/V tiles of 64 rows
-// stream through shared memory; each thread owns 4 query rows x 4 key
-// columns of the logits and 4 rows x D/16 columns of the output, with the
-// running max, sum and accumulator in fp32 registers and the row
-// reductions done by warp shuffles (a row lives on 16 lanes of one warp).
-// The K loop is clipped to the causal upper bound and the window's lower
-// bound, and masks come from absolute positions.  The head dim is padded
-// inside the kernel (zeros past hd in shared memory) to the next of 16,
-// 32, 64, 80, 96, 128, so nothing is padded in device memory.  The
-// probability tile reuses the K tile's shared memory, which keeps the
-// hd = 128 CTA at 98.5 KiB so two CTAs fit on an SM.  wgmma, TMA and bf16
-// tensor-core products are later work.
+// fp32: the CUDA cores (flash_fwd_ffma_kernel).  TF32 tensor cores keep 10
+// mantissa bits and would break the 2e-5 tolerance the reference holds the
+// kernel to, so the products stay FFMA.  One CTA of 256 threads per
+// (batch*head, 128-row query tile); K/V tiles of 64 rows stream through a
+// 2-stage ring filled by 16-byte cp.async, so tile j+1 loads while tile j
+// computes.  Each thread owns an 8 x 4 register tile of the logits and an
+// 8 x D/16 tile of the output: Q and K are read from shared memory as
+// float4 along the head dim (12 loads per 128 FFMA), P and V as float4
+// along the keys and head dim (16 loads per 256 FFMA at D = 128).  Row
+// statistics live on the 16 lanes of a half-warp.  At D = 128 a CTA takes
+// 226 KiB of shared memory and 254 registers a thread: one CTA an SM.
+// It runs near half the FFMA rate.  The QK^T loop issues more 128-bit
+// shared loads per FFMA (12 per 128) than the PV loop (16 per 256), and
+// with 254 registers a thread one CTA of 8 warps fills an SM, so little
+// latency is hidden and the softmax and barriers between the two
+// products leave the FFMA pipes idle.  A 128 x 128 logit tile (8 x 8 a
+// thread) evens the loads but spills and loses the double buffering.
+// Operands whose pointers or strides are not 16-byte multiples take
+// 4-byte cp.async instead.
+//
+// bf16: the tensor cores (flash_fwd_wgmma_kernel), FlashAttention-3's
+// shape at its simplest.  One CTA of 2 consumer warpgroups and a producer
+// warp per (batch*head, 128-row query tile).  The producer issues TMA
+// loads (4-D tensor maps over (hd, heads, seq, batch) with 128-byte
+// swizzle, built on the host) of the Q tile once and of 64-key K/V tiles
+// into a 3-stage ring guarded by full/empty mbarriers; each consumer
+// warpgroup owns 64 query rows.  S = Q K^T is wgmma m64n64k16 from shared
+// memory (K's rows are K-major as the B operand needs); the mask and the
+// online softmax run in fp32 registers, a row spread over the 4 lanes of a
+// quad; O += P V is wgmma m64nDk16 with P from registers and V through the
+// transpose bit.  A tile's S and the tile before's PV product are issued
+// together, so the softmax of one overlaps the PV product of the other.
+// The head dim is padded to D = 64 or 128 by the tensor maps' zero fill
+// (so zamba2's hd 80 does 1.6x the MMA work), as are the rows past S and
+// T.  Registers bound the tiles: 9 warps a CTA leave each a budget of 168
+// registers (a scheduler's 16384 over its 3 warps), which 128-key tiles
+// overflow (the compiler spills and serialises the wgmma).
+//
+// Numerics of the bf16 design.  Q K^T on bf16 inputs with fp32
+// accumulation is exact per product, as in the fp32 reference; only the
+// order of the sums differs.  The softmax scale multiplies the fp32
+// logits (1/sqrt(128) is not a power of two, so scaling Q in bf16 would
+// round).  P is not rounded to bf16 once: that errs by up to 2^-9 of each
+// p and so by about 2^-9 |p . v| in the output, which an output near zero
+// cannot absorb, while the reference multiplies P V in fp32.  P is split
+// into hi = bf16(P) and lo = bf16(P - hi), and both products accumulate
+// into the same fp32 registers: P then carries about 16 bits (error near
+// 2^-17 |p|), at 1.5x the bound's operations.  The output is rounded to
+// bf16 once, so every element stays within one bf16 rounding of the fp32
+// result plus the fp32 tolerance.
 //
 // This file must never be built with --use_fast_math (expf stays exact to
 // an ulp or two; the 2e-5 fp32 tolerance depends on it).
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int kBQ = 64;            // query rows per CTA
-constexpr int kBK = 64;            // key rows per K/V tile
-constexpr int kThreads = 256;      // 16 x 16: ty picks rows, tx columns
-constexpr int kRows = kBQ / 16;    // query rows per thread
-constexpr int kCols = kBK / 16;    // logit columns per thread
-constexpr int kQStride = kBQ + 4;  // Qs/Ps row stride (float4-aligned)
-constexpr int kKStride = kBK + 1;  // Ks row stride (conflict-free stores)
 constexpr float kNegInf = -1e30f;  // the reference's mask value
+constexpr int kBQ = 128;           // query rows per CTA, both designs
 
 struct Params {
   const void* q;
@@ -67,191 +97,905 @@ struct Params {
   int causal;
   int window;  // <= 0: no window
   float scale;
+  int vec;     // fp32: every pointer, stride and hd allow 16-byte copies
 };
 
-__device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) {
-  return __bfloat162float(x);
+// Key tiles [lo, hi) of width bk that rows [q0, q0 + rows) can see.
+__device__ __forceinline__ void key_tiles(const Params& p, int q0, int rows,
+                                          int bk, int& lo, int& hi) {
+  const int khi = p.causal ? min(q0 + rows, p.T) : p.T;
+  const int klo = p.window > 0 ? max(q0 + 1 - p.window, 0) : 0;
+  lo = klo / bk;
+  hi = (khi + bk - 1) / bk;
 }
-__device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16_rn(x);
+
+__device__ __forceinline__ bool visible(const Params& p, int qpos, int kpos) {
+  return kpos < p.T && (!p.causal || qpos >= kpos) &&
+         (p.window <= 0 || qpos - kpos < p.window);
+}
+
+// Whether some (row, key) of rows [q0, q0 + rows) x keys [k0, k0 + bk) is
+// masked, so the tile needs the per-element mask.
+__device__ __forceinline__ bool tile_masked(const Params& p, int q0, int rows,
+                                            int k0, int bk) {
+  return k0 + bk > p.T || (p.causal && k0 + bk - 1 > q0) ||
+         (p.window > 0 && q0 + rows - 1 - k0 >= p.window);
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// ---------------------------------------------------------------------------
+// fp32: register-tiled FFMA
+// ---------------------------------------------------------------------------
+
+namespace ffma {
+
+constexpr int kBK = 64;        // key rows per K/V tile
+constexpr int kThreads = 256;  // 16 x 16: ty picks 8 rows, tx the columns
+constexpr int kRows = 8;       // query rows per thread
+constexpr int kCols = 4;       // logit columns per thread: tx + 16 j
+
+template <int D>
+struct Layout {
+  // Q rows are read by all the threads of a quarter-warp at once (a
+  // broadcast), K rows by 8 threads on 8 rows: only K's stride is padded
+  static constexpr int kKStride = D + 4;
+  static constexpr int kQ = kBQ * D;
+  static constexpr int kK = kBK * kKStride;     // one K stage
+  static constexpr int kV = kBK * D;            // one V stage
+  static constexpr int kP = kBQ * kBK;
+  static constexpr int kFloats = kQ + 2 * kK + 2 * kV + kP;  // 226 KiB at 128
+  // output columns per thread: float4 groups tx*4 + 64 g when D is a
+  // multiple of 64, else single columns tx + 16 c
+  static constexpr bool kVec4 = D % 64 == 0;
+  static constexpr int kOC = D / 16;
+};
+
+__device__ __forceinline__ void cp_async16(float* dst, const float* src,
+                                           bool ok) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(ok ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(float* dst, const float* src,
+                                          bool ok) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(ok ? 4 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// Rows [r0, r0 + ROWS) of a (rows, hd) slab with row stride rs into
+// shared memory (row stride ss, D columns); rows >= n and columns >= hd
+// are zero-filled.
+template <int D, int ROWS>
+__device__ __forceinline__ void load_rows(float* dst, int ss, const float* src,
+                                          long long rs, int r0, int n, int hd,
+                                          bool vec) {
+  if (vec) {
+    constexpr int kC = D / 4;
+#pragma unroll 4
+    for (int i = threadIdx.x; i < ROWS * kC; i += kThreads) {
+      const int r = i / kC, c = (i % kC) * 4;
+      const bool ok = r0 + r < n && c < hd;
+      cp_async16(dst + r * ss + c, ok ? src + (r0 + r) * rs + c : src, ok);
+    }
+  } else {
+    for (int i = threadIdx.x; i < ROWS * D; i += kThreads) {
+      const int r = i / D, c = i % D;
+      const bool ok = r0 + r < n && c < hd;
+      cp_async4(dst + r * ss + c, ok ? src + (r0 + r) * rs + c : src, ok);
+    }
+  }
 }
 
 template <int D>
-constexpr int smem_floats() {
-  // Qs [D][kQStride] | Ks [D][kKStride] aliased by Ps [kBK][kQStride] | Vs [kBK][D]
-  return D * kQStride +
-         (D * kKStride > kBK * kQStride ? D * kKStride : kBK * kQStride) +
-         kBK * D;
+__device__ __forceinline__ int out_col(int tx, int c) {
+  return Layout<D>::kVec4 ? 64 * (c / 4) + tx * 4 + (c % 4) : tx + 16 * c;
 }
 
-template <typename T, int D>
-__global__ void __launch_bounds__(kThreads, 2)
-flash_fwd_kernel(const Params p) {
+template <int D>
+__global__ void __launch_bounds__(kThreads, 1)
+flash_fwd_ffma_kernel(const Params p) {
+  using L = Layout<D>;
   extern __shared__ __align__(16) float smem[];
-  constexpr int kOC = D / 16;      // output columns per thread
-  float* Qs = smem;                               // transposed, pre-scaled
-  float* Ks = Qs + D * kQStride;                  // transposed
-  float* Ps = Ks;                                 // transposed probabilities
-  float* Vs = Ks + (D * kKStride > kBK * kQStride ? D * kKStride
-                                                  : kBK * kQStride);
+  float* Qs = smem;
+  float* Ks = Qs + L::kQ;
+  float* Vs = Ks + 2 * L::kK;
+  float* Ps = Vs + 2 * L::kV;
 
   const int tid = threadIdx.x;
   const int tx = tid & 15;
   const int ty = tid >> 4;
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * kBQ;  // heaviest tiles first
-  const int b = blockIdx.y / p.H;
-  const int h = blockIdx.y % p.H;
+  const int b = blockIdx.x / p.H;
+  const int h = blockIdx.x % p.H;
   const int kvh = h / (p.H / p.KV);
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kBQ;  // heaviest tiles first
 
-  const T* qg = static_cast<const T*>(p.q) + b * p.sq_b + h * p.sq_h;
-  const T* kg = static_cast<const T*>(p.k) + b * p.sk_b + kvh * p.sk_h;
-  const T* vg = static_cast<const T*>(p.v) + b * p.sv_b + kvh * p.sv_h;
+  const float* qg = static_cast<const float*>(p.q) + b * p.sq_b + h * p.sq_h;
+  const float* kg = static_cast<const float*>(p.k) + b * p.sk_b + kvh * p.sk_h;
+  const float* vg = static_cast<const float*>(p.v) + b * p.sv_b + kvh * p.sv_h;
+  const bool vec = p.vec != 0;
 
-  for (int i = tid; i < kBQ * D; i += kThreads) {
-    const int r = i / D, d = i % D, s = q0 + r;
-    Qs[d * kQStride + r] =
-        (s < p.S && d < p.hd) ? to_float(qg[s * p.sq_s + d]) * p.scale : 0.f;
+  int kt_lo, kt_hi;
+  key_tiles(p, q0, kBQ, kBK, kt_lo, kt_hi);
+
+  load_rows<D, kBQ>(Qs, D, qg, p.sq_s, q0, p.S, p.hd, vec);
+  if (kt_lo < kt_hi) {
+    load_rows<D, kBK>(Ks, L::kKStride, kg, p.sk_t, kt_lo * kBK, p.T, p.hd,
+                      vec);
+    load_rows<D, kBK>(Vs, D, vg, p.sv_t, kt_lo * kBK, p.T, p.hd, vec);
   }
+  cp_async_commit();
 
-  // the K range this query tile can see
-  const int hi = p.causal ? min(q0 + kBQ, p.T) : p.T;
-  const int lo = p.window > 0 ? max(q0 + 1 - p.window, 0) : 0;
-  const int kt_lo = lo / kBK;
-  const int kt_hi = (hi + kBK - 1) / kBK;
-
-  float m[kRows], l[kRows], acc[kRows][kOC];
+  float m[kRows], l[kRows], acc[kRows][L::kOC];
 #pragma unroll
   for (int i = 0; i < kRows; ++i) {
     m[i] = kNegInf;
-    l[i] = 0.f;
+    l[i] = 0.f;  // this thread's share of the row sum
 #pragma unroll
-    for (int c = 0; c < kOC; ++c) acc[i][c] = 0.f;
+    for (int c = 0; c < L::kOC; ++c) acc[i][c] = 0.f;
   }
 
   for (int kt = kt_lo; kt < kt_hi; ++kt) {
+    const int st = (kt - kt_lo) & 1;
     const int k0 = kt * kBK;
-    __syncthreads();  // the previous tile's Ps/Vs reads are done
-    for (int i = tid; i < kBK * D; i += kThreads) {
-      const int t = i / D, d = i % D, tt = k0 + t;
-      const bool ok = tt < p.T && d < p.hd;
-      Ks[d * kKStride + t] = ok ? to_float(kg[tt * p.sk_t + d]) : 0.f;
-      Vs[t * D + d] = ok ? to_float(vg[tt * p.sv_t + d]) : 0.f;
+    cp_async_wait_all();
+    __syncthreads();  // tile kt landed; every read of tile kt - 1 is done
+    if (kt + 1 < kt_hi) {
+      load_rows<D, kBK>(Ks + (st ^ 1) * L::kK, L::kKStride, kg, p.sk_t,
+                        k0 + kBK, p.T, p.hd, vec);
+      load_rows<D, kBK>(Vs + (st ^ 1) * L::kV, D, vg, p.sv_t, k0 + kBK, p.T,
+                        p.hd, vec);
     }
-    __syncthreads();
+    cp_async_commit();
+    const float* Kt = Ks + st * L::kK;
+    const float* Vt = Vs + st * L::kV;
 
     float s[kRows][kCols];
 #pragma unroll
     for (int i = 0; i < kRows; ++i)
 #pragma unroll
       for (int j = 0; j < kCols; ++j) s[i][j] = 0.f;
-#pragma unroll 8
-    for (int d = 0; d < D; ++d) {
-      const float4 qv =
-          *reinterpret_cast<const float4*>(&Qs[d * kQStride + ty * kRows]);
-      const float qa[kRows] = {qv.x, qv.y, qv.z, qv.w};
+#pragma unroll 4
+    for (int d = 0; d < D; d += 4) {
+      float4 kv[kCols];
 #pragma unroll
-      for (int j = 0; j < kCols; ++j) {
-        const float kv = Ks[d * kKStride + tx + 16 * j];
+      for (int j = 0; j < kCols; ++j)
+        kv[j] = *reinterpret_cast<const float4*>(
+            &Kt[(tx + 16 * j) * L::kKStride + d]);
 #pragma unroll
-        for (int i = 0; i < kRows; ++i) s[i][j] = fmaf(qa[i], kv, s[i][j]);
+      for (int i = 0; i < kRows; ++i) {
+        const float4 qv =
+            *reinterpret_cast<const float4*>(&Qs[(ty * kRows + i) * D + d]);
+#pragma unroll
+        for (int j = 0; j < kCols; ++j) {
+          s[i][j] = fmaf(qv.x, kv[j].x, s[i][j]);
+          s[i][j] = fmaf(qv.y, kv[j].y, s[i][j]);
+          s[i][j] = fmaf(qv.z, kv[j].z, s[i][j]);
+          s[i][j] = fmaf(qv.w, kv[j].w, s[i][j]);
+        }
       }
     }
 
-    // mask, then the online softmax update of each of this thread's rows
+    // scale and mask, then the online softmax update, all rows at once so
+    // their shuffles overlap
+    const bool masked = tile_masked(p, q0, kBQ, k0, kBK);
+    float mx[kRows];
 #pragma unroll
     for (int i = 0; i < kRows; ++i) {
-      const int qpos = q0 + ty * kRows + i;
-      float rmax = kNegInf;
+      mx[i] = m[i];
 #pragma unroll
       for (int j = 0; j < kCols; ++j) {
-        const int kpos = k0 + tx + 16 * j;
-        bool ok = kpos < p.T;
-        if (p.causal) ok = ok && qpos >= kpos;
-        if (p.window > 0) ok = ok && qpos - kpos < p.window;
-        if (!ok) s[i][j] = kNegInf;
-        rmax = fmaxf(rmax, s[i][j]);
+        float x = s[i][j] * p.scale;
+        if (masked && !visible(p, q0 + ty * kRows + i, k0 + tx + 16 * j))
+          x = kNegInf;
+        s[i][j] = x;
+        mx[i] = fmaxf(mx[i], x);
       }
+    }
 #pragma unroll
-      for (int off = 8; off > 0; off >>= 1)
-        rmax = fmaxf(rmax, __shfl_xor_sync(0xffffffffu, rmax, off));
-      const float m_new = fmaxf(m[i], rmax);
-      const float alpha = expf(m[i] - m_new);
+    for (int off = 8; off > 0; off >>= 1)
+#pragma unroll
+      for (int i = 0; i < kRows; ++i)
+        mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], off));
+#pragma unroll
+    for (int i = 0; i < kRows; ++i) {
+      const float alpha = expf(m[i] - mx[i]);
+      m[i] = mx[i];
       float rsum = 0.f;
 #pragma unroll
       for (int j = 0; j < kCols; ++j) {
-        s[i][j] = expf(s[i][j] - m_new);
+        s[i][j] = expf(s[i][j] - mx[i]);
         rsum += s[i][j];
+        Ps[(ty * kRows + i) * kBK + tx + 16 * j] = s[i][j];
       }
-#pragma unroll
-      for (int off = 8; off > 0; off >>= 1)
-        rsum += __shfl_xor_sync(0xffffffffu, rsum, off);
       l[i] = alpha * l[i] + rsum;
-      m[i] = m_new;
 #pragma unroll
-      for (int c = 0; c < kOC; ++c) acc[i][c] *= alpha;
+      for (int c = 0; c < L::kOC; ++c) acc[i][c] *= alpha;
     }
-
-    __syncthreads();  // every Ks read is done: Ps may overwrite it
-#pragma unroll
-    for (int j = 0; j < kCols; ++j)
-      *reinterpret_cast<float4*>(&Ps[(tx + 16 * j) * kQStride + ty * kRows]) =
-          make_float4(s[0][j], s[1][j], s[2][j], s[3][j]);
     __syncthreads();
 
 #pragma unroll 4
-    for (int t = 0; t < kBK; ++t) {
-      const float4 pv =
-          *reinterpret_cast<const float4*>(&Ps[t * kQStride + ty * kRows]);
-      const float pa[kRows] = {pv.x, pv.y, pv.z, pv.w};
+    for (int t = 0; t < kBK; t += 4) {
+      float4 pv[kRows];
 #pragma unroll
-      for (int c = 0; c < kOC; ++c) {
-        const float vv = Vs[t * D + tx + 16 * c];
+      for (int i = 0; i < kRows; ++i)
+        pv[i] = *reinterpret_cast<const float4*>(
+            &Ps[(ty * kRows + i) * kBK + t]);
 #pragma unroll
-        for (int i = 0; i < kRows; ++i) acc[i][c] = fmaf(pa[i], vv, acc[i][c]);
+      for (int u = 0; u < 4; ++u) {
+        float vv[L::kOC];
+        const float* vrow = Vt + (t + u) * D;
+        if (L::kVec4) {
+#pragma unroll
+          for (int g = 0; g < L::kOC / 4; ++g) {
+            const float4 x =
+                *reinterpret_cast<const float4*>(&vrow[64 * g + tx * 4]);
+            vv[4 * g] = x.x;
+            vv[4 * g + 1] = x.y;
+            vv[4 * g + 2] = x.z;
+            vv[4 * g + 3] = x.w;
+          }
+        } else {
+#pragma unroll
+          for (int c = 0; c < L::kOC; ++c) vv[c] = vrow[tx + 16 * c];
+        }
+#pragma unroll
+        for (int i = 0; i < kRows; ++i) {
+          const float pu = u == 0 ? pv[i].x : u == 1 ? pv[i].y
+                         : u == 2 ? pv[i].z : pv[i].w;
+#pragma unroll
+          for (int c = 0; c < L::kOC; ++c)
+            acc[i][c] = fmaf(pu, vv[c], acc[i][c]);
+        }
       }
     }
   }
 
   // o is contiguous (B, S, H, hd)
-  T* og = static_cast<T*>(p.o) +
-          (static_cast<long long>(b) * p.S * p.H + h) * p.hd;
+  float* og = static_cast<float*>(p.o) +
+              (static_cast<long long>(b) * p.S * p.H + h) * p.hd;
   const long long so = static_cast<long long>(p.H) * p.hd;
 #pragma unroll
   for (int i = 0; i < kRows; ++i) {
+    float lsum = l[i];
+#pragma unroll
+    for (int off = 8; off > 0; off >>= 1)
+      lsum += __shfl_xor_sync(0xffffffffu, lsum, off);
     const int s = q0 + ty * kRows + i;
     if (s >= p.S) continue;
-    const float denom = fmaxf(l[i], 1e-30f);
+    const float denom = fmaxf(lsum, 1e-30f);
+    float* orow = og + s * so;
+    if (L::kVec4 && p.hd % 4 == 0) {
 #pragma unroll
-    for (int c = 0; c < kOC; ++c) {
-      const int d = tx + 16 * c;
-      if (d < p.hd) store(&og[s * so + d], acc[i][c] / denom);
+      for (int g = 0; g < L::kOC / 4; ++g) {
+        const int d = 64 * g + tx * 4;
+        if (d < p.hd)
+          *reinterpret_cast<float4*>(&orow[d]) = make_float4(
+              acc[i][4 * g] / denom, acc[i][4 * g + 1] / denom,
+              acc[i][4 * g + 2] / denom, acc[i][4 * g + 3] / denom);
+      }
+    } else {
+#pragma unroll
+      for (int c = 0; c < L::kOC; ++c) {
+        const int d = out_col<D>(tx, c);
+        if (d < p.hd) orow[d] = acc[i][c] / denom;
+      }
     }
   }
 }
 
-template <typename T, int D>
+template <int D>
 cudaError_t launch(const Params& p, cudaStream_t stream) {
-  constexpr size_t bytes = sizeof(float) * smem_floats<D>();
+  constexpr size_t bytes = sizeof(float) * Layout<D>::kFloats;
   // set on every launch: the attribute is per device, and it is cheap
   const cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      flash_fwd_ffma_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(bytes));
   if (err != cudaSuccess) return err;
-  const dim3 grid((p.S + kBQ - 1) / kBQ, p.B * p.H);
-  flash_fwd_kernel<T, D><<<grid, kThreads, bytes, stream>>>(p);
+  const dim3 grid(p.B * p.H, (p.S + kBQ - 1) / kBQ);
+  flash_fwd_ffma_kernel<D><<<grid, kThreads, bytes, stream>>>(p);
   return cudaGetLastError();
 }
 
-template <typename T>
 cudaError_t dispatch(const Params& p, cudaStream_t stream) {
-  if (p.hd <= 16) return launch<T, 16>(p, stream);
-  if (p.hd <= 32) return launch<T, 32>(p, stream);
-  if (p.hd <= 64) return launch<T, 64>(p, stream);
-  if (p.hd <= 80) return launch<T, 80>(p, stream);
-  if (p.hd <= 96) return launch<T, 96>(p, stream);
-  return launch<T, 128>(p, stream);
+  if (p.hd <= 16) return launch<16>(p, stream);
+  if (p.hd <= 32) return launch<32>(p, stream);
+  if (p.hd <= 64) return launch<64>(p, stream);
+  if (p.hd <= 80) return launch<80>(p, stream);
+  if (p.hd <= 96) return launch<96>(p, stream);
+  return launch<128>(p, stream);
+}
+
+}  // namespace ffma
+
+// ---------------------------------------------------------------------------
+// bf16: wgmma on the tensor cores, fed by TMA
+// ---------------------------------------------------------------------------
+
+namespace tc {
+
+constexpr int kBK = 64;          // key rows per K/V tile
+constexpr int kStages = 3;       // K/V ring
+constexpr int kConsumers = 256;  // 2 consumer warpgroups
+constexpr int kThreads = kConsumers + 32;  // and a producer warp
+constexpr int kBox = 64;         // bf16 columns per 128-byte swizzled box
+
+template <int D>
+struct Layout {
+  static constexpr int kQBytes = kBQ * D * 2;
+  static constexpr int kKVBytes = kBK * D * 2;  // one K or V tile
+  static constexpr int kOStride = D + 8;        // output staging (bf16)
+  static constexpr int kQ = 0;
+  static constexpr int kK = kQ + kQBytes;
+  static constexpr int kV = kK + kStages * kKVBytes;
+  static constexpr int kO = kV + kStages * kKVBytes;  // 2 x 64 rows
+  static constexpr int kBar = kO + 2 * 64 * kOStride * 2;
+  // the mbarriers (Q, full and empty per stage), and slack to align the
+  // base to the 1024-byte swizzle atom: 163 KiB at D = 128
+  static constexpr int kBytes = kBar + (1 + 2 * kStages) * 8 + 1024;
+};
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+      "r"(bytes)
+      : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+
+__device__ __forceinline__ bool mbar_try_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  asm volatile(
+      "{\n.reg .pred P1;\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 P1, [%1], %2;\n"
+      "selp.b32 %0, 1, 0, P1;\n}\n"
+      : "=r"(done)
+      : "r"(bar), "r"(parity)
+      : "memory");
+  return done != 0;
+}
+
+__device__ __forceinline__ uint64_t global_ns() {
+  uint64_t t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
+}
+
+// Wait until the phase of the given parity has completed.  A phase that
+// does not complete within 10 s is a bug: trap (a launch error) rather
+// than hang the card.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  if (mbar_try_wait(bar, parity)) return;
+  const uint64_t t0 = global_ns();
+  while (!mbar_try_wait(bar, parity))
+    if (global_ns() - t0 > 10000000000ull) __trap();
+}
+
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
+                                         uint32_t bar, int c0, int c1, int c2,
+                                         int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
+      "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// Shared-memory matrix descriptor of a 128-byte-swizzled operand: lbo and
+// sbo in bytes (for K-major operands lbo is unused).
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo,
+                                               uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(lbo >> 4) << 16) |
+         (static_cast<uint64_t>(sbo >> 4) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+// Wait until at most N committed groups of wgmma are still running.
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+// Pins accumulator registers at this point of the program for the
+// compiler (wgmma writes them asynchronously).
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+template <int N>
+__device__ __forceinline__ void fence_regs(uint32_t (&r)[N][4]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(r[i][j])::"memory");
+}
+
+#define ACC8(i)                                                         \
+  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]),           \
+      "+f"(d[i + 4]), "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
+#define ACC32 ACC8(0), ACC8(8), ACC8(16), ACC8(24)
+#define ACC64 ACC32, ACC8(32), ACC8(40), ACC8(48), ACC8(56)
+#define REGS32                                                          \
+  "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "   \
+  "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "   \
+  "%28, %29, %30, %31"
+#define REGS64                                                          \
+  REGS32 ", %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, "    \
+         "%43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, " \
+         "%55, %56, %57, %58, %59, %60, %61, %62, %63"
+
+// d (+)= A B, A and B K-major in shared memory (64 x 16 and 64 x 16);
+// scale_d = 0 overwrites d.
+__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t a,
+                                         uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {" REGS32
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : ACC32
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
+// d += A B, A (64 x 16) in registers, B (16 x N) MN-major in shared
+// memory (the transpose bit).
+__device__ __forceinline__ void wgmma_rs(float (&d)[32],
+                                         const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {" REGS32
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : ACC32
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+__device__ __forceinline__ void wgmma_rs(float (&d)[64],
+                                         const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {" REGS64
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : ACC64
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+#undef ACC8
+#undef ACC32
+#undef ACC64
+#undef REGS32
+#undef REGS64
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// S = Q K^T of one warpgroup's 64 rows: D / 16 steps of m64nBKk16, both
+// operands K-major in 128-byte-swizzled boxes of 64 columns.
+template <int D>
+__device__ __forceinline__ void qk_product(float (&s)[kBK / 2], uint32_t q_rows,
+                                           uint32_t k_tile) {
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    const uint32_t col = (kk % 4) * 32;  // 16 columns into a box
+    wgmma_ss(s, sw128_desc(q_rows + (kk / 4) * kBQ * 128 + col, 16, 1024),
+             sw128_desc(k_tile + (kk / 4) * kBK * 128 + col, 16, 1024),
+             kk > 0);
+  }
+}
+
+// O += (hi + lo) V: per 16 keys, two m64nDk16 steps with P from registers
+// and V MN-major (its boxes of 64 head-dim columns lie kBK * 128 bytes
+// apart, its 8-key groups 1024 bytes apart).
+template <int D>
+__device__ __forceinline__ void pv_product(float (&o)[D / 2],
+                                           const uint32_t (&phi)[kBK / 16][4],
+                                           const uint32_t (&plo)[kBK / 16][4],
+                                           uint32_t v_tile) {
+#pragma unroll
+  for (int kk = 0; kk < kBK / 16; ++kk) {
+    const uint64_t dv = sw128_desc(v_tile + kk * 16 * 128, kBK * 128, 1024);
+    wgmma_rs(o, phi[kk], dv);
+    wgmma_rs(o, plo[kk], dv);
+  }
+}
+
+// A masked logit before scaling.  A power of two, so that its product with
+// the scale is exact and a row with every key masked so far gets p =
+// exp2(fma(kMasked, c, -kMasked c)) = 1 exactly, as the reference's
+// exp(-1e30 - -1e30) does; any visible key then takes its weight to 0.
+constexpr float kMasked = -0x1p100f;
+
+// 2^x on the special function unit: relative error near 2^-22, results
+// below 2^-126 flushed to 0 (a probability that small is 0 beside the
+// row's largest, which is 1).
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// The online softmax of one tile in this thread's rows rA and rA + 8:
+// masks the logits in s, turns them into probabilities p = 2^(c s - m)
+// with c the softmax scale times log2(e) (one FMA and one exp2 each) and
+// updates the running max m (log2 domain) and sum l (this thread's share;
+// the quad's shares are added at the end).  Returns the factors the rows'
+// accumulators must be scaled by.  s[4i + e] is (row rA, key k0 + 8i + 2
+// (lane % 4) + e), s[4i + 2 + e] the same key of rA + 8.
+__device__ __forceinline__ float2 softmax_tile(float (&s)[kBK / 2],
+                                               const Params& p, int k0,
+                                               int wq0, int rA, int lane,
+                                               float scale_log2, float& mA,
+                                               float& mB, float& lA,
+                                               float& lB) {
+  const bool masked = tile_masked(p, wq0, 64, k0, kBK);
+  float xA = kMasked, xB = kMasked;
+#pragma unroll
+  for (int i = 0; i < kBK / 8; ++i) {
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int kpos = k0 + 8 * i + 2 * (lane % 4) + e;
+      if (masked) {
+        if (!visible(p, rA, kpos)) s[4 * i + e] = kMasked;
+        if (!visible(p, rA + 8, kpos)) s[4 * i + 2 + e] = kMasked;
+      }
+      xA = fmaxf(xA, s[4 * i + e]);
+      xB = fmaxf(xB, s[4 * i + 2 + e]);
+    }
+  }
+#pragma unroll
+  for (int off = 1; off < 4; off <<= 1) {
+    xA = fmaxf(xA, __shfl_xor_sync(0xffffffffu, xA, off));
+    xB = fmaxf(xB, __shfl_xor_sync(0xffffffffu, xB, off));
+  }
+  xA = fmaxf(mA, xA * scale_log2);
+  xB = fmaxf(mB, xB * scale_log2);
+  const float2 alpha = make_float2(ex2(mA - xA), ex2(mB - xB));
+  mA = xA;
+  mB = xB;
+  float sumA = 0.f, sumB = 0.f;
+#pragma unroll
+  for (int i = 0; i < kBK / 8; ++i) {
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      s[4 * i + e] = ex2(fmaf(s[4 * i + e], scale_log2, -mA));
+      s[4 * i + 2 + e] = ex2(fmaf(s[4 * i + 2 + e], scale_log2, -mB));
+      sumA += s[4 * i + e];
+      sumB += s[4 * i + 2 + e];
+    }
+  }
+  lA = alpha.x * lA + sumA;
+  lB = alpha.y * lB + sumB;
+  return alpha;
+}
+
+// P as the A operand of the PV product: the accumulator layout of keys
+// 16 kk .. + 15 is the register-A layout of a k16 step.  hi = bf16(P) and
+// lo = bf16(P - hi).
+__device__ __forceinline__ void split_p(const float (&s)[kBK / 2],
+                                        uint32_t (&phi)[kBK / 16][4],
+                                        uint32_t (&plo)[kBK / 16][4]) {
+#pragma unroll
+  for (int kk = 0; kk < kBK / 16; ++kk) {
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const float x0 = s[8 * kk + 2 * r], x1 = s[8 * kk + 2 * r + 1];
+      const __nv_bfloat162 hi = __floats2bfloat162_rn(x0, x1);
+      const float2 hf = __bfloat1622float2(hi);
+      phi[kk][r] = *reinterpret_cast<const uint32_t*>(&hi);
+      plo[kk][r] = pack_bf16(x0 - hf.x, x1 - hf.y);
+    }
+  }
+}
+
+// Shared memory per CTA: Q (128 x D) and a ring of K and V stages (64 x
+// D), each as 64-column boxes of 128-byte rows swizzled by TMA; the output
+// staging of each consumer warpgroup; the mbarriers.
+template <int D>
+__global__ void __launch_bounds__(kThreads, 1)
+flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
+                       const __grid_constant__ CUtensorMap kmap,
+                       const __grid_constant__ CUtensorMap vmap,
+                       const Params p) {
+  using L = Layout<D>;
+  constexpr int kBoxes = D / kBox;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023) & ~1023u;
+  uint8_t* smem = smem_raw + (base - raw);
+  const uint32_t sQ = base + L::kQ, sK = base + L::kK, sV = base + L::kV;
+  const uint32_t bar_q = base + L::kBar;
+  const uint32_t bar_full = bar_q + 8;    // + 8 * stage
+  const uint32_t bar_empty = bar_full + 8 * kStages;  // + 8 * stage
+
+  const int tid = threadIdx.x;
+  const int b = blockIdx.x / p.H;
+  const int h = blockIdx.x % p.H;
+  const int kvh = h / (p.H / p.KV);
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kBQ;  // heaviest tiles first
+  int kt_lo, kt_hi;
+  key_tiles(p, q0, kBQ, kBK, kt_lo, kt_hi);
+  const int n_tiles = max(kt_hi - kt_lo, 0);
+
+  if (tid == 0) {
+    mbar_init(bar_q, 1);
+    for (int st = 0; st < kStages; ++st) {
+      mbar_init(bar_full + 8 * st, 1);
+      mbar_init(bar_empty + 8 * st, kConsumers);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (tid >= kConsumers) {
+    // producer: one thread issues every TMA load
+    if (tid == kConsumers) {
+      mbar_expect_tx(bar_q, L::kQBytes);
+      for (int x = 0; x < kBoxes; ++x)
+        tma_load(sQ + x * kBQ * 128, &qmap, bar_q, x * kBox, h, q0, b);
+      for (int it = 0; it < n_tiles; ++it) {
+        const int st = it % kStages;
+        const int k0 = (kt_lo + it) * kBK;
+        mbar_wait(bar_empty + 8 * st, ((it / kStages) & 1) ^ 1);
+        mbar_expect_tx(bar_full + 8 * st, 2 * L::kKVBytes);
+        for (int x = 0; x < kBoxes; ++x) {
+          const uint32_t off = st * L::kKVBytes + x * kBK * 128;
+          tma_load(sK + off, &kmap, bar_full + 8 * st, x * kBox, kvh, k0, b);
+          tma_load(sV + off, &vmap, bar_full + 8 * st, x * kBox, kvh, k0, b);
+        }
+      }
+    }
+  } else {
+    // consumers: warpgroup wg owns query rows q0 + 64 wg .. + 63
+    const int wg = tid / 128;
+    const int wt = tid % 128;
+    const int lane = tid % 32;
+    const int wq0 = q0 + 64 * wg;
+    const int rA = wq0 + (wt / 32) * 16 + lane / 4;  // rows rA and rA + 8
+    const float scale_log2 = p.scale * 1.4426950408889634f;
+
+    float o[D / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+    float mA = kNegInf, mB = kNegInf, lA = 0.f, lB = 0.f;  // log2 domain
+
+    mbar_wait(bar_q, 0);
+    const uint32_t q_rows = sQ + wg * 64 * 128;
+    // this warpgroup's live tiles [lo, hi): the ones before lo lie before
+    // the window of all its 64 rows, the ones from hi on past its diagonal;
+    // it waits for the others only to release them
+    auto dead = [&](int it) {
+      const int k0 = (kt_lo + it) * kBK;
+      return (p.causal && k0 > wq0 + 63) ||
+             (p.window > 0 && wq0 - (k0 + kBK - 1) >= p.window);
+    };
+    int lo = 0, hi = n_tiles;
+    while (lo < hi && dead(lo)) ++lo;
+    while (hi > lo && dead(hi - 1)) --hi;
+    auto skip = [&](int it) {
+      mbar_wait(bar_full + 8 * (it % kStages), (it / kStages) & 1);
+      mbar_arrive(bar_empty + 8 * (it % kStages));
+    };
+    for (int it = 0; it < lo; ++it) skip(it);
+    if (lo < hi) {
+      float s[kBK / 2];
+      // P of the tile before: the A operand of its PV product
+      uint32_t phi[kBK / 16][4], plo[kBK / 16][4];
+      int st = lo % kStages;
+      mbar_wait(bar_full + 8 * st, (lo / kStages) & 1);
+      wgmma_fence();
+      qk_product<D>(s, q_rows, sK + st * L::kKVBytes);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(s);
+      softmax_tile(s, p, (kt_lo + lo) * kBK, wq0, rA, lane, scale_log2, mA,
+                   mB, lA, lB);  // o is still zero: nothing to rescale
+      split_p(s, phi, plo);
+      // then a tile's S = Q K^T and the tile before's PV product run on
+      // the tensor cores together, and the softmax overlaps the PV product
+      for (int it = lo + 1; it < hi; ++it) {
+        const int prev = st;
+        st = it % kStages;
+        mbar_wait(bar_full + 8 * st, (it / kStages) & 1);
+        wgmma_fence();
+        qk_product<D>(s, q_rows, sK + st * L::kKVBytes);
+        wgmma_commit();
+        pv_product<D>(o, phi, plo, sV + prev * L::kKVBytes);
+        wgmma_commit();
+        wgmma_wait<1>();
+        fence_regs(s);
+        const float2 alpha = softmax_tile(s, p, (kt_lo + it) * kBK, wq0, rA,
+                                          lane, scale_log2, mA, mB, lA, lB);
+        wgmma_wait<0>();
+        fence_regs(o);
+        fence_regs(phi);
+        fence_regs(plo);
+        mbar_arrive(bar_empty + 8 * prev);
+#pragma unroll
+        for (int i = 0; i < D / 8; ++i) {
+          o[4 * i] *= alpha.x;
+          o[4 * i + 1] *= alpha.x;
+          o[4 * i + 2] *= alpha.y;
+          o[4 * i + 3] *= alpha.y;
+        }
+        split_p(s, phi, plo);
+      }
+      wgmma_fence();
+      pv_product<D>(o, phi, plo, sV + st * L::kKVBytes);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(o);
+      mbar_arrive(bar_empty + 8 * st);
+    }
+    for (int it = hi; it < n_tiles; ++it) skip(it);
+
+    // the row sums over the quad, then the output through shared memory
+#pragma unroll
+    for (int off = 1; off < 4; off <<= 1) {
+      lA += __shfl_xor_sync(0xffffffffu, lA, off);
+      lB += __shfl_xor_sync(0xffffffffu, lB, off);
+    }
+    const float dA = fmaxf(lA, 1e-30f), dB = fmaxf(lB, 1e-30f);
+    __nv_bfloat16* os = reinterpret_cast<__nv_bfloat16*>(
+        smem + L::kO + wg * 64 * L::kOStride * 2);
+    const int rr = (wt / 32) * 16 + lane / 4;
+#pragma unroll
+    for (int i = 0; i < D / 8; ++i) {
+      const int c = 8 * i + 2 * (lane % 4);
+      *reinterpret_cast<uint32_t*>(&os[rr * L::kOStride + c]) =
+          pack_bf16(o[4 * i] / dA, o[4 * i + 1] / dA);
+      *reinterpret_cast<uint32_t*>(&os[(rr + 8) * L::kOStride + c]) =
+          pack_bf16(o[4 * i + 2] / dB, o[4 * i + 3] / dB);
+    }
+    asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wg) : "memory");
+
+    __nv_bfloat16* og = static_cast<__nv_bfloat16*>(p.o) +
+                        (static_cast<long long>(b) * p.S * p.H + h) * p.hd;
+    const long long so = static_cast<long long>(p.H) * p.hd;
+    const int rows = min(64, p.S - wq0);
+    if (p.hd % 8 == 0) {
+      const int cpr = p.hd / 8;  // 16-byte chunks per row
+      for (int i = wt; i < rows * cpr; i += 128) {
+        const int r = i / cpr, c = (i % cpr) * 8;
+        *reinterpret_cast<uint4*>(&og[(wq0 + r) * so + c]) =
+            *reinterpret_cast<const uint4*>(&os[r * L::kOStride + c]);
+      }
+    } else {
+      for (int i = wt; i < rows * p.hd; i += 128) {
+        const int r = i / p.hd, c = i % p.hd;
+        og[(wq0 + r) * so + c] = os[r * L::kOStride + c];
+      }
+    }
+  }
+}
+
+// cuTensorMapEncodeTiled through the runtime's driver entry point, so the
+// library needs no -lcuda.
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                void*, const cuuint64_t*, const cuuint64_t*,
+                                const cuuint32_t*, const cuuint32_t*,
+                                CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* ptr = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &ptr, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(ptr);
+  }
+  return fn;
+}
+
+// A 4-D map over (hd, heads, seq, batch) of a bf16 tensor with element
+// strides s_h, s_s, s_b, read as boxes of (64, 1, rows, 1): 64 columns
+// (128 bytes, swizzled) of `rows` sequence positions, zero-filled out of
+// bounds.  The stride of a dimension of size 1 is never used; it is
+// replaced by a valid one.
+bool make_map(CUtensorMap* map, const void* ptr, int hd, int heads, int seq,
+              int batch, long long s_h, long long s_s, long long s_b,
+              int rows) {
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(hd),
+                              static_cast<cuuint64_t>(heads),
+                              static_cast<cuuint64_t>(seq),
+                              static_cast<cuuint64_t>(batch)};
+  const long long given[3] = {s_h, s_s, s_b};
+  cuuint64_t strides[3];
+  unsigned long long prev = (static_cast<unsigned long long>(hd) * 2 + 15) &
+                            ~15ull;  // bytes of the previous dimension
+  for (int i = 0; i < 3; ++i) {
+    strides[i] = dims[i + 1] == 1 ? prev
+                                  : static_cast<cuuint64_t>(given[i]) * 2;
+    prev = strides[i] * dims[i + 1];
+  }
+  const cuuint32_t box[4] = {kBox, 1, static_cast<cuuint32_t>(rows), 1};
+  const cuuint32_t estride[4] = {1, 1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr),
+            dims, strides, box, estride, CU_TENSOR_MAP_INTERLEAVE_NONE,
+            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int D>
+cudaError_t launch(const Params& p, cudaStream_t stream) {
+  CUtensorMap qm, km, vm;
+  if (!make_map(&qm, p.q, p.hd, p.H, p.S, p.B, p.sq_h, p.sq_s, p.sq_b,
+                kBQ) ||
+      !make_map(&km, p.k, p.hd, p.KV, p.T, p.B, p.sk_h, p.sk_t, p.sk_b,
+                kBK) ||
+      !make_map(&vm, p.v, p.hd, p.KV, p.T, p.B, p.sv_h, p.sv_t, p.sv_b, kBK))
+    return cudaErrorInvalidValue;
+  constexpr int bytes = Layout<D>::kBytes;
+  const cudaError_t err = cudaFuncSetAttribute(
+      flash_fwd_wgmma_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      bytes);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(p.B * p.H, (p.S + kBQ - 1) / kBQ);
+  flash_fwd_wgmma_kernel<D><<<grid, kThreads, bytes, stream>>>(qm, km, vm, p);
+  return cudaGetLastError();
+}
+
+// TMA's rules: a 16-byte-aligned base and strides that are multiples of
+// 16 bytes (8 bf16) in every dimension of more than one element.
+bool tma_ok(const void* ptr, long long s0, int n0, long long s1, int n1,
+            long long s2, int n2) {
+  return reinterpret_cast<uintptr_t>(ptr) % 16 == 0 &&
+         (n0 == 1 || s0 % 8 == 0) && (n1 == 1 || s1 % 8 == 0) &&
+         (n2 == 1 || s2 % 8 == 0);
+}
+
+cudaError_t dispatch(const Params& p, cudaStream_t stream) {
+  if (!tma_ok(p.q, p.sq_b, p.B, p.sq_s, p.S, p.sq_h, p.H) ||
+      !tma_ok(p.k, p.sk_b, p.B, p.sk_t, p.T, p.sk_h, p.KV) ||
+      !tma_ok(p.v, p.sv_b, p.B, p.sv_t, p.T, p.sv_h, p.KV))
+    return cudaErrorInvalidValue;
+  return p.hd <= 64 ? launch<64>(p, stream) : launch<128>(p, stream);
+}
+
+}  // namespace tc
+
+bool aligned16(const void* ptr) {
+  return reinterpret_cast<uintptr_t>(ptr) % 16 == 0;
 }
 
 }  // namespace
@@ -260,7 +1004,8 @@ extern "C" {
 
 // dtype: 0 = float32, 1 = bfloat16.  Strides are in elements; the last
 // dim of q, k and v has stride 1 and o is contiguous (B, S, H, hd).
-// Returns the CUDA error of the launch (0 on success).
+// bfloat16 operands also need TMA's 16-byte rule (tc::tma_ok).  Returns
+// the CUDA error of the launch (0 on success).
 int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
                         int dtype, int B, int S, int T, int H, int KV, int hd,
                         long long sq_b, long long sq_s, long long sq_h,
@@ -268,14 +1013,20 @@ int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
                         long long sv_b, long long sv_t, long long sv_h,
                         int causal, int window, float scale, void* stream) {
   if (hd < 1 || hd > 128 || KV < 1 || H % KV != 0 || B < 1 || S < 1 ||
-      T < 1 || B * H > 65535 || (dtype != 0 && dtype != 1))
+      T < 1 || static_cast<long long>(B) * H > 2147483647LL ||
+      (S + kBQ - 1) / kBQ > 65535 || (dtype != 0 && dtype != 1))
     return static_cast<int>(cudaErrorInvalidValue);
-  const Params p{q,    k,    v,    o,    B,    S,    T,      H,
-                 KV,   hd,   sq_b, sq_s, sq_h, sk_b, sk_t,   sk_h,
-                 sv_b, sv_t, sv_h, causal, window, scale};
+  const bool vec = aligned16(q) && aligned16(k) && aligned16(v) &&
+                   hd % 4 == 0 && sq_b % 4 == 0 && sq_s % 4 == 0 &&
+                   sq_h % 4 == 0 && sk_b % 4 == 0 && sk_t % 4 == 0 &&
+                   sk_h % 4 == 0 && sv_b % 4 == 0 && sv_t % 4 == 0 &&
+                   sv_h % 4 == 0;
+  const Params p{q,    k,    v,    o,    B,      S,      T,     H,
+                 KV,   hd,   sq_b, sq_s, sq_h,   sk_b,   sk_t,  sk_h,
+                 sv_b, sv_t, sv_h, causal, window, scale, vec};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const cudaError_t err = dtype == 0 ? dispatch<float>(p, st)
-                                     : dispatch<__nv_bfloat16>(p, st);
+  const cudaError_t err = dtype == 0 ? ffma::dispatch(p, st)
+                                     : tc::dispatch(p, st);
   return static_cast<int>(err);
 }
 

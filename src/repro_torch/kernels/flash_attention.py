@@ -13,7 +13,11 @@ Layout the kernel takes: q, k and v in the (B, S|T, heads, hd) layout with
 any strides whose last one is 1 (so the (B, S, kv, G, hd) -> (B, S, H, hd)
 reshape of a projection is read in place, and K/V are never repeated in
 memory); the output is a new contiguous (B, S, H, hd) tensor.  hd is
-padded inside the kernel, up to 128.
+padded inside the kernel, up to 128.  fp32 runs on the CUDA cores (FFMA);
+bf16 runs on the tensor cores, its tiles loaded by TMA, which needs
+16-byte-aligned data pointers and strides that are multiples of 8
+elements in the batch, sequence and head dims (:func:`check_cuda_operands`
+raises for any other bf16 operand).
 
 A tensor on the CPU takes the plain version (kernels/ref.py
 ``blocked_attention``, the same CPU path as ``ops.attention``); a CUDA
@@ -30,6 +34,7 @@ from repro_torch.kernels import build as kbuild
 from repro_torch.kernels import ref
 
 MAX_HEAD_DIM = 128
+QUERY_TILE = 128   # query rows per CTA, both designs
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 _vp, _ci, _ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
@@ -67,6 +72,38 @@ def _check_operands(q, k, v) -> None:
                          f"{tuple(k.shape)}")
 
 
+def check_cuda_operands(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        window: Optional[int] = None) -> None:
+    """What the kernel takes beyond :func:`_check_operands`; raises
+    ValueError naming the rule an operand breaks.  Reads shapes, strides,
+    dtypes and data pointers only, so it runs on CPU tensors too."""
+    B, S, H, hd = q.shape
+    if hd > MAX_HEAD_DIM:
+        raise ValueError(f"flash_attention supports head_dim <= "
+                         f"{MAX_HEAD_DIM}, got {hd}")
+    if -(-S // QUERY_TILE) > 65535:
+        raise ValueError(f"flash_attention supports S <= "
+                         f"{65535 * QUERY_TILE}, got {S}")
+    if window is not None and window < 1:
+        raise ValueError(f"flash_attention: window must be >= 1, got {window}")
+    if q.stride(-1) != 1 or k.stride(-1) != 1 or v.stride(-1) != 1:
+        raise ValueError("flash_attention: the last dim of q, k and v must "
+                         "have stride 1")
+    if q.dtype != torch.bfloat16:
+        return
+    for name, x in (("q", q), ("k", k), ("v", v)):
+        if x.data_ptr() % 16:
+            raise ValueError(
+                f"flash_attention bf16 (TMA): {name}'s data pointer must be "
+                f"16-byte aligned, got {x.data_ptr():#x}")
+        if any(x.shape[d] > 1 and x.stride(d) % 8 for d in range(3)):
+            raise ValueError(
+                f"flash_attention bf16 (TMA): {name}'s strides in the batch, "
+                f"sequence and head dims must be multiples of 8 elements (16 "
+                f"bytes); got stride {x.stride()} for shape "
+                f"{tuple(x.shape)}")
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     causal: bool = True, window: Optional[int] = None
                     ) -> torch.Tensor:
@@ -78,19 +115,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _check_operands(q, k, v)
     if q.device.type == "cpu":
         return ref.blocked_attention(q, k, v, causal=causal, window=window)
+    check_cuda_operands(q, k, v, window)
     B, S, H, hd = q.shape
     T, KV = k.shape[1], k.shape[2]
-    if hd > MAX_HEAD_DIM:
-        raise ValueError(f"flash_attention supports head_dim <= "
-                         f"{MAX_HEAD_DIM}, got {hd}")
-    if B * H > 65535:
-        raise ValueError(f"flash_attention supports B*H <= 65535, got "
-                         f"{B * H}")
-    if window is not None and window < 1:
-        raise ValueError(f"flash_attention: window must be >= 1, got {window}")
-    if q.stride(-1) != 1 or k.stride(-1) != 1 or v.stride(-1) != 1:
-        raise ValueError("flash_attention: the last dim of q, k and v must "
-                         "have stride 1")
     out = torch.empty((B, S, H, hd), dtype=q.dtype, device=q.device)
     with torch.cuda.device(q.device):
         _LIB.launch(

@@ -182,11 +182,103 @@ def test_kernel_wrapper_rejects_bad_operands(shapes, dtypes, match):
         tfa.flash_attention(q, k, v)
 
 
+def _bf16_operands(q_stride=None, offset=0):
+    """bf16 q, k, v of shape (2, 64, 4, 16) / (2, 64, 2, 16) on the CPU;
+    q read through ``as_strided`` with the given strides and storage
+    offset (elements)."""
+    q = torch.zeros(1 << 16, dtype=torch.bfloat16)
+    q = q.as_strided((2, 64, 4, 16), q_stride or (4096, 64, 16, 1), offset)
+    k = torch.zeros(2, 64, 2, 16, dtype=torch.bfloat16)
+    return q, k, k.clone()
+
+
+@pytest.mark.parametrize("q_stride,offset,match", [
+    ((4096, 68, 16, 1), 0, "multiples of 8 elements"),    # sequence
+    ((4096, 64, 12, 1), 0, "multiples of 8 elements"),    # head
+    ((4092, 64, 16, 1), 0, "multiples of 8 elements"),    # batch
+    (None, 1, "16-byte aligned"),                         # 2 bytes off
+    (None, 4, "16-byte aligned"),                         # 8 bytes off
+])
+def test_cuda_operand_check_names_tma_rule(q_stride, offset, match):
+    """The bf16 design loads its tiles with TMA: the wrapper's CUDA-side
+    check refuses, naming the rule, what TMA cannot take."""
+    q, k, v = _bf16_operands(q_stride, offset)
+    with pytest.raises(ValueError, match=match):
+        tfa.check_cuda_operands(q, k, v)
+
+
+@pytest.mark.parametrize("q_stride,offset", [
+    (None, 0),                   # contiguous
+    (None, 8),                   # 16 bytes off
+    ((8192, 64, 16, 1), 0),      # padded batch rows
+    ((16, 128, 2048, 1), 0),     # (B, H, S, hd) memory, heads outermost
+])
+def test_cuda_operand_check_takes_tma_layouts(q_stride, offset):
+    q, k, v = _bf16_operands(q_stride, offset)
+    tfa.check_cuda_operands(q, k, v)   # no error
+    # fp32 takes any stride: the FFMA design copies 4 bytes at a time
+    q32 = torch.zeros(1 << 16).as_strided(q.shape, (4092, 68, 12, 1), 1)
+    tfa.check_cuda_operands(q32, k.float(), v.float())
+
+
+def test_cuda_operand_check_ignores_stride_of_size_one_dims():
+    q = torch.zeros(64 * 4 * 16, dtype=torch.bfloat16).as_strided(
+        (1, 64, 4, 16), (3, 64, 16, 1))
+    k = torch.zeros(1, 64, 2, 16, dtype=torch.bfloat16).as_strided(
+        (1, 64, 2, 16), (5, 32, 16, 1))
+    tfa.check_cuda_operands(q, k, k)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("shape,step,kw,match", [
+    ((1, 8, 2, 136), 1, {}, "head_dim <= 128"),
+    ((1, 8, 2, 16), 1, {"window": 0}, "window must be >= 1"),
+    ((1, 8, 2, 32), 2, {}, "stride 1"),
+])
+def test_cuda_operand_check_limits(shape, step, kw, match, dtype):
+    q = torch.zeros(shape, dtype=_TDT[dtype])[..., ::step]
+    with pytest.raises(ValueError, match=match):
+        tfa.check_cuda_operands(q, q, q, **kw)
+
+
+def _split_p_tile(seed, hd, n_keys=1024, rows=64):
+    """One query tile of the tensor-core design, emulated in fp32 on the
+    CPU: bf16 q, k, v, fp32 logits and probabilities p, and P V taken as
+    bf16(p) V + bf16(p - bf16(p)) V with fp32 sums, as the kernel's two
+    wgmma products per 16 keys accumulate it.  Returns the output rounded
+    to bf16 once, the same with p rounded to bf16 once, and the fp32
+    result."""
+    rng = np.random.default_rng(seed)
+    q, k, v = (torch.from_numpy(rng.standard_normal((n, hd)).astype(
+        np.float32)).bfloat16().float() for n in (rows, n_keys, n_keys))
+    s = q @ k.T / hd ** 0.5
+    p = torch.exp(s - s.max(dim=1, keepdim=True).values)
+    l = p.sum(dim=1, keepdim=True)
+    hi = p.bfloat16().float()
+    lo = (p - hi).bfloat16().float()
+    split = ((hi @ v + lo @ v) / l).bfloat16().float()
+    once = (hi @ v / l).bfloat16().float()
+    return split, once, p @ v / l
+
+
+@pytest.mark.parametrize("seed,hd", [(0, 128), (1, 128), (2, 80), (3, 64)])
+def test_split_p_product_holds_bf16_rounding(seed, hd):
+    """The numerics argument of the bf16 design: with P split into hi and
+    lo halves, every output is within one bf16 rounding of the fp32 P V
+    (2^-8 |want| + 2e-5, chip_smoke.py phase 6's check); P rounded to bf16
+    once misses it more than twice over."""
+    split, once, want = _split_p_tile(seed, hd)
+    bound = 2.0 ** -8 * want.abs() + 2e-5
+    assert float(((split - want).abs() / bound).max()) <= 1.0
+    assert float(((once - want).abs() / bound).max()) > 2.0
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", ATTN_CASES + [
     (100, 100, 4, 2, 16, True, None),      # tiny-lm / smoke head dim
     (130, 130, 4, 2, 120, True, None),     # h2o-danube head dim
     (96, 96, 4, 2, 16, True, 64),          # h2o-danube smoke window
+    (1024, 1024, 32, 32, 80, True, None),  # zamba2's shared block
 ])
 @pytest.mark.parametrize("dtype", DTYPES)
 def test_cuda_kernel_matches_plain_version(case, dtype):
