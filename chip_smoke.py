@@ -50,9 +50,14 @@ only, never JAX or the reference package.  Phases:
    WKV6 (B3) on the reference's WKV_CASES against the token-level oracle
    (5e-4 fp32, 5e-2 bf16), SSD (B4) on SSD_CASES (5e-4, 1e-1); both with
    a nonzero state in and the state out against the chunked plain version
-   (relative 1e-4 fp32, 1e-2 bf16), in the models' layouts and at the
-   full-width prefill shapes; WKV6 with logw = -8 finite.  Time kernel
-   and plain version at the prefill shapes beside the bound.
+   (relative 1e-4 fp32, 1e-2 bf16), in the models' layouts, at full width
+   with an S that is no multiple of the kernels' chunk and at the
+   full-width prefill shapes; WKV6 with logw = -8 finite, also over the
+   whole prefill shape.  Both kernels' SASS must hold tensor-core
+   products (HMMA); log their counts and each launch's grid, CTAs per SM
+   and waves.  Time kernel and plain version at the prefill shapes beside
+   the bound (counted at a fixed chunk, BOUND_CHUNK) and the bound with
+   the products on the tensor cores.
 10. rwkv6-3b at full width (fp32 params drawn on the card): the prototype
     ``Server`` prefills a wave of 8 prompts of 4..1024 tokens through
     ``lm.serve_prefill`` (exactly 32 wkv6 launches) and decodes 16 tokens;
@@ -86,6 +91,7 @@ ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory rate (data sheet)
 FP32_OPS_PER_S = 67e12         # H100 SXM fp32 outside the tensor cores
 BF16_OPS_PER_S = 989e12        # H100 SXM bf16 tensor cores, dense
+TF32_OPS_PER_S = 495e12        # H100 SXM TF32 tensor cores, dense
 CARD_VS_CPU_RTOL = 1e-3        # see phase 4
 SERVE_LOGITS_RTOL = 1e-4       # see phase 8
 
@@ -501,9 +507,10 @@ ATTN_SHAPES = {
     "qwen2-7b prefill": dict(B=8, S=1024, H=28, KV=4, hd=128),
     "zamba2-2.7b shared block": dict(B=8, S=1024, H=32, KV=32, hd=80),
 }
-#: SASS instructions the bf16 design must contain: the wgmma products
-#: (HGMMA) and the TMA tile loads (UTMALDG)
-TC_OPCODES = ("HGMMA", "UTMALDG")
+#: SASS instructions counted in the built kernels: the wgmma products
+#: (HGMMA) and TMA tile loads (UTMALDG) the bf16 flash design must
+#: contain, and the mma.sync products (HMMA) of the chunk scans
+TC_OPCODES = ("HGMMA", "UTMALDG", "HMMA")
 
 
 def visible_pairs(S: int, T: int, causal: bool, window) -> int:
@@ -1050,7 +1057,13 @@ SSD_FULL = dict(B=8, S=1024, H=80, P=64, N=64)
 WKV_MODEL_CASES = [dict(B=2, S=100, H=4, N=16), dict(B=3, S=70, H=5, N=64)]
 SSD_MODEL_CASES = [dict(B=2, S=100, H=8, P=16, N=16),
                    dict(B=2, S=77, H=6, P=64, N=64)]
-SCAN_CHUNK = 32   # both kernels' own chunk (csrc/wkv6.cu, csrc/ssd.cu)
+#: full width with an S that is not a multiple of the kernels' chunk
+WKV_RAGGED = dict(B=2, S=1000, H=40, N=64)
+SSD_RAGGED = dict(B=2, S=1000, H=80, P=64, N=64)
+SCAN_CHUNK = 32   # both kernels' own chunk (csrc/chunk_scan.cuh kChunk)
+#: the chunk the bounds are counted at, fixed whatever chunk the kernels
+#: take, so that bounds stay comparable across designs
+BOUND_CHUNK = 32
 SSD_MODEL_CHUNK = 128   # zamba2-2.7b's configured chunk, the plain path's
 
 
@@ -1078,23 +1091,31 @@ def ssd_inputs(torch, g, B, S, H, P, N, dtype):
 
 
 def _bound(nbytes, flops, dtype):
+    """The bound at the card's rate for ``dtype`` outside the tensor cores
+    (fp32) or on them (bf16), and beside it ``tc_bound_ms``, the products
+    on the tensor cores as the scan kernels run them: 3xTF32 (3x the
+    operations at the TF32 rate) for fp32, the bf16 rate for bf16."""
     peak = FP32_OPS_PER_S if dtype == "float32" else BF16_OPS_PER_S
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / peak * 1e3
+    t_tc = (3 * flops / TF32_OPS_PER_S if dtype == "float32"
+            else flops / BF16_OPS_PER_S) * 1e3
     return {"bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "tc_bound_ms": max(t_bytes, t_tc),
+            "tc_bound_by": "bytes" if t_bytes >= t_tc else "operations",
             "bytes": nbytes, "flops": flops}
 
 
 def wkv_bound(B, S, H, N, dtype):
     """Least time for one launch: r, k, v, y (dtype) and logw (f32) moved
     once, the state read and written once; operations of the chunked form
-    at the kernel's chunk (a multiply-add counts 2, an exp 1): per chunk
+    at BOUND_CHUNK (a multiply-add counts 2, an exp 1): per chunk
     (r exp(cum_prev)) @ S and the state update (2 C N^2 multiply-adds), the
     strictly-lower pairwise decayed products and their product with v
     (C(C-1)/2 N each), the bonus (2 C N), and C(C-1)/2 N + 2 C N exps."""
     size = 4 if dtype == "float32" else 2
     nbytes = (4 * size + 4) * B * S * H * N + 8 * B * H * N * N + 4 * H * N
-    C = SCAN_CHUNK
+    C = BOUND_CHUNK
     pairs = C * (C - 1) // 2
     fma = 2 * C * N * N + 2 * pairs * N + 2 * C * N
     flops = B * H * (-(-S // C)) * (2 * fma + pairs * N + 2 * C * N)
@@ -1104,19 +1125,41 @@ def wkv_bound(B, S, H, N, dtype):
 def ssd_bound(B, S, H, P, N, dtype):
     """Least time for one launch: x, y (B,S,H,P), B, C (B,S,N) in dtype
     and da (f32) moved once, h read and written once; operations of the
-    chunked form at the kernel's chunk: C.h and the state update (2 C P N
+    chunked form at BOUND_CHUNK: C.h and the state update (2 C P N
     multiply-adds per head), the visible C.B products once per batch row
     and chunk (C(C+1)/2 N: B and C are shared by the heads, though the
-    kernel recomputes them per head), their product with x (C(C+1)/2 P per
+    kernel rebuilds them per head), their product with x (C(C+1)/2 P per
     head), and C(C+1)/2 + 2 C exps per head."""
     size = 4 if dtype == "float32" else 2
     nbytes = (size * (2 * B * S * H * P + 2 * B * S * N) + 4 * B * S * H
               + 8 * B * H * P * N)
-    C = SCAN_CHUNK
+    C = BOUND_CHUNK
     vis = C * (C + 1) // 2
     per_head = 2 * (2 * C * P * N + vis * P) + vis + 2 * C
     flops = B * (-(-S // C)) * (H * per_head + 2 * vis * N)
     return _bound(nbytes, flops, dtype)
+
+
+def scan_sass(lib_path: str, name: str) -> dict:
+    """SASS counts of a scan kernel's instantiations; each must hold mma.sync
+    products on the tensor cores (HMMA)."""
+    sass = {fn: c for fn, c in sass_counts(lib_path).items() if name in fn}
+    check(sass and all(c["HMMA"] > 0 for c in sass.values()),
+          f"the {name} kernels lack tensor-core (HMMA) instructions: {sass}")
+    for fn, c in sorted(sass.items()):
+        kind = "bf16" if "bfloat16" in fn else "fp32"
+        log(f"phase 9: SASS of {name} ({kind} inputs): {c['HMMA']} HMMA")
+    return sass
+
+
+def scan_grid(torch, scan, dtype, grid: int) -> dict:
+    """The launch's grid (one CTA per (batch, head)), the CTAs that fit on
+    an SM and the waves the grid takes on the card."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    ctas = scan.ctas_per_sm(getattr(torch, dtype))
+    check(ctas > 0, f"{scan.__name__}: no CTA fits on an SM ({ctas})")
+    return {"grid": grid, "ctas_per_sm": ctas, "sms": sms,
+            "waves": grid / (ctas * sms)}
 
 
 def _time_pair(torch, kern, plain):
@@ -1129,12 +1172,12 @@ def _time_pair(torch, kern, plain):
             "plain_ms_runs": [p1, p2]}
 
 
-def check_wkv6(torch, ops, scan, ref):
+def check_wkv6(torch, ops, scan, ref, lib_path):
     """B3 against its plain versions on the card; times at the rwkv6-3b
-    prefill shape.  Returns {dtype: {...}}."""
+    prefill shape.  Returns {dtype: {...}, "sass": {kernel: counts}}."""
     g = torch.Generator(device="cuda").manual_seed(9)
     rnd = _randn(torch, g)
-    out = {}
+    out = {"sass": scan_sass(lib_path, "wkv6_kernel")}
     for dtype in ("float32", "bfloat16"):
         worst_oracle, worst_rel = 0.0, 0.0
         dt = getattr(torch, dtype)
@@ -1163,7 +1206,7 @@ def check_wkv6(torch, ops, scan, ref):
             check(rel < SCAN_RTOL[dtype], f"wkv6 with state ({BH},{S},{N}) "
                   f"{dtype}: rel err {rel}")
             worst_rel = max(worst_rel, rel)
-        for case in WKV_MODEL_CASES + [WKV_FULL]:
+        for case in WKV_MODEL_CASES + [WKV_RAGGED, WKV_FULL]:
             r, k, v, logw, u, s0 = wkv_inputs(torch, g, dtype=dtype, **case)
             s_k = s0.clone()
             got = scan.wkv6(r, k, v, logw, u, s_k)
@@ -1181,6 +1224,20 @@ def check_wkv6(torch, ops, scan, ref):
                      torch.zeros(2, 16, device="cuda"), chunk=64)
         torch.cuda.synchronize()
         check(bool(torch.isfinite(y).all()), "wkv6 strong decay not finite")
+        # strong decay over the whole prefill shape, in the model's layout
+        r, k, v, logw, u, s0 = wkv_inputs(torch, g, dtype=dtype, strong=True,
+                                          **WKV_FULL)
+        s_k = s0.clone()
+        got = scan.wkv6(r, k, v, logw, u, s_k)
+        want, s_p = ref.wkv6_chunked(r, k, v, logw, u, s0, SCAN_CHUNK)
+        torch.cuda.synchronize()
+        strong_rel = max(_rel(got, want), _rel(s_k, s_p))
+        check(bool(torch.isfinite(got).all()) and bool(
+            torch.isfinite(s_k).all()) and strong_rel < SCAN_RTOL[dtype],
+              f"wkv6 strong decay (logw = -8) at {WKV_FULL} {dtype}: rel err "
+              f"{strong_rel}")
+        worst_rel = max(worst_rel, strong_rel)
+        del r, k, v, logw, got, want
         F_ = WKV_FULL
         r, k, v, logw, u, s0 = wkv_inputs(torch, g, dtype=dtype, **F_)
         s = s0.clone()
@@ -1188,28 +1245,36 @@ def check_wkv6(torch, ops, scan, ref):
             torch, lambda: scan.wkv6(r, k, v, logw, u, s),
             lambda: ref.wkv6_chunked(r, k, v, logw, u, s0, SCAN_CHUNK))
         o = out[dtype] = dict(wkv_bound(dtype=dtype, **F_), **times,
-                              max_abs_err=worst_oracle, max_rel_err=worst_rel)
+                              max_abs_err=worst_oracle, max_rel_err=worst_rel,
+                              strong_decay_rel_err=strong_rel,
+                              **scan_grid(torch, scan, dtype,
+                                          F_["B"] * F_["H"]))
         log(f"phase 9: wkv6 {dtype}: {len(WKV_CASES)} reference sweeps "
             f"within {WKV_TOL[dtype]} of the oracle (max abs err "
             f"{worst_oracle:.3g}); with a state in and out, "
-            f"{len(WKV_CASES) + len(WKV_MODEL_CASES) + 1} shapes within "
+            f"{len(WKV_CASES) + len(WKV_MODEL_CASES) + 3} shapes within "
             f"{SCAN_RTOL[dtype]} relative of the chunked plain version "
-            f"(worst {worst_rel:.3g}); strong decay finite; prefill shape "
-            f"{F_}: kernel {o['ms']:.4f} ms (runs {o['ms_runs'][0]:.4f}/"
-            f"{o['ms_runs'][1]:.4f}), plain {o['plain_ms']:.4f} ms, bound "
-            f"{o['bound_ms']:.4f} ms ({o['bound_by']}: "
-            f"{o['flops'] / 1e9:.2f} GFLOP, {o['bytes'] / 1e6:.1f} MB)")
+            f"(worst {worst_rel:.3g}; S = {WKV_RAGGED['S']} at full width; "
+            f"logw = -8 over the prefill shape {strong_rel:.3g}, finite); "
+            f"prefill shape {F_}: kernel {o['ms']:.4f} ms (runs "
+            f"{o['ms_runs'][0]:.4f}/{o['ms_runs'][1]:.4f}), plain "
+            f"{o['plain_ms']:.4f} ms, bound {o['bound_ms']:.4f} ms "
+            f"({o['bound_by']}: {o['flops'] / 1e9:.2f} GFLOP at C = "
+            f"{BOUND_CHUNK}, {o['bytes'] / 1e6:.1f} MB), on the tensor cores "
+            f"{o['tc_bound_ms']:.4f} ms ({o['tc_bound_by']}); grid "
+            f"{o['grid']} CTAs, {o['ctas_per_sm']} per SM, {o['waves']:.2f} "
+            f"waves on {o['sms']} SMs")
         del r, k, v, logw, s, s0
     torch.cuda.empty_cache()
     return out
 
 
-def check_ssd(torch, ops, scan, ref):
+def check_ssd(torch, ops, scan, ref, lib_path):
     """B4 against its plain versions on the card; times at the zamba2-2.7b
-    prefill shape.  Returns {dtype: {...}}."""
+    prefill shape.  Returns {dtype: {...}, "sass": {kernel: counts}}."""
     g = torch.Generator(device="cuda").manual_seed(10)
     rnd = _randn(torch, g)
-    out = {}
+    out = {"sass": scan_sass(lib_path, "ssd_kernel")}
     for dtype in ("float32", "bfloat16"):
         worst_oracle, worst_rel = 0.0, 0.0
         dt = getattr(torch, dtype)
@@ -1233,7 +1298,7 @@ def check_ssd(torch, ops, scan, ref):
             check(rel < SCAN_RTOL[dtype], f"ssd with state ({BH},{S},{P},"
                   f"{N}) {dtype}: rel err {rel}")
             worst_rel = max(worst_rel, rel)
-        for case in SSD_MODEL_CASES + [SSD_FULL]:
+        for case in SSD_MODEL_CASES + [SSD_RAGGED, SSD_FULL]:
             x, Bm, Cm, da, h0 = ssd_inputs(torch, g, dtype=dtype, **case)
             h_k = h0.clone()
             got = scan.ssd_scan(x, Bm, Cm, da, h_k)
@@ -1251,18 +1316,24 @@ def check_ssd(torch, ops, scan, ref):
             torch, lambda: scan.ssd_scan(x, Bm, Cm, da, h),
             lambda: ref.ssd_chunked(x, Bm, Cm, da, h0, SSD_MODEL_CHUNK))
         o = out[dtype] = dict(ssd_bound(dtype=dtype, **F_), **times,
-                              max_abs_err=worst_oracle, max_rel_err=worst_rel)
+                              max_abs_err=worst_oracle, max_rel_err=worst_rel,
+                              **scan_grid(torch, scan, dtype,
+                                          F_["B"] * F_["H"]))
         log(f"phase 9: ssd {dtype}: {len(SSD_CASES)} reference sweeps "
             f"within {SSD_TOL[dtype]} of the oracle (max abs err "
             f"{worst_oracle:.3g}); with a state in and out, "
-            f"{len(SSD_CASES) + len(SSD_MODEL_CASES) + 1} shapes within "
+            f"{len(SSD_CASES) + len(SSD_MODEL_CASES) + 2} shapes within "
             f"{SCAN_RTOL[dtype]} relative of the chunked plain version "
-            f"(worst {worst_rel:.3g}); prefill shape {F_}: kernel "
+            f"(worst {worst_rel:.3g}; S = {SSD_RAGGED['S']} at full "
+            f"width); prefill shape {F_}: kernel "
             f"{o['ms']:.4f} ms (runs {o['ms_runs'][0]:.4f}/"
             f"{o['ms_runs'][1]:.4f}), plain {o['plain_ms']:.4f} ms (chunk "
             f"{SSD_MODEL_CHUNK}), bound {o['bound_ms']:.4f} ms "
-            f"({o['bound_by']}: {o['flops'] / 1e9:.2f} GFLOP, "
-            f"{o['bytes'] / 1e6:.1f} MB)")
+            f"({o['bound_by']}: {o['flops'] / 1e9:.2f} GFLOP at C = "
+            f"{BOUND_CHUNK}, {o['bytes'] / 1e6:.1f} MB), on the tensor cores "
+            f"{o['tc_bound_ms']:.4f} ms ({o['tc_bound_by']}); grid "
+            f"{o['grid']} CTAs, {o['ctas_per_sm']} per SM, {o['waves']:.2f} "
+            f"waves on {o['sms']} SMs")
         del x, Bm, Cm, da, h, h0
     torch.cuda.empty_cache()
     return out
@@ -1592,7 +1663,9 @@ def main() -> None:
         f"(nvcc in parallel) into {kbuild.BUILD_DIR}")
     for name, info in sorted(built.items()):
         for line in str(info["log"]).splitlines():
-            if "registers" in line or "spill" in line:
+            if "Compiling entry function" in line:
+                log(f"  ptxas {name}: {line.split(chr(39))[1]}")
+            elif "registers" in line or "spill" in line:
                 log(f"  ptxas {name}: {line.strip()}")
 
     from repro_torch.models.registry import DataDims, build_model
@@ -1629,8 +1702,8 @@ def main() -> None:
     serve_agree = serving_card_vs_cpu(torch, kernels, lm, convert, serve)
 
     # phase 9
-    wkv = check_wkv6(torch, kops, rwkv6_scan, ref)
-    ssd = check_ssd(torch, kops, ssd_scan, ref)
+    wkv = check_wkv6(torch, kops, rwkv6_scan, ref, built["wkv6"]["path"])
+    ssd = check_ssd(torch, kops, ssd_scan, ref, built["ssd"]["path"])
     # phases 10-11: the recurrent families, counts from 0 per run
     recurrent = {}
     for tag, arch in (("10", "rwkv6-3b"), ("11", "zamba2-2.7b")):
@@ -1677,7 +1750,7 @@ def main() -> None:
     for name, src, line, arch, res in (
             ("wkv6", "wkv6.cu", "rwkv6_scan.py:68", "rwkv6-3b", wkv),
             ("ssd", "ssd.cu", "ssd.py:64", "zamba2-2.7b", ssd)):
-        t = res["float32"]   # the serving paths' dtype
+        t, t16 = res["float32"], res["bfloat16"]   # fp32: the serving paths'
         report.append({
             "name": name, "route": "cuda",
             "source": f"src/repro_torch/kernels/csrc/{src}",
@@ -1685,7 +1758,12 @@ def main() -> None:
             "launches": recurrent[arch]["server"]["launches"][name],
             "max_abs_err": t["max_abs_err"], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
-            "bound_by": t["bound_by"], "library_ms": None})
+            "bound_by": t["bound_by"], "library_ms": None,
+            "tc_bound_ms": t["tc_bound_ms"], "ctas_per_sm": t["ctas_per_sm"],
+            "waves": t["waves"], "bf16_ms": t16["ms"],
+            "bf16_plain_ms": t16["plain_ms"],
+            "bf16_bound_ms": t16["bound_ms"],
+            "bf16_max_abs_err": t16["max_abs_err"]})
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps({

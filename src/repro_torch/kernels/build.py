@@ -4,8 +4,9 @@
 Each source under ``csrc/`` has a plain C interface and is compiled at
 first use for ``sm_90a`` into ``build/repro_torch_kernels/`` at the
 repository root (a git-ignored directory), under a name keyed by a hash of
-the source and the flags, so an edited source is rebuilt and an unchanged
-one is loaded as it is.  The output is renamed into place atomically, so
+the source, the shared headers (``csrc/*.cuh``) and the flags, so an
+edited source or header is rebuilt and an unchanged one is loaded as it
+is.  The output is renamed into place atomically, so
 processes that build at once race safely.  :func:`build` compiles several
 sources in parallel, one ``nvcc`` process each, all started together.
 
@@ -51,7 +52,9 @@ def _nvcc() -> str:
 
 
 def _target(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
+    # the shared headers are part of every source's key
+    src = b"".join(p.read_bytes() for p in
+                   [CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))])
     tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}_{tag}.so"
 
@@ -140,6 +143,17 @@ class Library:
             raise RuntimeError(f"{kernel} kernel launch failed: CUDA error "
                                f"{rc} ({msg})")
         self._counts[kernel] += 1
+
+    def query(self, fn: str, *args) -> int:
+        """Call ``fn(*args)``, a C function that launches nothing and
+        returns an int (an occupancy, say); a negative value is a CUDA
+        error, raised with its message."""
+        lib = self._bound()
+        rc = getattr(lib, fn)(*args)
+        if rc < 0:
+            msg = getattr(lib, self._error_fn)(-rc).decode()
+            raise RuntimeError(f"{fn} failed: CUDA error {-rc} ({msg})")
+        return rc
 
     def launch_counts(self) -> Dict[str, int]:
         return dict(self._counts)

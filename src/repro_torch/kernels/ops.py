@@ -9,7 +9,8 @@ the GQA grouping by index, so :func:`flash_attention` (the kernel's own
 wrapper, re-exported) needs no repeat, transpose or padding; its CPU path
 and ``attention(impl="blocked")`` are one function, :func:`blocked_attention`
 (kernels/ref.py).  Chunk scans: the kernels take the model's (B, S, H, N)
-layout with a state in and out (kernels/rwkv6_scan.py, kernels/ssd.py);
+layout with a state in and out (kernels/rwkv6_scan.py, kernels/ssd.py),
+in chunks of their own (``KERNEL_CHUNK``, 32 tokens);
 :func:`wkv6` and :func:`ssd` keep the reference's flattened (BH, S, .)
 contract on top of them from a zero state (wkv6 as one batch row of BH
 heads, read through strides; ssd as BH batch rows of one head, since B
@@ -82,7 +83,8 @@ def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
          logw: torch.Tensor, u: torch.Tensor, chunk: int = 64
          ) -> torch.Tensor:
     """r/k/v/logw: (BH, S, N); u: (BH, N) -> y (BH, S, N), from a zero
-    state.  ``chunk`` is the CPU path's chunk; the kernel takes its own."""
+    state.  ``chunk`` is the CPU path's chunk; the kernel takes its own
+    (``rwkv6_scan.KERNEL_CHUNK``), which gives the same function."""
     BH, S, N = r.shape
     state = torch.zeros((1, BH, N, N), dtype=torch.float32, device=r.device)
     heads = lambda a: a.transpose(0, 1)[None]   # noqa: E731  (1, S, BH, N)
@@ -97,7 +99,7 @@ def ssd(x: torch.Tensor, Bm: torch.Tensor, Cm: torch.Tensor,
         da: torch.Tensor, chunk: int = 64) -> torch.Tensor:
     """x: (BH, S, P); Bm/Cm: (BH, S, N); da: (BH, S, 1) -> y (BH, S, P),
     from a zero state.  ``chunk`` is the CPU path's chunk; the kernel takes
-    its own."""
+    its own (``ssd.KERNEL_CHUNK``), which gives the same function."""
     BH, S, P = x.shape
     h = torch.zeros((BH, 1, P, Bm.shape[-1]), dtype=torch.float32,
                     device=x.device)

@@ -14,8 +14,14 @@ out in r's dtype; arithmetic is f32.
 A tensor on the CPU takes the plain version (kernels/ref.py
 ``wkv6_chunked`` at ``chunk``); a CUDA tensor launches the kernel, which
 takes its own chunk of 32 tokens whatever ``chunk`` says (the function is
-the same), or raises, with no fallback.  CUDA launches are counted
-(:func:`launch_counts`).
+the same), or raises, with no fallback.  The kernel holds each head's
+state in the registers of one CTA of four warps, builds the chunk's
+attention matrix with tensor-core products below its diagonal 8-token
+blocks and pairwise exps only inside them, and runs every product on the
+tensor cores in 3xTF32, so fp32 inputs keep fp32 accuracy
+(csrc/wkv6.cu says how).  CUDA launches are counted
+(:func:`launch_counts`); :func:`ctas_per_sm` reports the kernel's
+occupancy.
 """
 from __future__ import annotations
 
@@ -27,17 +33,25 @@ from repro_torch.kernels import build as kbuild
 from repro_torch.kernels import ref
 
 MAX_HEAD_SIZE = 64
-#: the kernel's own chunk (csrc/wkv6.cu kChunk)
+#: the kernel's own chunk (csrc/chunk_scan.cuh kChunk)
 KERNEL_CHUNK = 32
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 _vp, _ci, _ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _LIB = kbuild.Library(
     "wkv6", "wkv6_error_string",
-    {"wkv6_fwd": [_vp] * 7 + [_ci] * 5 + [_ll] * 12 + [_vp]},
+    {"wkv6_fwd": [_vp] * 7 + [_ci] * 5 + [_ll] * 12 + [_vp],
+     "wkv6_ctas_per_sm": [_ci]},
     kernels=("wkv6",))
 launch_counts = _LIB.launch_counts
 reset_launch_counts = _LIB.reset_launch_counts
+
+
+def ctas_per_sm(dtype: torch.dtype) -> int:
+    """CTAs of the kernel for ``dtype`` inputs that fit on one SM of the
+    current card (one CTA per (batch, head)); builds the kernel, launches
+    nothing."""
+    return _LIB.query("wkv6_ctas_per_sm", _DTYPES[dtype])
 
 
 def _check_operands(r, k, v, logw, u, state) -> None:

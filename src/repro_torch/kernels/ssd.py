@@ -16,8 +16,11 @@ x's dtype; arithmetic is f32.
 A tensor on the CPU takes the plain version (kernels/ref.py
 ``ssd_chunked`` at ``chunk``); a CUDA tensor launches the kernel, which
 takes its own chunk of 32 tokens whatever ``chunk`` says (the function is
-the same), or raises, with no fallback.  CUDA launches are counted
-(:func:`launch_counts`).
+the same), or raises, with no fallback.  The kernel holds each head's
+state in the registers of one CTA of four warps and runs every product of
+a chunk on the tensor cores in 3xTF32, so fp32 inputs keep fp32 accuracy
+(csrc/ssd.cu says how).  CUDA launches are counted (:func:`launch_counts`);
+:func:`ctas_per_sm` reports the kernel's occupancy.
 """
 from __future__ import annotations
 
@@ -29,17 +32,25 @@ from repro_torch.kernels import build as kbuild
 from repro_torch.kernels import ref
 
 MAX_DIM = 64
-#: the kernel's own chunk (csrc/ssd.cu kChunk)
+#: the kernel's own chunk (csrc/chunk_scan.cuh kChunk)
 KERNEL_CHUNK = 32
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 _vp, _ci, _ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _LIB = kbuild.Library(
     "ssd", "ssd_error_string",
-    {"ssd_fwd": [_vp] * 6 + [_ci] * 6 + [_ll] * 10 + [_vp]},
+    {"ssd_fwd": [_vp] * 6 + [_ci] * 6 + [_ll] * 10 + [_vp],
+     "ssd_ctas_per_sm": [_ci]},
     kernels=("ssd",))
 launch_counts = _LIB.launch_counts
 reset_launch_counts = _LIB.reset_launch_counts
+
+
+def ctas_per_sm(dtype: torch.dtype) -> int:
+    """CTAs of the kernel for ``dtype`` inputs that fit on one SM of the
+    current card (one CTA per (batch, head)); builds the kernel, launches
+    nothing."""
+    return _LIB.query("ssd_ctas_per_sm", _DTYPES[dtype])
 
 
 def _check_operands(x, Bm, Cm, da, h) -> None:
