@@ -10,16 +10,29 @@ only, never JAX or the reference package.  Phases:
    every kernel from ``src/repro_torch/kernels/csrc`` (one ``nvcc`` per
    source, all started together).
 2. Hold each codec kernel against its plain PyTorch version on the card,
-   bitwise, for 8 and 16 bits: every CNN leaf at full width, per client
-   and stacked over 10 clients, tails, an all-zero block, exact ties and a
-   NaN block.  Time kernel and plain version at the stacked uplink size.
+   bitwise, for 8 and 16 bits: the pair (compress, decompress) on every
+   CNN leaf at full width, per client and stacked over 10 clients, tails,
+   an all-zero block, exact ties and a NaN block; the fused roundtrip
+   (the links' lossy step, one launch over up to 64 leaves) against the
+   pair and the plain version on the full-width CNN tree as a downlink and
+   as a K=10 uplink, a tree of those cases, a +-inf block, sizes that are
+   no multiple of 4, views that are not 16-byte aligned and a tree of 150
+   leaves (3 launches).  Time the pair at the stacked uplink size; time
+   the roundtrip per uplink and downlink tree, L2-cold and warm, beside
+   the pair, the plain version, an empty kernel (the launch floor), a
+   yardstick that is not bitwise (amax and
+   ``fake_quantize_per_channel_affine``) and the bytes bound, and log its
+   grid, CTAs per SM and waves.
 3. Run the FedAT path: FedAT with ``transport.codec=quantize8`` through
    ``repro_torch.api.build(spec).run()`` on the card, the paper CNN at
    CIFAR-10 shape (100 clients, K=10, 3 local epochs, 10 updates), with
-   the kernel launch counts set to 0 just before and read just after.
+   the kernel launch counts set to 0 just before and read just after:
+   exactly one roundtrip launch a link (2 a round) and no pair launch.
+   Then profile one round: the codec's device time and launches in it.
 4. Hold the card against the CPU: the same small FedAT quantize8 run from
    the same params0 and permutations on both devices.
-5. Drive the baselines (FedAvg, TiFL, FedAsync) with quantize8.
+5. Drive the baselines (FedAvg, TiFL, FedAsync) with quantize8: each
+   must launch the roundtrip and not the pair.
 6. Hold the flash attention kernel against its plain version (the
    materialised oracle) on the card: the reference's seven ATTN_CASES,
    head dims 16 and 120, the qwen2-7b prefill shape and zamba2's shared
@@ -267,6 +280,191 @@ def time_kernels(torch, pc, ref, dev, params_shapes, K, bits=8):
     return out
 
 
+def roundtrip_trees(torch, dev, params_shapes, K, bits):
+    """(name, leaves) trees the fused roundtrip is held on."""
+    g = torch.Generator(device=dev).manual_seed(2)
+
+    def rnd(n, s=1.0):
+        return torch.randn(n, device=dev, generator=g) * s
+    shapes = list(params_shapes.values())
+    z = rnd(1024)
+    z[256:512] = 0.0
+    nan = rnd(1000)
+    nan[300] = float("nan")
+    inf = rnd(768)           # +inf in block 0, -inf in block 1, block 2 finite
+    inf[5], inf[300] = float("inf"), -float("inf")
+    big = rnd(4097)
+    return [
+        ("cnn_downlink", [rnd(math.prod(s), 0.05) for s in shapes]),
+        (f"cnn_uplink_K{K}", [rnd(K * math.prod(s), 0.05) for s in shapes]),
+        ("cases", [rnd(1), rnd(255), rnd(257), z, tie_case(torch, dev, bits),
+                   nan]),
+        ("inf", [inf]),
+        ("not_multiple_of_4", [rnd(n) for n in (5, 7, 258, 1023, 771)]),
+        # views 4 and 12 bytes past a 16-byte boundary: the scalar path
+        ("unaligned_view", [big[1:], big[3:1004]]),
+        ("many_leaves", [rnd(1 + (37 * i) % 700) for i in range(150)]),
+    ]
+
+
+def compare_roundtrip(torch, pc, ref, dev, params_shapes, K):
+    """The fused roundtrip bitwise against the kernel pair (leaf by leaf)
+    and the plain version, with its launches per tree."""
+    err, n_leaves, inf_note = 0.0, 0, None
+    for bits in (8, 16):
+        for name, leaves in roundtrip_trees(torch, dev, params_shapes, K,
+                                            bits):
+            before = pc.launch_counts()["roundtrip"]
+            outs = pc.roundtrip_blocks(leaves, bits)
+            launches = pc.launch_counts()["roundtrip"] - before
+            plan, _ = pc.segment_table([x.numel() for x in leaves])
+            check(launches == len(plan) == -(-len(leaves) // 64),
+                  f"roundtrip of {name} made {launches} launches for "
+                  f"{len(leaves)} leaves")
+            plain = ref.roundtrip_blocks(leaves, bits)
+            pair = [pc.decompress_blocks(*pc.compress_blocks(x, bits),
+                                         x.numel()) for x in leaves]
+            torch.cuda.synchronize()
+            for i, (o, p, r) in enumerate(zip(outs, pair, plain)):
+                check(bits_equal(o, p), f"roundtrip differs from the kernel "
+                      f"pair ({name} leaf {i}, {bits} bits)")
+                if not bits_equal(o, r):
+                    # only where the pair disagrees with the plain version
+                    # as well (the +-inf block), and then it is logged
+                    check(name == "inf" and not bits_equal(p, r),
+                          f"roundtrip differs from the plain version "
+                          f"({name} leaf {i}, {bits} bits)")
+                    inf_note = (f"{bits} bits: kernels {o[:8].tolist()} "
+                                f"plain {r[:8].tolist()}")
+                    log(f"phase 2: kernels and plain version disagree on "
+                        f"the +-inf block: {inf_note}")
+                fin = torch.isfinite(o) & torch.isfinite(r)
+                if fin.any():
+                    err = max(err, float((o[fin] - r[fin]).abs().max()))
+                n_leaves += 1
+            if name == "inf":
+                log(f"phase 2: +-inf block, {bits} bits: the inf blocks come "
+                    f"out NaN {[bool(outs[0][b * 256:(b + 1) * 256].isnan().all()) for b in range(3)]}, "
+                    f"the finite block finite "
+                    f"{bool(outs[0][512:].isfinite().all())}")
+    log(f"phase 2: roundtrip bitwise equal to the kernel pair and the plain "
+        f"version on {n_leaves} leaves (8 and 16 bits; CNN downlink and "
+        f"K={K} uplink, tails, zero, tie, NaN and +-inf blocks, sizes not "
+        f"multiples of 4, unaligned views, 150 leaves in 3 launches)")
+    return {"max_abs_err": err, "leaves_checked": n_leaves,
+            "inf_disagreement": inf_note}
+
+
+L2_BYTES = 50e6                # H100 L2 cache
+
+
+def time_roundtrip(torch, pc, ref, dev, params_shapes, K, bits=8):
+    """The fused roundtrip per uplink (K stacked clients) and downlink tree
+    against the kernel pair (2 launches a leaf), the plain version, an
+    empty kernel (the launch floor) and a yardstick (amax and
+    fake_quantize_per_channel_affine on each leaf's padded (nb, 256) view:
+    not bitwise, it multiplies by the scale's reciprocal; never called by
+    the port).  Cold: each CUDA graph rotates over enough copies of the
+    tree that the inputs alone exceed L2; warm: the same calls on one copy.
+    The yardstick is timed eagerly: it reads its zero points on the host,
+    which a graph cannot capture."""
+    import torch.nn.functional as F
+    out = {}
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    ctas = pc.roundtrip_ctas_per_sm()
+    check(ctas > 0, f"no roundtrip CTA fits on an SM ({ctas})")
+    qmax = (1 << (bits - 1)) - 1
+    inv = torch.ones((), device=dev) / float(qmax)
+    for link, stack in (("uplink", K), ("downlink", 1)):
+        g = torch.Generator(device=dev).manual_seed(3)
+        sizes = [stack * math.prod(s) for s in params_shapes.values()]
+        n_vals = sum(sizes)
+        copies = math.ceil(L2_BYTES / (4 * n_vals)) + 1
+        trees = [[torch.randn(n, device=dev, generator=g) * 0.05
+                  for n in sizes] for _ in range(copies)]
+        grid = pc.roundtrip_grid(trees[0])
+
+        def rt_cold():
+            return [pc.roundtrip_blocks(t, bits) for t in trees]
+
+        def rt_warm():
+            for _ in trees:
+                pc.roundtrip_blocks(trees[0], bits)
+
+        def pair(t):
+            return [pc.decompress_blocks(*pc.compress_blocks(x, bits),
+                                         x.numel()) for x in t]
+
+        def pair_cold():
+            return [pair(t) for t in trees]
+
+        def pair_warm():
+            for _ in trees:
+                pair(trees[0])
+
+        def plain_cold():
+            return [ref.roundtrip_blocks(t, bits) for t in trees]
+
+        def floor():
+            for _ in trees:
+                pc.empty_launch()
+
+        padded = [[F.pad(x, (0, -x.numel() % 256)).reshape(-1, 256)
+                   for x in t] for t in trees]
+        zps = [torch.zeros(x.shape[0], dtype=torch.int32, device=dev)
+               for x in padded[0]]
+
+        def yardstick():
+            for t in padded:
+                for x, zp in zip(t, zps):
+                    sc = (x.abs().amax(1) * inv).clamp_min(1e-30)
+                    torch.fake_quantize_per_channel_affine(
+                        x, sc, zp, 0, -qmax, qmax)
+
+        # plain and the pair before and after the roundtrip runs: the
+        # order cancels drift; times per tree, the best run kept
+        t = {}
+        for key, fn in (("plain", plain_cold), ("pair", pair_cold),
+                        ("cold", rt_cold), ("warm", rt_warm),
+                        ("floor", floor), ("cold", rt_cold),
+                        ("warm", rt_warm), ("pair_warm", pair_warm),
+                        ("pair", pair_cold), ("pair_warm", pair_warm),
+                        ("plain", plain_cold)):
+            t.setdefault(key, []).append(graph_time_ms(torch, fn, 20)
+                                         / copies)
+        t["yardstick"] = [event_time_ms(torch, yardstick, 3) / copies]
+        best = {k: min(v) for k, v in t.items()}
+        nbytes = 8 * n_vals
+        bound = nbytes / HBM_BYTES_PER_S * 1e3
+        res = {
+            "ms": best["cold"], "warm_ms": best["warm"],
+            "pair_ms": best["pair"], "pair_warm_ms": best["pair_warm"],
+            "plain_ms": best["plain"], "floor_ms": best["floor"],
+            "yardstick_ms": best["yardstick"], "runs": t,
+            "bound_ms": bound, "bound_by": "bytes", "bytes": nbytes,
+            "values": n_vals, "leaves": len(sizes), "copies": copies,
+            "share_of_bound": bound / best["cold"],
+            "speedup_vs_pair": best["pair"] / best["cold"],
+            "grid": grid, "ctas_per_sm": ctas, "sms": sms,
+            "waves": [c / (ctas * sms) for c in grid]}
+        out[link] = res
+        log(f"phase 2: roundtrip {link} ({n_vals} values, {len(sizes)} "
+            f"leaves, one launch: grid {grid} CTAs of 4 warps, {ctas} CTAs "
+            f"an SM, {res['waves'][0]:.3f} waves): cold {res['ms']:.5f} ms "
+            f"(runs {', '.join(f'{x:.5f}' for x in t['cold'])}; "
+            f"{copies} copies), warm {res['warm_ms']:.5f} ms; pair "
+            f"({2 * len(sizes)} launches) cold {res['pair_ms']:.5f} / warm "
+            f"{res['pair_warm_ms']:.5f} ms ({res['speedup_vs_pair']:.2f}x); "
+            f"plain {res['plain_ms']:.5f} ms; empty kernel "
+            f"{res['floor_ms']:.5f} ms; yardstick (eager amax + "
+            f"fake_quantize_per_channel_affine) {res['yardstick_ms']:.5f} "
+            f"ms; bound {bound:.6f} ms ({nbytes} B at 3.35 TB/s), cold at "
+            f"{100 * res['share_of_bound']:.1f}% of it"
+            + ("; warm beats the HBM bound (L2-resident)"
+               if res["warm_ms"] < bound else ""))
+    return out
+
+
 # ---------------------------------------------------------------------------
 # phases 3-5: the slice
 # ---------------------------------------------------------------------------
@@ -342,13 +540,14 @@ def run_main_path(torch, api, pc, dev):
           f"accuracies {m.acc}")
     rounds = len(round_s)
     n_leaves = len(env.params0)
-    # 2 lossy steps (downlink + uplink) x n_leaves per committed round
-    expect = 2 * n_leaves * rounds
+    # 2 lossy steps (downlink + uplink) per committed round, one launch each
+    expect = 2 * rounds
     check(rounds == 10, f"{rounds} FedAT rounds ran, expected 10")
-    check(counts == {"compress": expect, "decompress": expect,
+    check(counts == {"compress": 0, "decompress": 0, "roundtrip": expect,
                      "flash_attention": 0, "wkv6": 0, "ssd": 0},
-          f"launch counts {counts}, expected {expect} of each codec kernel "
-          f"(2 x {n_leaves} leaves x {rounds} rounds)")
+          f"launch counts {counts}, expected {expect} roundtrip launches "
+          f"(2 links x {rounds} rounds, {n_leaves} leaves a launch) and no "
+          f"other")
     steps = (env.train["y"].shape[1] // env.sc.batch_size) \
         * env.sc.local_epochs
     info = {
@@ -399,7 +598,7 @@ def card_vs_cpu(torch, api, SimEnv, dev):
     return rel
 
 
-def profile_round(torch, run, round_ms: float):
+def profile_round(torch, run, pc, round_ms: float):
     """One more full-width FedAT quantize8 round under torch.profiler
     (outside the counted main-path run): the device time of its kernels,
     where that time goes, and the device busy share against
@@ -412,6 +611,7 @@ def profile_round(torch, run, round_ms: float):
     ids = env.tm.members[0][:env.sc.clients_per_round]
     cw = np.full(env.tm.n_tiers, 1.0 / env.tm.n_tiers, np.float32)
     torch.cuda.synchronize()
+    before = pc.launch_counts()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -419,7 +619,9 @@ def profile_round(torch, run, round_ms: float):
                        codec=st.codec, use_prox=True, cross_weights=cw)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    per_kernel = {}
+    codec_launches = {k: n - before[k] for k, n in pc.launch_counts().items()
+                      if k in ("compress", "decompress", "roundtrip")}
+    per_kernel, calls = {}, {}
     for e in prof.key_averages():
         # kernel events only: a CPU op's self device time repeats the
         # time of the kernels it launched
@@ -427,23 +629,30 @@ def profile_round(torch, run, round_ms: float):
             continue
         per_kernel[e.key] = per_kernel.get(e.key, 0.0) + \
             e.self_device_time_total / 1e3
+        calls[e.key] = calls.get(e.key, 0) + e.count
     dev_ms = sum(per_kernel.values())
     if dev_ms == 0:
         log("phase 3: profiler saw no kernel time: busy share not measured")
-        return {"profiled_wall_ms": wall_ms, "device_ms": None}
-    codec_ms = sum(t for k, t in per_kernel.items() if "compress_kernel" in k)
+        return {"profiled_wall_ms": wall_ms, "device_ms": None,
+                "codec_launches": codec_launches}
+    codec = [k for k in per_kernel
+             if "compress_kernel" in k or "roundtrip_kernel" in k]
+    codec_ms = sum(per_kernel[k] for k in codec)
     top = sorted(per_kernel.items(), key=lambda kv: -kv[1])[:6]
     info = {"profiled_wall_ms": wall_ms, "device_ms": dev_ms,
             "round_ms": round_ms, "busy_share": dev_ms / round_ms,
             "codec_ms": codec_ms, "codec_share_of_device": codec_ms / dev_ms,
+            "codec_launches": codec_launches,
+            "codec_kernel_events": sum(calls[k] for k in codec),
             "n_kernels": len(per_kernel),
             "top_kernels_ms": {k[:100]: t for k, t in top}}
     log(f"phase 3: profiled round: kernels {dev_ms:.1f} ms of device time "
         f"against a {round_ms:.1f} ms round (busy "
         f"{100 * info['busy_share']:.1f}%, idle "
         f"{100 * (1 - info['busy_share']):.1f}%); codec kernels "
-        f"{codec_ms:.3f} ms ({100 * info['codec_share_of_device']:.3f}% of "
-        f"device time); profiled wall {wall_ms:.1f} ms")
+        f"{codec_ms:.4f} ms ({100 * info['codec_share_of_device']:.4f}% of "
+        f"device time) in {info['codec_kernel_events']} kernel events, "
+        f"launches {codec_launches}; profiled wall {wall_ms:.1f} ms")
     for k, t in top:
         log(f"  {t:9.3f} ms  {k[:100]}")
     return info
@@ -467,8 +676,10 @@ def baselines(torch, api, pc, dev):
         check(all(bool(torch.isfinite(v).all()) for v in w.values()),
               f"{name}: non-finite params")
         check(res.metrics.rounds == [2], f"{name}: rounds {res.metrics.rounds}")
-        check(counts["compress"] > 0 and counts["decompress"] > 0,
-              f"{name}: codec kernels not launched {counts}")
+        check(counts["roundtrip"] > 0 and counts["compress"] == 0
+              and counts["decompress"] == 0,
+              f"{name}: the lossy step did not run the roundtrip kernel "
+              f"alone: {counts}")
         out[name] = {"wall_s": wall, "acc": res.metrics.acc[-1],
                      "launches": counts}
         log(f"phase 5: {name} quantize8, 2 updates: {wall:.3f} s, acc "
@@ -787,6 +998,7 @@ def run_serving(torch, kernels, serve_launch):
           f"flash launches {counts}, expected {waves} waves x "
           f"{cfg.n_layers} layers")
     check(counts["compress"] == 0 and counts["decompress"] == 0
+          and counts["roundtrip"] == 0
           and counts["wkv6"] == 0 and counts["ssd"] == 0,
           f"codec or scan kernels ran while serving qwen2-7b: {counts}")
     check(len(done) == 16 and sorted(r.rid for r in done) == list(range(16)),
@@ -1487,7 +1699,8 @@ def run_recurrent(torch, kernels, serve_launch, lm, arch, tag):
           f"{arch} Server: {len(tc.seconds['serve_prefill'])} waves, "
           f"{steps} steps")
     check(all(counts[k] == v for k, v in want.items()) and
-          counts["compress"] == 0 and counts["decompress"] == 0,
+          counts["compress"] == counts["decompress"] ==
+          counts["roundtrip"] == 0,
           f"{arch} Server wave launches {counts}, expected {want}")
     check(len(done) == 8 and all(len(r.out) == WAVE["max_new"]
                                  and not r.truncated for r in done),
@@ -1677,11 +1890,13 @@ def main() -> None:
     # phase 2
     errs = compare_kernels(torch, pc, ref, dev, shapes, K)
     times = time_kernels(torch, pc, ref, dev, shapes, K)
+    rt_check = compare_roundtrip(torch, pc, ref, dev, shapes, K)
+    rt_times = time_roundtrip(torch, pc, ref, dev, shapes, K)
 
     # phase 3: the FedAT path, counts from 0 (the profile runs after)
     main_path, run = run_main_path(torch, api, kernels, dev)
     main_path["profile"] = profile_round(
-        torch, run, float(np.median(main_path["ms_per_round_each"])))
+        torch, run, kernels, float(np.median(main_path["ms_per_round_each"])))
     del run
     # phase 4
     agree = card_vs_cpu(torch, api, SimEnv, dev)
@@ -1714,7 +1929,22 @@ def main() -> None:
                                             serve, serve_launch)
 
     src = "src/repro_torch/kernels/csrc/polyline_codec.cu"
-    report = []
+    # the main path's lossy step: B1a and B1b fused, per stacked uplink
+    up, down = rt_times["uplink"], rt_times["downlink"]
+    report = [{
+        "name": "quantize_roundtrip", "route": "cuda", "source": src,
+        "replaces": "src/repro/kernels/polyline_codec.py:52",
+        "also_replaces": "src/repro/kernels/polyline_codec.py:69",
+        "launches": main_path["launches"]["roundtrip"],
+        "max_abs_err": rt_check["max_abs_err"], "ms": up["ms"],
+        "plain_ms": up["plain_ms"], "bound_ms": up["bound_ms"],
+        "bound_by": up["bound_by"], "library_ms": None,
+        "warm_ms": up["warm_ms"], "pair_ms": up["pair_ms"],
+        "floor_ms": up["floor_ms"], "yardstick_ms": up["yardstick_ms"],
+        "downlink_ms": down["ms"], "downlink_bound_ms": down["bound_ms"],
+        "downlink_floor_ms": down["floor_ms"]}]
+    # the reference's pair, held in phase 2 and off the main path since
+    # the roundtrip fused it (its launches there are 0)
     for name, line in (("compress", 52), ("decompress", 69)):
         t = times[name]
         report.append({
@@ -1770,6 +2000,7 @@ def main() -> None:
             "card": card, "torch": torch.__version__,
             "cuda": torch.version.cuda, "build_s": build_s,
             "kernels": report, "kernel_times": times,
+            "roundtrip_check": rt_check, "roundtrip_times": rt_times,
             "main_path": main_path, "card_vs_cpu": agree,
             "baselines": base, "flash": flash, "serving": serving,
             "serving_card_vs_cpu": serve_agree, "wkv6": wkv, "ssd": ssd,

@@ -7,8 +7,8 @@ link codecs (the port of ``repro/compress/quantize.py``).
 
 This module builds the marshalled message and its byte count (plain torch,
 eager division as the reference's eager marshal uses).  The in-graph lossy
-roundtrip of the link runs the CUDA kernel instead (kernels/ops.py via
-compress/transport.py).
+roundtrip of the link runs the fused CUDA kernel instead
+(kernels/polyline_codec.py ``roundtrip_blocks`` via compress/transport.py).
 """
 from __future__ import annotations
 

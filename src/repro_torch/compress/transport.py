@@ -10,9 +10,9 @@ One :class:`Codec` interface unifies the three faces every lossy link has:
 
 Registered codecs: ``none`` (identity, raw f32 accounting), ``polyline``
 (``polyline:<p>``, the paper's §4.3 codec), ``quantize8``/``quantize16``
-(blockwise fixed-point; the lossy step runs the CUDA codec kernels in
-kernels/csrc/polyline_codec.cu on the card, their plain version on the
-CPU).  ``measure_ratio`` estimates wire/raw bytes on a size-capped
+(blockwise fixed-point; the lossy step runs the fused CUDA roundtrip
+kernel in kernels/csrc/polyline_codec.cu on the card, one launch a link,
+and its plain version on the CPU).  ``measure_ratio`` estimates wire/raw bytes on a size-capped
 parameter sample, exactly as the reference does, so byte ledgers agree.
 """
 from __future__ import annotations
@@ -131,12 +131,17 @@ class PolylineCodec(Codec):
 
 
 class QuantizeCodec(Codec):
-    """Blockwise fixed-point quantization; the lossy step runs the codec
-    kernels (kernels/ops.py) once per leaf and direction.
+    """Blockwise fixed-point quantization; the lossy step is one call of
+    the fused roundtrip kernel over every leaf of the tree
+    (``kernels/polyline_codec.py`` ``roundtrip_blocks``: one launch a link
+    for up to 64 leaves), the wire message the plain eager
+    compress/quantize.py, as in the reference.
 
     A leaf is blocked as a whole: on the uplink that is the stacked
     ``(K, ...)`` client tensor, so a 256-block may span two clients, as in
     the reference (its lossy step maps over the stacked client params).
+    A leaf of another dtype goes through float32, as the reference's
+    ``astype`` does, and comes back in its own dtype.
     """
 
     def __init__(self, bits: int = 8):
@@ -146,12 +151,13 @@ class QuantizeCodec(Codec):
         self.name = f"quantize{bits}"
 
     def lossy(self, params):
-        from repro_torch.kernels import ops
-
-        def roundtrip(x):
-            q, scale = ops.compress(x, self.bits)
-            return ops.decompress(q, scale, tuple(x.shape)).to(x.dtype)
-        return _map(roundtrip, params)
+        from repro_torch.kernels.polyline_codec import roundtrip_blocks
+        leaves, treedef = tree_flatten(params)
+        outs = roundtrip_blocks(
+            [x.reshape(-1).to(torch.float32).contiguous() for x in leaves],
+            self.bits)
+        return tree_unflatten(treedef, [
+            o.reshape(x.shape).to(x.dtype) for o, x in zip(outs, leaves)])
 
     def marshal(self, params):
         return quantize.compress_tree(params, self.bits)

@@ -1,8 +1,10 @@
 """Kernel layer of the port: hand-written Hopper kernels behind wrappers.
 
   * :func:`compress` / :func:`decompress` — the blockwise quantize codec
-    (CUDA C++, ``csrc/polyline_codec.cu``); the quantize link codecs ride
-    these (compress/transport.py).
+    (CUDA C++, ``csrc/polyline_codec.cu``), the reference's pair with its
+    int payload; ``polyline_codec.roundtrip_blocks`` fuses the two over
+    every leaf of a link in one launch, and the quantize link codecs ride
+    it (compress/transport.py).
   * :func:`attention` (and ``ops.flash_attention``) — causal /
     sliding-window GQA attention (CUDA C++, ``csrc/flash_attention.cu``,
     wrapped by the :mod:`flash_attention` module, which this package does

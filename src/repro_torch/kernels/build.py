@@ -136,13 +136,18 @@ class Library:
     def launch(self, kernel: str, fn: str, *args) -> None:
         """Call ``fn(*args)`` and count one launch of ``kernel``; raise
         RuntimeError, counting nothing, if it returns a CUDA error."""
+        self.call(fn, *args, what=f"{kernel} kernel launch")
+        self._counts[kernel] += 1
+
+    def call(self, fn: str, *args, what: str = "") -> None:
+        """Call ``fn(*args)``, counting no launch; raise RuntimeError if it
+        returns a CUDA error."""
         lib = self._bound()
         rc = getattr(lib, fn)(*args)
         if rc != 0:
             msg = getattr(lib, self._error_fn)(rc).decode()
-            raise RuntimeError(f"{kernel} kernel launch failed: CUDA error "
-                               f"{rc} ({msg})")
-        self._counts[kernel] += 1
+            raise RuntimeError(f"{what or fn} failed: CUDA error {rc} "
+                               f"({msg})")
 
     def query(self, fn: str, *args) -> int:
         """Call ``fn(*args)``, a C function that launches nothing and

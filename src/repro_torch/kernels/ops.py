@@ -4,6 +4,9 @@ The counterpart of ``repro/kernels/ops.py``.  Codec: the reference flattens
 each leaf and zero-pads it to a multiple of 8 x 256 (a TPU tiling
 artefact); the CUDA kernel masks the ragged tail itself, so here a leaf is
 only flattened and the blocks are the same 256-value blocks from offset 0.
+:func:`compress` / :func:`decompress` keep the reference's per-leaf pair
+and its int payload; the links' lossy step does not come through here but
+calls the fused ``polyline_codec.roundtrip_blocks`` once over all leaves.
 Attention: the kernel takes the (B, S, H, hd) / (B, T, KV, hd) layout and
 the GQA grouping by index, so :func:`flash_attention` (the kernel's own
 wrapper, re-exported) needs no repeat, transpose or padding; its CPU path

@@ -15,7 +15,7 @@ which are the CPU path of the scan kernels' wrappers).
 from __future__ import annotations
 
 import math
-from typing import Optional, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -57,6 +57,14 @@ def decompress_blocks(q: torch.Tensor, scale: torch.Tensor, n: int
     """Inverse of :func:`compress_blocks`: the first ``n`` values of
     ``float(q) * scale``, flat."""
     return (q.to(torch.float32) * scale).reshape(-1)[:n]
+
+
+def roundtrip_blocks(leaves: Sequence[torch.Tensor], bits: int = 8
+                     ) -> List[torch.Tensor]:
+    """decompress(compress(x)) of each flat float32 leaf: the link's lossy
+    step, leaf by leaf."""
+    return [decompress_blocks(*compress_blocks(x, bits), x.numel())
+            for x in leaves]
 
 
 # --- attention ---------------------------------------------------------------

@@ -192,7 +192,109 @@ def test_cpu_tensors_take_the_plain_version_and_count_no_launch():
     qr, sr = tref.compress_blocks(x, 8)
     assert torch.equal(q, qr) and torch.equal(s, sr)
     tpc.decompress_blocks(q, s, 1000)
-    assert tpc.launch_counts() == {"compress": 0, "decompress": 0}
+    (rt,) = tpc.roundtrip_blocks([x], 8)
+    assert _bits_equal(rt.numpy(), tref.roundtrip_blocks([x], 8)[0].numpy())
+    assert tpc.launch_counts() == {"compress": 0, "decompress": 0,
+                                   "roundtrip": 0}
+
+
+# --- the fused roundtrip (the links' lossy step) ------------------------------
+
+def _cnn_tree(stacked: bool, seed: int = 0):
+    """The paper CNN at full width (CIFAR-10 shape), as the downlink sends
+    it or as the uplink's (K=10, ...) client stack."""
+    p = _cnn_params(seed=seed, hw=32)
+    if stacked:
+        p = {k: np.stack([v * (1 + 0.1 * i) for i in range(10)])
+             for k, v in p.items()}
+    return p
+
+
+@pytest.mark.parametrize("stacked", [False, True])
+@pytest.mark.parametrize("bits", [8, 16])
+def test_plain_roundtrip_bitwise_vs_reference_lossy(bits, stacked):
+    """The roundtrip's plain version over the full-width CNN tree (10
+    leaves; 1,225,700 values stacked) is the reference's jitted lossy
+    step, bit for bit."""
+    p = _cnn_tree(stacked)
+    ref_out = jax.jit(jtransport.QuantizeCodec(bits).lossy)(
+        {k: jnp.asarray(v) for k, v in p.items()})
+    keys = sorted(p)
+    outs = tref.roundtrip_blocks(
+        [torch.from_numpy(np.array(p[k])).reshape(-1) for k in keys], bits)
+    for k, o in zip(keys, outs):
+        assert _bits_equal(o.numpy(), np.asarray(ref_out[k]).reshape(-1)), k
+
+
+SEGMENT_SIZES = [
+    [864, 32, 18432, 64, 36864, 64, 65536, 64, 640, 10],   # the CNN's leaves
+    [1, 0, 255, 256, 257, 0, 0, 3],                         # tails, empties
+    [0, 0],
+    [(7 * i) % 300 for i in range(150)],                    # several launches
+    [1] * 64 + [5],                                         # 64 then 1
+]
+
+
+@pytest.mark.parametrize("sizes", SEGMENT_SIZES)
+def test_segment_table_covers_every_block_once(sizes):
+    launches, total = tpc.segment_table(sizes)
+    segs = [s for launch in launches for s in launch]
+    # every non-empty leaf once, in order; empty leaves get no segment
+    assert [s.leaf for s in segs] == [i for i, n in enumerate(sizes) if n]
+    assert all(s.n == sizes[s.leaf] for s in segs)
+    # at most 64 segments a launch, and a new launch only when one is full
+    assert all(1 <= len(l) <= tpc.MAX_SEGMENTS for l in launches)
+    assert all(len(l) == tpc.MAX_SEGMENTS for l in launches[:-1])
+    for launch in launches:
+        # each launch's grid is its leaves' blocks, back to back from 0
+        covered = []
+        for s in launch:
+            covered += [(s.leaf, b) for b in range(-(-s.n // tpc.BLOCK))]
+            assert s.first_block == len(covered) - (-(-s.n // tpc.BLOCK))
+        assert tpc.launch_blocks(launch) == len(covered)
+        assert len(set(covered)) == len(covered)
+    # outputs: 256-byte aligned, disjoint, inside the buffer
+    assert all(s.offset % tpc.ALIGN == 0 for s in segs)
+    ends = [(s.offset, s.offset + s.n) for s in segs]
+    assert all(a[1] <= b[0] for a, b in zip(ends, ends[1:]))
+    last = segs[-1] if segs else None
+    assert total == (last.offset + -(-last.n // tpc.ALIGN) * tpc.ALIGN
+                     if last else 0)
+
+
+def test_roundtrip_wrapper_checks_operands():
+    ok = torch.zeros(300)
+    for bad in ([torch.zeros(4, 256)],                       # not flat
+                [ok, torch.zeros(10, dtype=torch.float64)],  # not float32
+                [torch.zeros(600)[::2]],                     # not contiguous
+                [ok, torch.zeros(10, device="meta")]):       # not cpu/cuda
+        with pytest.raises(ValueError):
+            tpc.roundtrip_blocks(bad, 8)
+    for bits in (1, 17):
+        with pytest.raises(ValueError):
+            tpc.roundtrip_blocks([ok], bits)
+    assert tpc.roundtrip_blocks([], 8) == []
+
+
+def test_lossy_keeps_shapes_dtypes_and_its_input():
+    rng = np.random.default_rng(11)
+    tree = {"a": torch.from_numpy(rng.standard_normal((3, 5, 7))
+                                  .astype(np.float32)),
+            "b": torch.from_numpy(rng.standard_normal(300)
+                                  .astype(np.float32)).to(torch.bfloat16),
+            "c": torch.zeros((0, 4)),
+            "d": torch.from_numpy(rng.standard_normal((2, 129))),   # f64
+            "e": torch.from_numpy(rng.standard_normal((17,))
+                                  .astype(np.float32))[None]}
+    before = {k: v.clone() for k, v in tree.items()}
+    out = ttransport.QuantizeCodec(8).lossy(tree)
+    assert sorted(out) == sorted(tree)
+    for k, v in tree.items():
+        assert out[k].shape == v.shape and out[k].dtype == v.dtype, k
+        assert torch.equal(v, before[k]), k           # input left as it was
+        want = tref.roundtrip_blocks([v.reshape(-1).float()], 8)[0]
+        assert torch.equal(out[k], want.reshape(v.shape).to(v.dtype)), k
+    assert not torch.equal(out["a"], tree["a"])       # it is lossy
 
 
 @pytest.mark.cuda
@@ -210,4 +312,29 @@ def test_cuda_kernel_matches_plain_version(bits):
         xr = tpc.decompress_blocks(q, s, n)
         xrr = tref.decompress_blocks(qr, sr, n)
         assert torch.equal(xr.view(torch.int32), xrr.view(torch.int32))
-    assert tpc.launch_counts() == {"compress": 5, "decompress": 5}
+    assert tpc.launch_counts() == {"compress": 5, "decompress": 5,
+                                   "roundtrip": 0}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bits", [8, 16])
+def test_cuda_roundtrip_matches_pair_and_plain(bits):
+    """The fused roundtrip against the kernel pair, leaf by leaf, and the
+    plain version: tails, a leaf at an offset that is not 16-byte aligned
+    (the scalar path), an empty leaf, and 150 leaves (3 launches)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card (the CUDA kernel has no CPU mode)")
+    g = torch.Generator(device="cuda").manual_seed(bits)
+    big = torch.randn(5000, device="cuda", generator=g)
+    leaves = [torch.randn(n, device="cuda", generator=g)
+              for n in (1, 255, 257, 2000, 10 * 65600, 0)] + [big[1:4001]]
+    leaves += [torch.randn(1 + (37 * i) % 700, device="cuda", generator=g)
+               for i in range(143)]
+    tpc.reset_launch_counts()
+    outs = tpc.roundtrip_blocks(leaves, bits)
+    assert tpc.launch_counts()["roundtrip"] == 3
+    plain = tref.roundtrip_blocks(leaves, bits)
+    for x, o, p in zip(leaves, outs, plain):
+        pair = tpc.decompress_blocks(*tpc.compress_blocks(x, bits), x.numel())
+        assert torch.equal(o.view(torch.int32), pair.view(torch.int32))
+        assert torch.equal(o.view(torch.int32), p.view(torch.int32))
