@@ -82,6 +82,32 @@ only, never JAX or the reference package.  Phases:
     params and requests: equal tokens from a Server wave and an engine run
     that recycles slots, prefill logits within a relative L2 of 1e-4.
 
+13. Hold the flash attention backward (B2 bwd, the training paths'
+    kernel) against its plain version on the card: phase 6's cases, a
+    GQA hd-128 case and S != T, dO contiguous, strided and misaligned, in
+    fp32 (1e-4 of each gradient's max) and bf16 (2e-2, and within 3 bf16
+    roundings plus 1% of the max of the fp32 gradients), with the
+    forward's log-sum-exp against the plain one.  Time it at the
+    trainer's shape (fp32 and bf16) and the federated LM's beside the
+    plain version, SDPA's backward (the yardstick) and the bound (5
+    products over the visible pairs); log grid, CTAs per SM and waves.
+14. The federated LM on the card: tiny_lm_long through
+    ``api.build(spec).run()`` (the reference's _lm_spec scenario: seq 128,
+    24 clients, 3 tiers, K=4, quantize8, 16 updates, backend flash),
+    counts from 0: a flash forward and backward launch per layer per
+    local step, a forward per eval chunk, 2 roundtrips per update.
+15. A small tiny_lm FedAT run on the card and the CPU from the same
+    params0 and permutations: global models within a relative L2 of
+    1e-4.
+16. The trainer (``launch/train.py``'s code path) at qwen2-7b widths cut
+    to 3 layers (the machine's disk-write cap: see TRAIN_LAYERS) and a
+    global batch of 8 x 4096 tokens, microbatch 8, remat, fp32 AdamW: 2
+    steps ending in a checkpoint, step 3 timed and step 4 profiled in the
+    same process, then a restart with ``--resume`` that repeats step 3
+    with the same loss; flash backward launches = 3 layers x 8
+    microbatches a step, forward twice that (remat); no failure caught by
+    the guarded runner.
+
 Any failed check exits non-zero.  The last three lines of standard output
 are the kernel report (JSON), the card's ``name, power.limit`` and
 ``{"ok": true, "device": {...}}``.  Without CUDA, or without the port's
@@ -544,7 +570,8 @@ def run_main_path(torch, api, pc, dev):
     expect = 2 * rounds
     check(rounds == 10, f"{rounds} FedAT rounds ran, expected 10")
     check(counts == {"compress": 0, "decompress": 0, "roundtrip": expect,
-                     "flash_attention": 0, "wkv6": 0, "ssd": 0},
+                     "flash_attention": 0, "flash_attention_bwd": 0,
+                     "wkv6": 0, "ssd": 0},
           f"launch counts {counts}, expected {expect} roundtrip launches "
           f"(2 links x {rounds} rounds, {n_leaves} leaves a launch) and no "
           f"other")
@@ -1838,6 +1865,523 @@ def recurrent_card_vs_cpu(torch, kernels, lm, convert, serve, serve_launch):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 13: the flash attention backward against its plain version
+# ---------------------------------------------------------------------------
+
+#: the cases of phase 6 (the reference's ATTN_CASES, hd 16 and 120), a
+#: GQA hd-128 case and S != T both ways, each (S, T, H, KV, hd, causal,
+#: window)
+BWD_CASES = ATTN_CASES + [
+    (256, 256, 28, 4, 128, True, None),
+    (192, 128, 4, 2, 64, True, 48),
+]
+#: max |err| / max |want| of each gradient against the plain version on
+#: the same inputs: fp32 sums in another order (1e-4); bf16 gradients are
+#: rounded once from fp32 sums (2e-2)
+BWD_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+#: bf16 gradients against the fp32 plain version on the same (bf16-valued)
+#: inputs: each element within BWD_BF16_ROUNDINGS bf16 roundings (2^-8 of
+#: itself) plus 1% of the gradient's max (the bf16 output O enters D =
+#: rowsum(dO o O), and dS = P (dP - D) cancels where dP is near D)
+BWD_BF16_ROUNDINGS = 3.0
+#: the shapes the training paths give the backward: the trainer's
+#: (qwen2-7b widths, one 4096-token sequence a microbatch) and the
+#: federated LM's (tiny_lm_long: K = 4 clients x batch 10 folded into the
+#: batch dim, 128 tokens, 2 heads of 16)
+BWD_SHAPES = {
+    "trainer (qwen2-7b widths)": dict(B=1, S=4096, H=28, KV=4, hd=128),
+    "federated LM (tiny_lm_long)": dict(B=40, S=128, H=2, KV=2, hd=16),
+}
+
+
+def attention_bwd_bound(B, S, T, H, KV, hd, causal, window, dtype):
+    """Least time for one backward: q, k, v, o, dO and lse read once, dq,
+    dk, dv written once, and the 5 products of the recompute backward
+    (S, dP, dV, dK, dQ: 2.5x the forward's 2) over the visible pairs."""
+    size = 4 if dtype == "float32" else 2
+    nbytes = (size * (4 * B * S * H * hd + 4 * B * T * KV * hd)
+              + 4 * B * H * S)
+    flops = 10 * B * H * visible_pairs(S, T, causal, window) * hd
+    peak = FP32_OPS_PER_S if dtype == "float32" else BF16_OPS_PER_S
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / peak * 1e3
+    return {"bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bytes": nbytes, "flops": flops}
+
+
+def _grad_errs(got, want):
+    return [float((a.float() - b.float()).abs().max()
+                  / b.float().abs().max().clamp_min(1e-30))
+            for a, b in zip(got, want)]
+
+
+def check_flash_bwd(torch, fa, ref):
+    """The forward's lse and the backward kernels against the plain
+    versions on every case, in fp32 and bf16, with dO taken contiguous,
+    strided (a slice of a wider tensor) and misaligned for 16-byte loads;
+    then times at the training shapes."""
+    g = torch.Generator(device="cuda").manual_seed(13)
+    out = {}
+    for dtype in ("float32", "bfloat16"):
+        dt = getattr(torch, dtype)
+        worst, worst_abs, worst_lse, worst_round = 0.0, 0.0, 0.0, 0.0
+        n = 0
+        for (S, T, H, KV, hd, causal, window) in BWD_CASES:
+            q, k, v = attn_inputs(torch, g, 2, S, T, H, KV, hd, dtype)
+            o, lse = fa.flash_attention(q, k, v, causal=causal,
+                                        window=window, return_lse=True)
+            _, lse_p = ref.blocked_attention(q, k, v, causal=causal,
+                                             window=window, return_lse=True)
+            fin = torch.isfinite(lse_p)
+            check(bool((torch.isfinite(lse) == fin).all()),
+                  f"bwd {dtype} {(S, T, H, KV, hd)}: lse -inf rows differ")
+            worst_lse = max(worst_lse, float((lse[fin] - lse_p[fin]).abs()
+                                             .max()))
+            wide = torch.randn(2, S, H, hd + 8, device="cuda",
+                               generator=g).to(dt)
+            odd = torch.randn(2, S, H, hd + 1, device="cuda",
+                              generator=g).to(dt)
+            for dname, do in (("contiguous", wide[..., :hd].contiguous()),
+                              ("strided", wide[..., :hd]),
+                              ("misaligned", odd[..., 1:])):
+                got = fa.flash_attention_backward(q, k, v, o, lse, do,
+                                                  causal=causal,
+                                                  window=window)
+                torch.cuda.synchronize()
+                want = ref.blocked_attention_backward(
+                    q, k, v, o, lse, do, causal=causal, window=window)
+                for a, b in zip(got, want):
+                    check(a.shape == b.shape and a.dtype == b.dtype
+                          and bool(torch.isfinite(a).all()),
+                          f"bwd {dtype} {(S, T, H, KV, hd)} {dname}: "
+                          f"shape, dtype or non-finite")
+                errs = _grad_errs(got, want)
+                check(max(errs) <= BWD_TOL[dtype],
+                      f"bwd {dtype} {(S, T, H, KV, hd, causal, window)} "
+                      f"dO {dname}: rel errs {errs} > {BWD_TOL[dtype]}")
+                worst = max(worst, max(errs))
+                worst_abs = max(worst_abs, max(
+                    float((a.float() - b.float()).abs().max())
+                    for a, b in zip(got, want)))
+                n += 1
+                if dtype == "bfloat16" and dname == "contiguous":
+                    f32 = [x.float() for x in (q, k, v)]
+                    o32, l32 = fa.flash_attention(*f32, causal=causal,
+                                                  window=window,
+                                                  return_lse=True)
+                    want32 = ref.blocked_attention_backward(
+                        *f32, o32, l32, do.float(), causal=causal,
+                        window=window)
+                    for a, b in zip(got, want32):
+                        b = b.float()
+                        lim = (2.0 ** -8) * b.abs() + 1e-2 * b.abs().max()
+                        worst_round = max(worst_round, float(
+                            ((a.float() - b).abs() / lim).max()))
+                    check(worst_round <= BWD_BF16_ROUNDINGS,
+                          f"bwd bf16 {(S, T, H, KV, hd)}: {worst_round} "
+                          f"bf16 roundings from the fp32 gradients")
+        out[dtype] = {"max_rel_err": worst, "max_abs_err": worst_abs,
+                      "cases": len(BWD_CASES), "comparisons": n,
+                      "lse_max_abs_err": worst_lse}
+        if dtype == "bfloat16":
+            out[dtype]["roundings_from_fp32"] = worst_round
+        log(f"phase 13: flash backward {dtype}: {n} comparisons on "
+            f"{len(BWD_CASES)} shapes (dO contiguous, strided, misaligned) "
+            f"within {BWD_TOL[dtype]} of each gradient's max (worst "
+            f"{worst:.3g}, max abs err {worst_abs:.3g}); lse max abs err "
+            f"{worst_lse:.3g}"
+            + (f"; bf16 within {worst_round:.3g} roundings (+1% of max) "
+               f"of the fp32 gradients" if dtype == "bfloat16" else ""))
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    out["shapes"] = {}
+    for name, P in BWD_SHAPES.items():
+        for dtype in (("float32", "bfloat16") if P["hd"] == 128
+                      else ("float32",)):
+            res = time_flash_bwd(torch, fa, ref, g, P, dtype)
+            grids = fa.bwd_grids(P["B"], P["S"], P["S"], P["H"], P["KV"])
+            res["grid"] = {}
+            for which, (gx, gy) in grids.items():
+                ctas = fa.bwd_ctas_per_sm(getattr(torch, dtype), P["hd"],
+                                          which)
+                res["grid"][which] = {"grid": [gx, gy], "ctas_per_sm": ctas,
+                                      "waves": gx * gy / (ctas * sms)}
+            out["shapes"][f"{name} {dtype}"] = res
+            gd = "; ".join(f"{w} grid {v['grid']}, {v['ctas_per_sm']} "
+                           f"CTA/SM, {v['waves']:.2f} waves"
+                           for w, v in res["grid"].items())
+            log(f"phase 13: flash backward {dtype} {name} B={P['B']} "
+                f"S=T={P['S']} H={P['H']} KV={P['KV']} hd={P['hd']} causal: "
+                f"kernel {res['ms']:.4f} ms (runs {res['ms_runs']}), plain "
+                f"{res['plain_ms']:.4f} ms, SDPA backward "
+                + (f"{res['library_ms']:.4f} ms" if res["library_ms"]
+                   is not None else f"n/a ({res['library_note']})")
+                + f", bound {res['bound_ms']:.4f} ms ({res['bound_by']}; "
+                f"{100 * res['bound_ms'] / res['ms']:.1f}% of it); {gd}")
+    return out
+
+
+def time_flash_bwd(torch, fa, ref, g, P, dtype):
+    """Backward kernel, plain version and SDPA's backward (the yardstick,
+    timed here only and never called by the port) at one shape, beside
+    the bound."""
+    B, S, H, KV, hd = P["B"], P["S"], P["H"], P["KV"], P["hd"]
+    q, k, v = attn_inputs(torch, g, B, S, S, H, KV, hd, dtype)
+    do = torch.randn(B, S, H, hd, device="cuda",
+                     generator=g).to(getattr(torch, dtype))
+    o, lse = fa.flash_attention(q, k, v, causal=True, return_lse=True)
+    kern = lambda: fa.flash_attention_backward(  # noqa: E731
+        q, k, v, o, lse, do, causal=True)
+    plain = lambda: ref.blocked_attention_backward(  # noqa: E731
+        q, k, v, o, lse, do, causal=True)
+    note, library = None, None
+    try:
+        qs, ks, vs = (x.transpose(1, 2).detach().requires_grad_(True)
+                      for x in (q, k, v))
+        so = torch.nn.functional.scaled_dot_product_attention(
+            qs, ks, vs, is_causal=True, enable_gqa=True)
+        dos = do.transpose(1, 2)
+
+        def library():
+            return torch.autograd.grad(so, (qs, ks, vs), dos,
+                                       retain_graph=True)
+        library()
+        torch.cuda.synchronize()
+    except Exception as e:  # the yardstick only: never on the path
+        library, note = None, f"{type(e).__name__}: {e}"
+    iters = 3 if S >= 4096 else 10
+    p1 = event_time_ms(torch, plain, 1 if S >= 4096 else 3)
+    k1 = event_time_ms(torch, kern, iters)
+    l1 = event_time_ms(torch, library, iters) if library else None
+    k2 = event_time_ms(torch, kern, iters)
+    p2 = event_time_ms(torch, plain, 1 if S >= 4096 else 3)
+    b = attention_bwd_bound(B, S, S, H, KV, hd, True, None, dtype)
+    return dict(b, ms=min(k1, k2), ms_runs=[k1, k2], plain_ms=min(p1, p2),
+                plain_ms_runs=[p1, p2], library_ms=l1, library_note=note)
+
+
+# ---------------------------------------------------------------------------
+# phases 14-15: the federated LM
+# ---------------------------------------------------------------------------
+
+#: the reference's federated-LM scenario (benchmarks/run.py _lm_spec) at
+#: tiny_lm_long: 24 clients, 3 tiers, K = 4, 128-token sequences
+FEDLM = {
+    "data.model": "tiny_lm_long", "data.n_clients": 24,
+    "data.classes_per_client": 2, "data.samples_per_client": 24,
+    "data.vocab_size": 64, "data.seq_len": 128,
+    "data.attention_backend": "flash", "data.seed": 9,
+    "tiers.n_tiers": 3, "tiers.clients_per_round": 4, "tiers.n_unstable": 2,
+    "strategy.name": "fedat", "transport.codec": "quantize8",
+    "engine.total_updates": 16, "engine.eval_every": 8,
+    "engine.local_epochs": 1,
+}
+#: phase 15: a small tiny_lm FedAT run on the card and on the CPU, from
+#: the same params0 and permutations, raw links
+FEDLM_SMALL = {
+    "data.model": "tiny_lm", "data.n_clients": 12,
+    "data.samples_per_client": 24, "data.seq_len": 32,
+    "data.attention_backend": "flash", "tiers.n_tiers": 3,
+    "tiers.clients_per_round": 4, "tiers.n_unstable": 2,
+    "tiers.delay_bands": [[0.0, 0.0], [0.0, 0.5], [0.5, 1.0]],
+    "engine.local_epochs": 1, "engine.total_updates": 4,
+    "engine.eval_every": 2, "strategy.name": "fedat",
+    "transport.codec": "none",
+}
+#: relative L2 of the global model, card against CPU, after phase 15's 4
+#: updates.  The CPU tests measure the port against the reference at
+#: 3.8e-7 on the same kind of run and the reference against itself from a
+#: params0 one ulp away at 1.4e-7 (ROADMAP C); the card rounds differently
+#: at every product of every local step, so the bound leaves a margin of
+#: about 100x over those
+FEDLM_CARD_VS_CPU_RTOL = 1e-4
+
+
+def run_federated_lm(torch, api, kernels):
+    """tiny_lm_long through api.build(spec).run() on the card, counts from
+    0: a flash forward and backward per layer per local step, a forward
+    per layer per eval chunk, 2 roundtrip launches per update."""
+    spec = api.ExperimentSpec().with_overrides(FEDLM)
+    run = api.build(spec, device="cuda")
+    env = run.env
+    cfg = env.model.config
+    check(cfg.attention_backend == "flash" and cfg.name == "tiny-lm-long",
+          f"federated LM bound {cfg.name} / {cfg.attention_backend}")
+    ex = env.executor()
+    rounds, evals = [], []
+    orig_round, orig_eval = ex.fedat_round, env.eval_fn
+
+    def timed_round(*a, **k):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = orig_round(*a, **k)
+        torch.cuda.synchronize()
+        rounds.append(time.perf_counter() - t0)
+        return res
+
+    def counted_eval(params, x, y, mask):
+        C, N = y.shape
+        evals.append(-(-C // max(1, 1024 // max(N, 1))))  # apply calls
+        return orig_eval(params, x, y, mask)
+
+    ex.fedat_round, env.eval_fn = timed_round, counted_eval
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = run.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    del ex.fedat_round
+    env.eval_fn = orig_eval
+    peak = torch.cuda.max_memory_allocated()
+    m = res.metrics
+    n_rounds = len(rounds)
+    cap = int(env.train["y"].shape[1])
+    steps = env.sc.local_epochs * (cap // env.sc.batch_size)
+    L = cfg.n_layers
+    want = {"flash_attention": n_rounds * steps * L + sum(evals) * L,
+            "flash_attention_bwd": n_rounds * steps * L,
+            "roundtrip": 2 * n_rounds}
+    check(n_rounds == 16 and m.rounds[-1] == 16,
+          f"federated LM: {n_rounds} rounds, metrics {m.rounds}")
+    check(all(counts[k] == v for k, v in want.items())
+          and all(n == 0 for k, n in counts.items() if k not in want),
+          f"federated LM launches {counts}, expected {want} ({n_rounds} "
+          f"rounds x {steps} local steps x {L} layers, {sum(evals)} eval "
+          f"chunks)")
+    w = run.strategy.global_params()
+    check(all(v.is_cuda and bool(torch.isfinite(v).all())
+              for v in w.values()), "federated LM: non-finite global model")
+    check(all(math.isfinite(a) and 0.0 <= a <= 1.0 for a in m.acc),
+          f"federated LM accuracies {m.acc}")
+    # the global model's loss on the first clients' test samples
+    t = env._test_dev
+    xs, ys, ms = t["x"][:4], t["y"][:4], t["mask"][:4]
+    with torch.no_grad():
+        lw = env.model.loss({k: v[None].expand(4, *v.shape)
+                             for k, v in w.items()}, xs, ys, ms)
+    loss = float((lw * ms.sum(1)).sum() / ms.sum())
+    check(math.isfinite(loss), f"federated LM: loss {loss}")
+    info = {"spec_hash": res.spec_hash, "rounds": n_rounds, "wall_s": wall,
+            "events_per_s": n_rounds / wall,
+            "ms_per_round": 1e3 * sum(rounds) / n_rounds,
+            "local_steps_per_round": steps, "eval_chunks": sum(evals),
+            "launches": counts, "expected_launches": want,
+            "acc": m.acc, "test_loss": loss, "peak_mem_bytes": peak,
+            "n_params": sum(v.numel() for v in env.params0.values())}
+    log(f"phase 14: federated LM (tiny_lm_long, seq 128, 24 clients, 3 "
+        f"tiers, K=4, quantize8): {n_rounds} updates in {wall:.3f} s "
+        f"({info['events_per_s']:.4f} events/s, {info['ms_per_round']:.2f} "
+        f"ms/round over {steps} local steps), acc {m.acc}, test loss "
+        f"{loss:.4f}, peak {peak / 2**20:.1f} MiB, launches {counts}")
+    return info
+
+
+def federated_lm_card_vs_cpu(torch, api, SimEnv):
+    """tiny_lm FedAT, raw links, 4 updates, from the same params0 and
+    permutations on the card and the CPU: relative L2 of the global
+    models."""
+    spec = api.ExperimentSpec().with_overrides(FEDLM_SMALL)
+    sc = spec.to_sim_config()
+    p0 = SimEnv(sc, device="cpu").params0
+    w = {}
+    for name, d in (("card", "cuda"), ("cpu", "cpu")):
+        env = SimEnv(sc, device=d, params0=p0)
+        run = api.build(spec, env=env)
+        run.run()
+        w[name] = flat(run.strategy.w_global)
+    moved = float((w["cpu"] - flat(p0)).norm())
+    rel = float((w["card"] - w["cpu"]).norm() / w["cpu"].norm())
+    check(moved > 0, "phase 15: the global model did not move")
+    log(f"phase 15: federated LM card vs CPU after 4 FedAT updates "
+        f"(tiny_lm, raw links): |card - cpu| / |cpu| = {rel:.3g} "
+        f"(tolerance {FEDLM_CARD_VS_CPU_RTOL})")
+    check(rel <= FEDLM_CARD_VS_CPU_RTOL,
+          f"federated LM card and CPU disagree: {rel}")
+    return {"rel_l2_w_global": rel, "moved_l2": moved}
+
+
+# ---------------------------------------------------------------------------
+# phase 16: the trainer at qwen2-7b widths
+# ---------------------------------------------------------------------------
+
+#: the cuts: depth 28 -> 3 layers and global batch 256 -> 8 at train_4k's
+#: 4096 tokens.  Depth: AdamW in fp32 for all 28 layers would need about
+#: 122 GB; 4 layers would fit the card (about 40 GB with grads, moments
+#: and the accumulator), but the card's machine takes at most 45 GiB of
+#: disk writes a run, and the phase writes two checkpoints of params, m
+#: and v: 2 x 24.3 GB at 4 layers, 2 x 21.5 GB at 3
+TRAIN_LAYERS = 3
+TRAIN_BATCH = 8
+#: the resumed run repeats step 3 from the step-2 checkpoint: its loss
+#: must equal the uninterrupted run's (the forward of a restored state is
+#: deterministic); the bound covers a last-bit difference
+TRAIN_RESUME_RTOL = 1e-6
+
+
+def run_trainer(torch, kernels):
+    """launch/train.py's code path at qwen2-7b widths: 2 steps ending in
+    a checkpoint, then step 3 in the same process (timed) and step 4
+    (profiled); then a restart with --resume from the step-2 checkpoint
+    that repeats step 3, whose loss must equal the uninterrupted one."""
+    import shutil
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.configs.registry import get_config
+    from repro_torch.configs.shapes import ShapeConfig
+    from repro_torch.core import steps as steps_mod
+    from repro_torch.data.pipeline import TokenPipeline
+    from repro_torch.launch import train
+    cfg = get_config("qwen2-7b").replace(n_layers=TRAIN_LAYERS)
+    shape = ShapeConfig("train_4k", 4096, TRAIN_BATCH, "train")
+    check(cfg.microbatch == 8 and cfg.remat and cfg.scan_layers,
+          f"qwen2-7b trains with microbatch {cfg.microbatch}, remat "
+          f"{cfg.remat}")
+    ckdir = ROOT / "build" / "chip_smoke_ckpt"
+    shutil.rmtree(ckdir, ignore_errors=True)
+    argv = ["--arch", "qwen2-7b", "--ckpt-dir", str(ckdir), "--seed", "0",
+            "--device", "cuda"]
+    mb = cfg.microbatch
+    per_step = {"flash_attention": 2 * mb * cfg.n_layers,   # remat: twice
+                "flash_attention_bwd": mb * cfg.n_layers}
+    out = {"layers": cfg.n_layers, "batch": TRAIN_BATCH, "seq": 4096,
+           "microbatch": mb}
+    try:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        a = train.run(train.parser().parse_args(argv + ["--steps", "2"]),
+                      cfg=cfg, shape=shape)
+        torch.cuda.synchronize()
+        wall_a = time.perf_counter() - t0
+        counts_a = kernels.launch_counts()
+        want = {k: 2 * v for k, v in per_step.items()}
+        n_params = sum(t.numel() for t in _leaves(a.state["params"]))
+        check(a.end_step == 2 and len(a.losses) == 2
+              and all(math.isfinite(x) for x in a.losses),
+              f"trainer: steps {a.start_step}..{a.end_step}, losses "
+              f"{a.losses}")
+        check(a.runner_stats["failures"] == 0,
+              f"trainer: GuardedRunner caught {a.runner_stats['failures']} "
+              f"failures (a kernel fault must not be retried silently)")
+        check(all(counts_a[k] == v for k, v in want.items())
+              and all(n == 0 for k, n in counts_a.items() if k not in want),
+              f"trainer launches {counts_a}, expected {want}")
+        on_disk = sorted(p.name for p in ckdir.iterdir())
+        check(on_disk == [f"step_{2:010d}"], f"checkpoints {on_disk}")
+        # step 3 uninterrupted, timed; step 4 profiled
+        fns = steps_mod.make_single_pod_step(
+            cfg, TrainConfig(total_steps=3), device="cuda")
+        pipe = TokenPipeline(cfg, shape, seed=0)
+        state, a.state = a.state, None
+        state, prof = profile_train_step(torch, fns, state, pipe.batch(2),
+                                         pipe.batch(3))
+        peak = torch.cuda.max_memory_allocated()
+        del state
+        torch.cuda.empty_cache()
+        # the restart: --resume from step 2 repeats step 3
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        b = train.run(train.parser().parse_args(
+            argv + ["--steps", "3", "--resume"]), cfg=cfg, shape=shape)
+        torch.cuda.synchronize()
+        wall_b = time.perf_counter() - t0
+        counts_b = kernels.launch_counts()
+        b.state = None
+        check(b.start_step == 2 and b.end_step == 3 and len(b.losses) == 1,
+              f"resumed run: steps {b.start_step}..{b.end_step}")
+        check(b.runner_stats["failures"] == 0,
+              f"resumed trainer caught {b.runner_stats['failures']} failures")
+        check(all(counts_b[k] == v for k, v in per_step.items()),
+              f"resumed trainer launches {counts_b}, expected {per_step}")
+        step3 = prof["step3"]
+        d = abs(b.losses[0] - step3["loss"])
+        check(b.metrics[0]["lr_scale"] == step3["lr_scale"],
+              f"resumed step 3 lr_scale {b.metrics[0]['lr_scale']} vs "
+              f"{step3['lr_scale']}")
+        check(d <= TRAIN_RESUME_RTOL * abs(step3["loss"]),
+              f"resumed step 3 loss {b.losses[0]} vs {step3['loss']}")
+        out.update({
+            "n_params": n_params, "losses": a.losses + [step3["loss"]],
+            "grad_norms": [r["grad_norm"] for r in a.metrics]
+            + [step3["grad_norm"]],
+            "lr_scales": [r["lr_scale"] for r in a.metrics]
+            + [step3["lr_scale"]],
+            "resumed_loss": b.losses[0], "resume_abs_diff": d,
+            "resumed_grad_norm": b.metrics[0]["grad_norm"],
+            "wall_s": wall_a, "resume_wall_s": wall_b,
+            "launches": counts_a, "expected_launches": want,
+            "resume_launches": counts_b, "peak_mem_bytes": peak,
+            "runner_stats": a.runner_stats, "profile": prof})
+        log(f"phase 16: trainer at qwen2-7b widths ({n_params} params: "
+            f"{cfg.n_layers} of 28 layers, d_model {cfg.d_model}, GQA "
+            f"{cfg.n_heads}/{cfg.n_kv_heads}, hd {cfg.head_dim}, d_ff "
+            f"{cfg.d_ff}, vocab {cfg.vocab_size}; batch {TRAIN_BATCH} of "
+            f"256 x 4096 tokens, microbatch {mb}, remat, fp32 AdamW): "
+            f"losses {out['losses']}, grad_norms {out['grad_norms']}; "
+            f"steps 1-2 and a checkpoint in {wall_a:.1f} s; step 3 "
+            f"{step3['step_s']:.3f} s; resumed from step 2: step 3 loss "
+            f"{b.losses[0]} (|diff| {d:.3g}) in {wall_b:.1f} s with its "
+            f"restore and checkpoint; peak {peak / 2**30:.2f} GiB; launches "
+            f"{counts_a} (resume {counts_b}); runner {a.runner_stats}")
+    finally:
+        shutil.rmtree(ckdir, ignore_errors=True)
+    return out
+
+
+def profile_train_step(torch, fns, state, batch3, batch4):
+    """Step 3 timed (host clock, synchronised) and step 4 under
+    torch.profiler: busy share and the flash kernels' share of device
+    time.  Returns (state, info)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, m = fns.train_step(state, batch3)
+    torch.cuda.synchronize()
+    step_s = time.perf_counter() - t0
+    info = {"step3": {"step_s": step_s, "loss": float(m["loss"]),
+                      "grad_norm": float(m["grad_norm"]),
+                      "lr_scale": float(m["lr_scale"])}}
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        state, m = fns.train_step(state, batch4)
+        torch.cuda.synchronize()
+        prof_s = time.perf_counter() - t0
+    per_kernel = {}
+    for e in prof.key_averages():
+        if getattr(e, "device_type", None) != DeviceType.CUDA:
+            continue
+        per_kernel[e.key] = per_kernel.get(e.key, 0.0) + \
+            e.self_device_time_total / 1e3
+    dev_ms = sum(per_kernel.values())
+    info["step4_profiled_s"] = prof_s
+    if dev_ms == 0:
+        log("phase 16: profiler saw no kernel time: busy share not measured")
+        info["device_ms"] = None
+        return state, info
+    fwd = sum(t for k, t in per_kernel.items() if "flash_fwd" in k)
+    bwd = sum(t for k, t in per_kernel.items() if "flash_bwd" in k)
+    top = sorted(per_kernel.items(), key=lambda kv: -kv[1])[:6]
+    info.update({"device_ms": dev_ms, "busy_share": dev_ms / (1e3 * step_s),
+                 "flash_fwd_ms": fwd, "flash_bwd_ms": bwd,
+                 "flash_fwd_share": fwd / dev_ms,
+                 "flash_bwd_share": bwd / dev_ms,
+                 "top_kernels_ms": {k[:100]: t for k, t in top}})
+    log(f"phase 16: step 3 {step_s:.3f} s (loss {info['step3']['loss']}); "
+        f"step 4 profiled: kernels {dev_ms:.1f} ms (busy "
+        f"{100 * info['busy_share']:.1f}% of step 3's time), flash "
+        f"forward {fwd:.1f} ms ({100 * fwd / dev_ms:.2f}%), backward "
+        f"{bwd:.1f} ms ({100 * bwd / dev_ms:.2f}%)")
+    for k, t in top:
+        log(f"  {t:10.2f} ms  {k[:100]}")
+    return state, info
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="also write every number as JSON here")
@@ -1928,6 +2472,17 @@ def main() -> None:
     recurrent_agree = recurrent_card_vs_cpu(torch, kernels, lm, convert,
                                             serve, serve_launch)
 
+    # phase 13
+    flash_bwd = check_flash_bwd(torch, fa, ref)
+    torch.cuda.empty_cache()
+    # phase 14: the federated LM, counts from 0
+    fedlm = run_federated_lm(torch, api, kernels)
+    # phase 15
+    fedlm_agree = federated_lm_card_vs_cpu(torch, api, SimEnv)
+    torch.cuda.empty_cache()
+    # phase 16: the trainer, counts from 0 per run
+    trainer = run_trainer(torch, kernels)
+
     src = "src/repro_torch/kernels/csrc/polyline_codec.cu"
     # the main path's lossy step: B1a and B1b fused, per stacked uplink
     up, down = rt_times["uplink"], rt_times["downlink"]
@@ -1976,7 +2531,34 @@ def main() -> None:
         "hd80_ms": z32["ms"], "hd80_bound_ms": z32["bound_ms"],
         "hd80_library_ms": z32["library_ms"], "hd80_bf16_ms": z16["ms"],
         "hd80_bf16_bound_ms": z16["bound_ms"],
-        "hd80_bf16_library_ms": z16["library_ms"]})
+        "hd80_bf16_library_ms": z16["library_ms"],
+        "train_launches": trainer["launches"]["flash_attention"],
+        "fedlm_launches": fedlm["launches"]["flash_attention"]})
+    # B2's backward: fp32 at the trainer's shape is the trainer's path
+    tb = flash_bwd["shapes"]
+    t32 = tb["trainer (qwen2-7b widths) float32"]
+    t16 = tb["trainer (qwen2-7b widths) bfloat16"]
+    fl = tb["federated LM (tiny_lm_long) float32"]
+    report.append({
+        "name": "flash_attention_bwd", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+        "replaces": "src/repro/kernels/ops.py:95",
+        "replaces_note": "no Pallas backward: the reference trains through "
+                         "jax autodiff of blocked_attention",
+        "launches": trainer["launches"]["flash_attention_bwd"],
+        "max_abs_err": flash_bwd["float32"]["max_abs_err"],
+        "max_rel_err": flash_bwd["float32"]["max_rel_err"],
+        "ms": t32["ms"], "plain_ms": t32["plain_ms"],
+        "bound_ms": t32["bound_ms"], "bound_by": t32["bound_by"],
+        "library_ms": t32["library_ms"], "grid": t32["grid"],
+        "bf16_ms": t16["ms"], "bf16_plain_ms": t16["plain_ms"],
+        "bf16_bound_ms": t16["bound_ms"],
+        "bf16_library_ms": t16["library_ms"],
+        "bf16_max_rel_err": flash_bwd["bfloat16"]["max_rel_err"],
+        "fedlm_launches": fedlm["launches"]["flash_attention_bwd"],
+        "fedlm_ms": fl["ms"], "fedlm_plain_ms": fl["plain_ms"],
+        "fedlm_bound_ms": fl["bound_ms"], "fedlm_bound_by": fl["bound_by"],
+        "fedlm_library_ms": fl["library_ms"]})
     for name, src, line, arch, res in (
             ("wkv6", "wkv6.cu", "rwkv6_scan.py:68", "rwkv6-3b", wkv),
             ("ssd", "ssd.cu", "ssd.py:64", "zamba2-2.7b", ssd)):
@@ -2005,7 +2587,10 @@ def main() -> None:
             "baselines": base, "flash": flash, "serving": serving,
             "serving_card_vs_cpu": serve_agree, "wkv6": wkv, "ssd": ssd,
             "recurrent": recurrent,
-            "recurrent_card_vs_cpu": recurrent_agree}, indent=2))
+            "recurrent_card_vs_cpu": recurrent_agree,
+            "flash_bwd": flash_bwd, "federated_lm": fedlm,
+            "federated_lm_card_vs_cpu": fedlm_agree,
+            "trainer": trainer}, indent=2))
     print(json.dumps({"kernels": report}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

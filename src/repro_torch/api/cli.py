@@ -15,8 +15,10 @@ a grid axis.  Values parse as JSON when possible, else as strings.
 summary and the eval trajectory.  ``--device`` picks the device (default
 cuda; without CUDA the run fails unless ``--device cpu`` is given).
 
-Not ported yet: the ``serve`` subcommand (serving a federated checkpoint:
-the loader of ROADMAP A15, after A11/A12; zoo decoders are served by
+The federated LM runs like any other model (``--set data.model=tiny_lm``
+or ``tiny_lm_long``).  Not ported yet: the ``serve`` subcommand (serving a
+federated checkpoint: the loader of ROADMAP A15, after A12; zoo decoders
+are served by
 ``python -m repro_torch.launch.serve``) and
 ``--checkpoint-dir`` / ``--resume-from`` / ``--resume`` (ROADMAP A12).
 """
@@ -72,7 +74,7 @@ def main(argv: Optional[List[str]] = None) -> List[api.Result]:
         raise SystemExit("the serve subcommand (serving a federated "
                          "checkpoint) is not ported to the PyTorch package "
                          "yet: it needs the checkpoint loader (the rest of "
-                         "ROADMAP A15), which waits for A11/A12; serve a zoo "
+                         "ROADMAP A15), which waits for A12; serve a zoo "
                          "decoder with python -m repro_torch.launch.serve "
                          "--arch <id>")
     ap = argparse.ArgumentParser(

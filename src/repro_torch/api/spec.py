@@ -9,7 +9,8 @@ the spec: it is an argument of ``api.build``.
 Validation is the reference's for everything the port runs.  Sections
 whose planes are not ported yet accept only their defaults and name the
 ROADMAP item that ports them: faults and checkpointing (A12), population
-(A13), topology (A14), mesh (A16); the ``tiny_lm`` models are A11.
+(A13), topology (A14), mesh (A16).  Every registered model is ported,
+the ``tiny_lm`` LMs included.
 """
 from __future__ import annotations
 

@@ -10,8 +10,8 @@ The port of ``repro/core/simulation.py``, legacy data plane only: the same
 latencies, tier maps and the dropout schedule equal the reference's
 bitwise.  The padded train stacks live on the environment's device.  The
 initial model comes from a ``torch.Generator`` seeded with ``seed``, or is
-injected (``params0=``, e.g. the reference's, converted with
-models/convert.py).
+injected (``params0=``, e.g. the reference's as numpy; a nested tree,
+the LM's, is flattened to the model's flat keys).
 """
 from __future__ import annotations
 
@@ -26,6 +26,7 @@ from repro_torch.core.clients import make_client_update, make_eval_fn
 from repro_torch.data.federated import make_federated, pad_stack
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import registry as model_registry
+from repro_torch.models.common import flatten_tree
 
 PAPER_DELAY_BANDS = ((0.0, 0.0), (0.0, 5.0), (6.0, 10.0), (11.0, 15.0),
                      (20.0, 30.0))
@@ -105,7 +106,8 @@ class SimEnv:
             classes_per_client=sc.classes_per_client,
             samples_per_client=sc.samples_per_client,
             image_hw=sc.image_hw, n_features=sc.n_features, seed=sc.seed,
-            partitioner=sc.partitioner)
+            partitioner=sc.partitioner, vocab_size=sc.vocab_size,
+            seq_len=sc.seq_len)
         self.train = pad_stack(self.ds)
         self.n_train_all = self.train["n_samples"]
         self.test = self._stack_test()
@@ -128,7 +130,7 @@ class SimEnv:
         self.params0 = {
             k: (v.detach() if isinstance(v, torch.Tensor)
                 else torch.from_numpy(np.array(v))).to(self.device).clone()
-            for k, v in params0.items()}
+            for k, v in flatten_tree(params0).items()}
         self.update_fn = make_client_update(
             self.model, local_epochs=sc.local_epochs,
             batch_size=sc.batch_size, lr=sc.lr, prox_lambda=sc.prox_lambda)

@@ -1,8 +1,8 @@
 """Synthetic federated datasets with controllable non-i.i.d.-ness.
 
-The port of ``repro/data/federated.py`` for the ``image`` and ``features``
-kinds: the same generator, seeded the same way, with the same rng draw
-order, so both packages train on byte-identical partitions.
+The port of ``repro/data/federated.py``: the same generator, seeded the
+same way, with the same rng draw order, so both packages train on
+byte-identical partitions.
 
   * ``#class`` partitioning — each client holds samples from exactly
     ``classes_per_client`` labels (the paper's 2/4/6/8-class splits),
@@ -10,9 +10,9 @@ order, so both packages train on byte-identical partitions.
     drawn from Dir(alpha),
   * unequal client sizes (log-normal), 80/20 train/test split per client,
   * "image" kind: class-template + noise images (CNN-learnable),
-  * "features" kind: class-conditional feature vectors (logreg-learnable).
-
-The ``tokens`` kind (the federated LM's data) is not ported yet.
+  * "features" kind: class-conditional feature vectors (logreg-learnable),
+  * "tokens" kind: class-conditional Markov token streams
+    (data/pipeline.py; the federated tiny LM's data).
 """
 from __future__ import annotations
 
@@ -20,6 +20,8 @@ import dataclasses
 from typing import Dict, List, Tuple
 
 import numpy as np
+
+from repro_torch.data.pipeline import class_token_sequences
 
 
 @dataclasses.dataclass
@@ -85,24 +87,27 @@ def make_federated(
     noise: float = 1.0,
     seed: int = 0,
     partitioner: str = "#class",
+    vocab_size: int = 64,
+    seq_len: int = 16,
 ) -> FederatedDataset:
-    """``task`` is the data kind (``"image"`` | ``"features"``; "text"
-    aliases "features").  ``#class``: classes_per_client >= n_classes =>
-    i.i.d.  ``dirichlet:<alpha>``: per-client class proportions drawn from
+    """``task`` is the data kind (``DATA_KINDS``; "text" aliases
+    "features").  ``#class``: classes_per_client >= n_classes => i.i.d.
+    ``dirichlet:<alpha>``: per-client class proportions drawn from
     Dir(alpha); classes_per_client is ignored."""
     data_kind = "features" if task == "text" else task
     if data_kind not in DATA_KINDS:
         raise ValueError(f"unknown data kind {task!r}; "
                          f"expected one of {DATA_KINDS} (or 'text')")
-    if data_kind == "tokens":
-        raise NotImplementedError(
-            "the 'tokens' data kind (federated LM) is not ported yet: "
-            "ROADMAP A11")
     kind, alpha = parse_partitioner(partitioner)
     rng = np.random.default_rng(seed)
-    shape = ((image_hw, image_hw, 3) if data_kind == "image"
-             else (n_features,))
-    templates = _class_templates(rng, n_classes, shape)
+    if data_kind == "tokens":
+        shape, dtype = (seq_len,), np.int32
+        templates = None
+    else:
+        shape = ((image_hw, image_hw, 3) if data_kind == "image"
+                 else (n_features,))
+        dtype = np.float32
+        templates = _class_templates(rng, n_classes, shape)
 
     clients = []
     for c in range(n_clients):
@@ -118,11 +123,14 @@ def make_federated(
                                          replace=False)
             n = max(int(rng.lognormal(np.log(samples_per_client), 0.3)), 20)
             y = rng.choice(labels_pool, n).astype(np.int32)
-        x = templates[y] + rng.normal(
-            0, noise, size=(n,) + shape).astype(np.float32)
+        if data_kind == "tokens":
+            x = class_token_sequences(rng, y, vocab_size, seq_len)
+        else:
+            x = templates[y] + rng.normal(
+                0, noise, size=(n,) + shape).astype(np.float32)
         n_tr = int(0.8 * n)
         clients.append(ClientData(x[:n_tr], y[:n_tr], x[n_tr:], y[n_tr:]))
-    return FederatedDataset(clients, n_classes, shape, np.dtype(np.float32))
+    return FederatedDataset(clients, n_classes, shape, np.dtype(dtype))
 
 
 def pad_stack(ds: FederatedDataset, max_samples: int = 0

@@ -9,7 +9,9 @@
     sliding-window GQA attention (CUDA C++, ``csrc/flash_attention.cu``,
     wrapped by the :mod:`flash_attention` module, which this package does
     not shadow with the function); the dense LM's full-sequence attention
-    rides it (models/attention.py).
+    rides it (models/attention.py).  Its gradient is
+    ``flash_attention.FlashAttention``, whose backward is a kernel of its
+    own (``csrc/flash_attention_bwd.cu``).
   * :func:`blocked_attention` — the streaming torch path: the CPU path of
     both names above, and the prefix-LM mask.
   * ``ops.wkv6`` and :mod:`rwkv6_scan` — the RWKV-6 WKV chunk scan (CUDA

@@ -73,11 +73,17 @@
 // bf16 once, so every element stays within one bf16 rounding of the fp32
 // result plus the fp32 tolerance.
 //
+// Training (kernels/flash_attention.py FlashAttention) asks both designs
+// for each row's log-sum-exp in fp32 as well, which the backward
+// (flash_attention_bwd.cu) recomputes P from; serving passes a null
+// pointer and nothing more is written.
+//
 // This file must never be built with --use_fast_math (expf stays exact to
 // an ulp or two; the 2e-5 fp32 tolerance depends on it).
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <math.h>
 #include <stdint.h>
 
 namespace {
@@ -98,6 +104,7 @@ struct Params {
   int window;  // <= 0: no window
   float scale;
   int vec;     // fp32: every pointer, stride and hd allow 16-byte copies
+  float* lse;  // (B, H, S) per-row log-sum-exp, or null: none is written
 };
 
 // Key tiles [lo, hi) of width bk that rows [q0, q0 + rows) can see.
@@ -377,6 +384,10 @@ flash_fwd_ffma_kernel(const Params p) {
       lsum += __shfl_xor_sync(0xffffffffu, lsum, off);
     const int s = q0 + ty * kRows + i;
     if (s >= p.S) continue;
+    // a row that saw no key kept m = kNegInf: its lse is -inf
+    if (p.lse != nullptr && tx == 0)
+      p.lse[(static_cast<long long>(b) * p.H + h) * p.S + s] =
+          m[i] <= kNegInf ? -INFINITY : m[i] + logf(lsum);
     const float denom = fmaxf(lsum, 1e-30f);
     float* orow = og + s * so;
     if (L::kVec4 && p.hd % 4 == 0) {
@@ -865,6 +876,18 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
       lB += __shfl_xor_sync(0xffffffffu, lB, off);
     }
     const float dA = fmaxf(lA, 1e-30f), dB = fmaxf(lB, 1e-30f);
+    // lse = ln 2 (m + log2 l); a row that saw no visible key has m at or
+    // below kMasked times the scale (every logit masked) or kNegInf (no
+    // tile): its lse is -inf
+    if (p.lse != nullptr && lane % 4 == 0) {
+      float* lrow = p.lse + (static_cast<long long>(b) * p.H + h) * p.S;
+      if (rA < p.S)
+        lrow[rA] = mA < -1e20f ? -INFINITY
+                               : (mA + log2f(lA)) * 0.6931471805599453f;
+      if (rA + 8 < p.S)
+        lrow[rA + 8] = mB < -1e20f ? -INFINITY
+                                   : (mB + log2f(lB)) * 0.6931471805599453f;
+    }
     __nv_bfloat16* os = reinterpret_cast<__nv_bfloat16*>(
         smem + L::kO + wg * 64 * L::kOStride * 2);
     const int rr = (wt / 32) * 16 + lane / 4;
@@ -1003,7 +1026,9 @@ bool aligned16(const void* ptr) {
 extern "C" {
 
 // dtype: 0 = float32, 1 = bfloat16.  Strides are in elements; the last
-// dim of q, k and v has stride 1 and o is contiguous (B, S, H, hd).
+// dim of q, k and v has stride 1 and o is contiguous (B, S, H, hd).  lse,
+// when not null, receives each row's float32 log-sum-exp as (B, H, S)
+// (-inf for a row that sees no key), for the backward.
 // bfloat16 operands also need TMA's 16-byte rule (tc::tma_ok).  Returns
 // the CUDA error of the launch (0 on success).
 int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
@@ -1011,7 +1036,8 @@ int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
                         long long sq_b, long long sq_s, long long sq_h,
                         long long sk_b, long long sk_t, long long sk_h,
                         long long sv_b, long long sv_t, long long sv_h,
-                        int causal, int window, float scale, void* stream) {
+                        int causal, int window, float scale, float* lse,
+                        void* stream) {
   if (hd < 1 || hd > 128 || KV < 1 || H % KV != 0 || B < 1 || S < 1 ||
       T < 1 || static_cast<long long>(B) * H > 2147483647LL ||
       (S + kBQ - 1) / kBQ > 65535 || (dtype != 0 && dtype != 1))
@@ -1023,7 +1049,7 @@ int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
                    sv_h % 4 == 0;
   const Params p{q,    k,    v,    o,    B,      S,      T,     H,
                  KV,   hd,   sq_b, sq_s, sq_h,   sk_b,   sk_t,  sk_h,
-                 sv_b, sv_t, sv_h, causal, window, scale, vec};
+                 sv_b, sv_t, sv_h, causal, window, scale, vec, lse};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const cudaError_t err = dtype == 0 ? ffma::dispatch(p, st)
                                      : tc::dispatch(p, st);

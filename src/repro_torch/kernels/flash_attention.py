@@ -19,9 +19,20 @@ bf16 runs on the tensor cores, its tiles loaded by TMA, which needs
 elements in the batch, sequence and head dims (:func:`check_cuda_operands`
 raises for any other bf16 operand).
 
-A tensor on the CPU takes the plain version (kernels/ref.py
-``blocked_attention``, the same CPU path as ``ops.attention``); a CUDA
-tensor launches the kernel or raises, with no fallback.  CUDA launches are counted (:func:`launch_counts`).
+Training: :class:`FlashAttention` is the autograd function over the
+kernel.  Its forward asks the kernel for each row's log-sum-exp as well
+(:func:`flash_attention` with ``return_lse``); its backward is the
+hand-written backward kernel (csrc/flash_attention_bwd.cu, wrapped by
+:func:`flash_attention_backward`), which recomputes P from q, k and the
+log-sum-exp.  The JAX package has no backward kernel (off the TPU it
+differentiates ``repro/kernels/ops.py`` ``blocked_attention``).
+
+A tensor on the CPU takes the plain versions (kernels/ref.py
+``blocked_attention`` and ``blocked_attention_backward``); a CUDA tensor
+launches the kernels or raises, with no fallback.  CUDA launches are
+counted: ``flash_attention`` per forward (:func:`launch_counts`),
+``flash_attention_bwd`` per backward (one C call that launches its three
+kernels; ``repro_torch.kernels.launch_counts`` gathers both).
 """
 from __future__ import annotations
 
@@ -41,10 +52,32 @@ _vp, _ci, _ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _LIB = kbuild.Library(
     "flash_attention", "flash_attention_error_string",
     {"flash_attention_fwd": [_vp] * 4 + [_ci] * 7 + [_ll] * 9
-     + [_ci, _ci, ctypes.c_float, _vp]},
+     + [_ci, _ci, ctypes.c_float, _vp, _vp]},
     kernels=("flash_attention",))
+_BWD = kbuild.Library(
+    "flash_attention_bwd", "flash_attention_bwd_error_string",
+    {"flash_attention_bwd": [_vp] * 10 + [_ci] * 7 + [_ll] * 12
+     + [_ci, _ci, ctypes.c_float, _vp],
+     "flash_attention_bwd_ctas_per_sm": [_ci, _ci, _ci]},
+    kernels=("flash_attention_bwd",))
 launch_counts = _LIB.launch_counts
 reset_launch_counts = _LIB.reset_launch_counts
+#: query rows and keys per tile of the backward kernels
+BWD_TILE = 64
+
+
+def bwd_ctas_per_sm(dtype: torch.dtype, hd: int, which: str) -> int:
+    """CTAs of the backward's ``"dkdv"`` or ``"dq"`` kernel for ``dtype``
+    and head dim ``hd`` that fit on one SM of the current card; builds the
+    kernel, launches nothing."""
+    return _BWD.query("flash_attention_bwd_ctas_per_sm", _DTYPES[dtype],
+                      hd, ("dkdv", "dq").index(which))
+
+
+def bwd_grids(B: int, S: int, T: int, H: int, KV: int):
+    """The launch grids of the backward's dK/dV and dQ kernels."""
+    return {"dkdv": (B * KV, -(-T // BWD_TILE)),
+            "dq": (B * H, -(-S // BWD_TILE))}
 
 
 def _check_operands(q, k, v) -> None:
@@ -105,20 +138,25 @@ def check_cuda_operands(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                    causal: bool = True, window: Optional[int] = None
-                    ) -> torch.Tensor:
+                    causal: bool = True, window: Optional[int] = None,
+                    return_lse: bool = False):
     """q: (B, S, H, hd); k/v: (B, T, KV, hd) with H % KV == 0 -> (B, S, H, hd).
 
     Keys at or past T are masked; with ``causal`` key t is visible to query
     s iff t <= s, with ``window`` iff s - t < window (positions count from
-    0 on both sides)."""
+    0 on both sides).  ``return_lse`` also returns each row's float32
+    log-sum-exp, (B, H, S), -inf for a row that sees no key.  No gradient:
+    :class:`FlashAttention` is the differentiable form."""
     _check_operands(q, k, v)
     if q.device.type == "cpu":
-        return ref.blocked_attention(q, k, v, causal=causal, window=window)
+        return ref.blocked_attention(q, k, v, causal=causal, window=window,
+                                     return_lse=return_lse)
     check_cuda_operands(q, k, v, window)
     B, S, H, hd = q.shape
     T, KV = k.shape[1], k.shape[2]
     out = torch.empty((B, S, H, hd), dtype=q.dtype, device=q.device)
+    lse = (torch.empty((B, H, S), dtype=torch.float32, device=q.device)
+           if return_lse else None)
     with torch.cuda.device(q.device):
         _LIB.launch(
             "flash_attention", "flash_attention_fwd",
@@ -128,5 +166,86 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             k.stride(0), k.stride(1), k.stride(2),
             v.stride(0), v.stride(1), v.stride(2),
             int(causal), int(window or 0), 1.0 / (hd ** 0.5),
+            None if lse is None else lse.data_ptr(),
             torch.cuda.current_stream().cuda_stream)
-    return out
+    return (out, lse) if return_lse else out
+
+
+def flash_attention_backward(q: torch.Tensor, k: torch.Tensor,
+                             v: torch.Tensor, out: torch.Tensor,
+                             lse: torch.Tensor, dout: torch.Tensor,
+                             causal: bool = True,
+                             window: Optional[int] = None):
+    """(dq, dk, dv) of :func:`flash_attention` from its output ``out``
+    (contiguous (B, S, H, hd)), its ``lse`` ((B, H, S) float32) and the
+    output's gradient ``dout`` (any strides whose last one is 1), in the
+    dtypes and shapes of q, k, v (new contiguous tensors)."""
+    _check_operands(q, k, v)
+    B, S, H, hd = q.shape
+    T, KV = k.shape[1], k.shape[2]
+    if (out.shape != q.shape or dout.shape != q.shape
+            or lse.shape != (B, H, S) or out.dtype != q.dtype
+            or dout.dtype != q.dtype or lse.dtype != torch.float32):
+        raise ValueError(
+            f"flash_attention_backward: out {tuple(out.shape)} {out.dtype}, "
+            f"dout {tuple(dout.shape)} {dout.dtype} and lse "
+            f"{tuple(lse.shape)} {lse.dtype} must be q's shape and dtype "
+            f"and (B, H, S) float32 for q {tuple(q.shape)} {q.dtype}")
+    if q.device.type == "cpu":
+        return ref.blocked_attention_backward(q, k, v, out, lse, dout,
+                                              causal=causal, window=window)
+    check_cuda_operands(q, k, v, window)   # what the forward took
+    if -(-max(S, T) // BWD_TILE) > 65535:
+        raise ValueError(f"flash_attention_backward supports S, T <= "
+                         f"{65535 * BWD_TILE}, got {S}, {T}")
+    if (dout.stride(-1) != 1 or not out.is_contiguous()
+            or not lse.is_contiguous()):
+        raise ValueError("flash_attention_backward: the last dim of dout "
+                         "must have stride 1, out and lse must be "
+                         "contiguous")
+    if not all(x.device == q.device for x in (out, lse, dout)):
+        raise ValueError("flash_attention_backward: all operands must be on "
+                         f"{q.device}")
+    dq = torch.empty((B, S, H, hd), dtype=q.dtype, device=q.device)
+    dk = torch.empty((B, T, KV, hd), dtype=q.dtype, device=q.device)
+    dv = torch.empty_like(dk)
+    delta = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
+    with torch.cuda.device(q.device):
+        _BWD.launch(
+            "flash_attention_bwd", "flash_attention_bwd",
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            dout.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+            dk.data_ptr(), dv.data_ptr(),
+            _DTYPES[q.dtype], B, S, T, H, KV, hd,
+            q.stride(0), q.stride(1), q.stride(2),
+            k.stride(0), k.stride(1), k.stride(2),
+            v.stride(0), v.stride(1), v.stride(2),
+            dout.stride(0), dout.stride(1), dout.stride(2),
+            int(causal), int(window or 0), 1.0 / (hd ** 0.5),
+            torch.cuda.current_stream().cuda_stream)
+    return dq, dk, dv
+
+
+class FlashAttention(torch.autograd.Function):
+    """Differentiable :func:`flash_attention`: the forward kernel with its
+    log-sum-exp, and the backward kernel for (dq, dk, dv).  On CPU tensors
+    both are the plain versions.  ``FlashAttention.apply(q, k, v, causal,
+    window)``."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool = True,
+                window: Optional[int] = None):
+        out, lse = flash_attention(q, k, v, causal=causal, window=window,
+                                   return_lse=True)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.causal, ctx.window = causal, window
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        if dout.stride(-1) != 1:
+            dout = dout.contiguous()
+        dq, dk, dv = flash_attention_backward(
+            q, k, v, out, lse, dout, causal=ctx.causal, window=ctx.window)
+        return dq, dk, dv, None, None

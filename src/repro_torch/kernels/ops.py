@@ -11,9 +11,13 @@ Attention: the kernel takes the (B, S, H, hd) / (B, T, KV, hd) layout and
 the GQA grouping by index, so :func:`flash_attention` (the kernel's own
 wrapper, re-exported) needs no repeat, transpose or padding; its CPU path
 and ``attention(impl="blocked")`` are one function, :func:`blocked_attention`
-(kernels/ref.py).  Chunk scans: the kernels take the model's (B, S, H, N)
-layout with a state in and out (kernels/rwkv6_scan.py, kernels/ssd.py),
-in chunks of their own (``KERNEL_CHUNK``, 32 tokens);
+(kernels/ref.py).  ``attention(impl="kernel")`` on operands that need a
+gradient goes through ``flash_attention.FlashAttention`` (the forward with
+its log-sum-exp, and the backward kernel); without one (serving, under
+``no_grad``) it calls the forward alone.  Chunk scans: the kernels take
+the model's (B, S, H, N) layout with a state in and out
+(kernels/rwkv6_scan.py, kernels/ssd.py), in chunks of their own
+(``KERNEL_CHUNK``, 32 tokens);
 :func:`wkv6` and :func:`ssd` keep the reference's flattened (BH, S, .)
 contract on top of them from a zero state (wkv6 as one batch row of BH
 heads, read through strides; ssd as BH batch rows of one head, since B
@@ -27,6 +31,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import polyline_codec as codec
 from repro_torch.kernels import rwkv6_scan
 from repro_torch.kernels import ssd as ssd_mod
@@ -75,6 +80,9 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             raise NotImplementedError(
                 "prefix-LM masks need impl='blocked' (the flash kernel "
                 "only knows causal/window masks)")
+        if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                        or v.requires_grad):
+            return fa.FlashAttention.apply(q, k, v, causal, window)
         return flash_attention(q, k, v, causal=causal, window=window)
     return blocked_attention(q, k, v, causal=causal, window=window,
                              block=block, prefix_len=prefix_len)

@@ -6,7 +6,8 @@ kernel's arithmetic exactly, so that comparison is bitwise.  Attention has
 two: :func:`blocked_attention`, the streaming CPU path of the kernel's
 wrapper (``repro/kernels/ops.py`` ``blocked_attention``), and
 :func:`attention`, the materialised oracle of the reference
-(``repro/kernels/ref.py``) the kernel is held to within a tolerance.  So
+(``repro/kernels/ref.py``) the kernel is held to within a tolerance; its
+backward kernel has :func:`blocked_attention_backward`.  So
 have the two chunk scans: the token-level oracles :func:`wkv6` and
 :func:`ssd`, and the chunked forms with a state in and out,
 :func:`wkv6_chunked` and :func:`ssd_chunked` (the models' own chunk scans,
@@ -107,9 +108,38 @@ def attention_gqa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out.reshape(B, H, S, hd).transpose(1, 2)
 
 
+def _block_span(s0: int, s1: int, T: int, causal: bool,
+                window: Optional[int], prefix_len: int = 0) -> Tuple[int, int]:
+    """The keys [lo, hi) query rows [s0, s1) can see, as a block."""
+    hi = min(s1, T) if causal and not prefix_len else T
+    lo = max(0, s0 + 1 - window) if window is not None else 0
+    return lo, max(lo, hi)   # empty when the rows see no key
+
+
+def _block_mask(s0: int, s1: int, lo: int, hi: int, causal: bool,
+                window: Optional[int], prefix_len: int = 0):
+    """(s1 - s0, hi - lo) bool visibility of a block, or None when every
+    key of the span is visible to every row."""
+    qpos = torch.arange(s0, s1)[:, None]
+    kpos = torch.arange(lo, hi)[None, :]
+    mask = None
+    if causal:
+        m = qpos >= kpos
+        if prefix_len:
+            m = m | (kpos < prefix_len)
+        mask = m
+    if window is not None:
+        m = (qpos - kpos) < window
+        mask = m if mask is None else (mask & m)
+    if mask is not None and bool(mask.all()):
+        return None
+    return mask
+
+
 def blocked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                       causal: bool = True, window: Optional[int] = None,
-                      block: int = 64, prefix_len: int = 0) -> torch.Tensor:
+                      block: int = 64, prefix_len: int = 0,
+                      return_lse: bool = False):
     """Flash-style streaming attention in plain torch ops (any device).
 
     The same contract and masks as the flash kernel (plus the prefix-LM
@@ -117,6 +147,10 @@ def blocked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     touches only the K/V rows it can see (causal upper bound, window lower
     bound), so the (S, T) logits never materialise.  Masks are built on the
     host per block, and a block that sees all its keys skips the mask.
+
+    ``return_lse`` also returns each row's log-sum-exp over the keys it
+    sees, float32 (B, H, S), -inf for a row that sees none (the kernel's
+    forward writes the same for the backward).
     """
     B, S, H, hd = q.shape
     T, KV = k.shape[1], k.shape[2]
@@ -124,39 +158,82 @@ def blocked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     scale = 1.0 / (hd ** 0.5)
     C = min(block, S)
     n = -(-S // C)
-    out_blocks = []
+    out_blocks, lse_blocks = [], []
     for i in range(n):
         s0, s1 = i * C, min((i + 1) * C, S)
-        hi = T
-        if causal and not prefix_len:
-            hi = min(s1, T)
-        lo = 0
-        if window is not None:
-            lo = max(0, s0 + 1 - window)
+        lo, hi = _block_span(s0, s1, T, causal, window, prefix_len)
         qi = q[:, s0:s1].float() * scale                  # (B, c, H, hd)
         qi = qi.reshape(B, s1 - s0, KV, G, hd)            # kv-major grouping
         ki = k[:, lo:hi].float()                          # (B, t, KV, hd)
         vi = v[:, lo:hi].float()
         logits = torch.einsum("bckgd,btkd->bckgt", qi, ki)
-        qpos = torch.arange(s0, s1)[:, None]
-        kpos = torch.arange(lo, hi)[None, :]
-        mask = None
-        if causal:
-            m = qpos >= kpos
-            if prefix_len:
-                m = m | (kpos < prefix_len)
-            mask = m
-        if window is not None:
-            m = (qpos - kpos) < window
-            mask = m if mask is None else (mask & m)
-        if mask is not None and not bool(mask.all()):
-            logits = torch.where(mask.to(q.device)[None, :, None, None, :],
-                                 logits, NEG_INF)
+        mask = _block_mask(s0, s1, lo, hi, causal, window, prefix_len)
+        if mask is not None:
+            mask = mask.to(q.device)[None, :, None, None, :]
+            logits = torch.where(mask, logits, NEG_INF)
         probs = torch.softmax(logits, dim=-1)
         o = torch.einsum("bckgt,btkd->bckgd", probs, vi)
         out_blocks.append(o.reshape(B, s1 - s0, H, hd))
+        if return_lse:
+            seen = logits if mask is None else torch.where(
+                mask, logits, -math.inf)
+            lse_blocks.append(torch.logsumexp(seen, dim=-1)
+                              .reshape(B, s1 - s0, H))
     out = out_blocks[0] if n == 1 else torch.cat(out_blocks, dim=1)
-    return out.to(q.dtype)
+    if not return_lse:
+        return out.to(q.dtype)
+    return out.to(q.dtype), torch.cat(lse_blocks, dim=1).transpose(1, 2)
+
+
+def blocked_attention_backward(q: torch.Tensor, k: torch.Tensor,
+                               v: torch.Tensor, out: torch.Tensor,
+                               lse: torch.Tensor, dout: torch.Tensor,
+                               causal: bool = True,
+                               window: Optional[int] = None, block: int = 64
+                               ) -> Tuple[torch.Tensor, torch.Tensor,
+                                          torch.Tensor]:
+    """The gradient of :func:`blocked_attention` in the arithmetic of the
+    backward kernel (csrc/flash_attention_bwd.cu): P recomputed from the
+    forward's ``lse`` (B, H, S), D = rowsum(dO o O), dS = P (dO V^T - D),
+    then dQ = scale dS K, dK = scale dS^T Q and dV = P^T dO, the last two
+    summed over the G query heads of each KV head.  fp32 inside; a row
+    whose ``lse`` is -inf (it sees no key) contributes nothing.  Returns
+    (dq, dk, dv) in the dtypes of q, k, v."""
+    B, S, H, hd = q.shape
+    T, KV = k.shape[1], k.shape[2]
+    G = H // KV
+    scale = 1.0 / (hd ** 0.5)
+    delta = (dout.float() * out.float()).sum(dim=-1)      # (B, S, H)
+    lse_s = lse.float().transpose(1, 2)                   # (B, S, H)
+    dq = torch.zeros((B, S, H, hd), dtype=torch.float32, device=q.device)
+    dk = torch.zeros((B, T, KV, hd), dtype=torch.float32, device=q.device)
+    dv = torch.zeros_like(dk)
+    C = min(block, S)
+    for s0 in range(0, S, C):
+        s1 = min(s0 + C, S)
+        c = s1 - s0
+        lo, hi = _block_span(s0, s1, T, causal, window)
+        if hi <= lo:
+            continue
+        qi = q[:, s0:s1].float().reshape(B, c, KV, G, hd)
+        gi = dout[:, s0:s1].float().reshape(B, c, KV, G, hd)
+        ki, vi = k[:, lo:hi].float(), v[:, lo:hi].float()
+        logits = torch.einsum("bckgd,btkd->bckgt", qi, ki) * scale
+        li = lse_s[:, s0:s1].reshape(B, c, KV, G, 1)
+        live = torch.isfinite(li)
+        keep = live
+        mask = _block_mask(s0, s1, lo, hi, causal, window)
+        if mask is not None:
+            keep = keep & mask.to(q.device)[None, :, None, None, :]
+        p = torch.where(keep, torch.exp(logits - torch.where(live, li, 0.0)),
+                        0.0)
+        dp = torch.einsum("bckgd,btkd->bckgt", gi, vi)
+        ds = p * (dp - delta[:, s0:s1].reshape(B, c, KV, G, 1))
+        dv[:, lo:hi] += torch.einsum("bckgt,bckgd->btkd", p, gi)
+        dk[:, lo:hi] += torch.einsum("bckgt,bckgd->btkd", ds, qi) * scale
+        dq[:, s0:s1] = (torch.einsum("bckgt,btkd->bckgd", ds, ki)
+                        * scale).reshape(B, c, H, hd)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
 # --- wkv6 -------------------------------------------------------------------

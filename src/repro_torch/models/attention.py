@@ -118,7 +118,10 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, tp: int,
 
 def _project_qkv(cfg: ModelConfig, p, x: torch.Tensor,
                  positions: torch.Tensor, tp: int):
-    """x: (B, S, d) -> q: (B,S,kv,G,hd), k/v: (B,S,kv,hd), RoPE applied."""
+    """x: (..., S, d) -> q: (..., S, kv, G, hd), k/v: (..., S, kv, hd),
+    RoPE applied.  Weights may carry leading dims that broadcast against
+    x's (the client-stacked federated LM: (K, 1, d, out) against x (K, B,
+    S, d))."""
     hd, kv = cfg.head_dim, cfg.n_kv_heads
     hp = cfg.padded_heads(tp)
     q = torch.matmul(x, p["wq"])
@@ -126,13 +129,13 @@ def _project_qkv(cfg: ModelConfig, p, x: torch.Tensor,
     v = torch.matmul(x, p["wv"])
     if cfg.qkv_bias:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
-    q = q.reshape(*q.shape[:2], hp, hd)
-    k = k.reshape(*k.shape[:2], kv, hd)
-    v = v.reshape(*v.shape[:2], kv, hd)
+    q = q.reshape(*q.shape[:-1], hp, hd)
+    k = k.reshape(*k.shape[:-1], kv, hd)
+    v = v.reshape(*v.shape[:-1], kv, hd)
     if cfg.causal or cfg.family in ("audio",):  # RoPE everywhere
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
-    q = q.reshape(*q.shape[:2], kv, hp // kv, hd)
+    q = q.reshape(*q.shape[:-2], kv, hp // kv, hd)
     return q, k, v
 
 
@@ -163,10 +166,16 @@ def _attend(q, k, v, mask, exact: bool = False):
 
 def _attention_core(cfg: ModelConfig, q, k, v, positions: torch.Tensor,
                     tp: int) -> torch.Tensor:
-    """Full-sequence attention of projected q (B,S,kv,G,hd) and k/v
-    (B,S,kv,hd) -> (B, S, H*hd), before the output projection.  No ported
-    family has a prefix-LM frontend (the vlm family is ROADMAP A17), so
-    the mask is causal or bidirectional, with an optional window."""
+    """Full-sequence attention of projected q (..., S, kv, G, hd) and k/v
+    (..., S, kv, hd) -> (..., S, H*hd), before the output projection; the
+    leading dims are folded into one batch dim (attention has no
+    weights).  No ported family has a prefix-LM frontend (the vlm family
+    is ROADMAP A17), so the mask is causal or bidirectional, with an
+    optional window."""
+    lead = q.shape[:-4]
+    q = q.reshape(-1, *q.shape[-4:])
+    k = k.reshape(-1, *k.shape[-3:])
+    v = v.reshape(-1, *v.shape[-3:])
     B, S = q.shape[:2]
     C = min(cfg.attn_chunk, S)
     W = cfg.swa_window
@@ -176,7 +185,7 @@ def _attention_core(cfg: ModelConfig, q, k, v, positions: torch.Tensor,
         # (kv, G) grouping flattens kv-major, the kernels' GQA mapping
         qf = q.reshape(B, S, -1, cfg.head_dim)
         out = kops.attention(qf, k, v, causal=cfg.causal, window=W, block=C)
-        return out.reshape(B, S, -1)
+        return out.reshape(*lead, S, -1)
 
     def block_mask(pos_q, pos_kv):
         m = torch.ones((pos_q.shape[0], pos_kv.shape[0]), dtype=torch.bool,
@@ -208,7 +217,7 @@ def _attention_core(cfg: ModelConfig, q, k, v, positions: torch.Tensor,
             outs.append(_attend(q[:, s0:s1], ks, vs,
                                 block_mask(pq, pkv)[None], exact=exact))
         out = torch.cat(outs, dim=1)
-    return out.reshape(B, S, -1)
+    return out.reshape(*lead, S, -1)
 
 
 def full_attention(cfg: ModelConfig, p, x: torch.Tensor,

@@ -80,6 +80,34 @@ def init_from_specs(specs: Dict[str, Any], generator: torch.Generator,
     return out
 
 
+def flatten_tree(tree: Dict[str, Any], sep: str = "/",
+                 prefix: str = "") -> Dict[str, Any]:
+    """Nested dicts -> one flat dict keyed by the paths joined with
+    ``sep``.  ``/`` sorts below every character of a key, so the flat
+    keys' sorted order is the nested tree's sorted-key order (the order
+    jax flattens it in)."""
+    out: Dict[str, Any] = {}
+    for k in sorted(tree):
+        v = tree[k]
+        if isinstance(v, dict):
+            out.update(flatten_tree(v, sep, f"{prefix}{k}{sep}"))
+        else:
+            out[f"{prefix}{k}"] = v
+    return out
+
+
+def unflatten_tree(flat: Dict[str, Any], sep: str = "/") -> Dict[str, Any]:
+    """Inverse of :func:`flatten_tree`."""
+    out: Dict[str, Any] = {}
+    for path, v in flat.items():
+        node = out
+        *head, last = path.split(sep)
+        for k in head:
+            node = node.setdefault(k, {})
+        node[last] = v
+    return out
+
+
 def index_tree(tree, i: int):
     """Entry ``i`` of every leaf of a stacked tree of dicts and NamedTuples
     (views, no copies: writing a leaf writes the stacked tensor)."""

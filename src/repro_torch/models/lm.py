@@ -3,7 +3,8 @@
 The port of ``repro/models/lm.py``:
 
   * ``param_specs / init_params``
-  * ``forward_train(cfg, params, batch, tp)``     (features, forward only)
+  * ``forward_train(cfg, params, batch, tp)``     (features)
+  * ``loss_fn(cfg, params, batch, tp)``           (train shapes)
   * ``serve_prefill(cfg, params, batch, tp, cache, last_pos=None)``
   * ``serve_step(cfg, params, tokens, pos, tp, cache)``
   * ``init_cache / cache_axes_tree``
@@ -11,9 +12,9 @@ The port of ``repro/models/lm.py``:
 Families: dense -> transformer.py; ssm -> rwkv6.py; hybrid -> zamba2.py,
 dispatched here as in the reference.  transformer.py raises naming ROADMAP
 A17 for moe, vlm and audio.  The recurrent families serve forward only:
-``forward_train`` raises for them naming A17 (their training needs
-backward kernels of the scans).  Caches and states are written in place
-and returned.
+``forward_train`` and ``loss_fn`` raise for them naming A17 (their
+training needs backward kernels of the scans).  Caches and states are
+written in place and returned.
 """
 from __future__ import annotations
 
@@ -56,14 +57,24 @@ def init_params(cfg: ModelConfig, seed: int, tp: int = 1,
     return common.init_from_specs(param_specs(cfg, tp), gen, dev, dtype)
 
 
-def forward_train(cfg: ModelConfig, p, batch, tp: int):
-    if cfg.family in TRANSFORMER_FAMILIES:
-        return transformer.forward_train(cfg, p, batch, tp)
-    raise NotImplementedError(
+def _no_recurrent_training(cfg: ModelConfig):
+    return NotImplementedError(
         f"training the {cfg.family} family ({cfg.name!r}) is not ported to "
         f"the PyTorch package (ROADMAP A17: the recurrent families serve "
         f"forward only; their training needs backward kernels of the "
         f"wkv6/ssd scans)")
+
+
+def forward_train(cfg: ModelConfig, p, batch, tp: int):
+    if cfg.family in TRANSFORMER_FAMILIES:
+        return transformer.forward_train(cfg, p, batch, tp)
+    raise _no_recurrent_training(cfg)
+
+
+def loss_fn(cfg: ModelConfig, p, batch, tp: int):
+    if cfg.family in TRANSFORMER_FAMILIES:
+        return transformer.loss_fn(cfg, p, batch, tp)
+    raise _no_recurrent_training(cfg)
 
 
 # ---------------------------------------------------------------------------

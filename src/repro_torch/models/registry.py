@@ -12,8 +12,12 @@ a dict of tensors:
 
 ``apply``/``loss``/``eval_metrics`` take params with a leading client axis
 K and inputs ``(K, B, ...)``.  Registered here: ``cnn`` and ``logreg``
-(the paper's models).  The reference's ``tiny_lm`` entries are not ported
-yet (ROADMAP A11).
+(the paper's models), and ``tiny_lm`` / ``tiny_lm_long``, the dense LM
+stack on the federated path.  Params are a flat dict: the LM's nested tree
+is flattened at the model's boundary (``models/common.flatten_tree``, keys
+like ``layers/attn/wq``, in the reference's leaf order), so the client
+update, the codecs and the Eq. 3/4 averages see one dict of leaves for
+every model.
 """
 from __future__ import annotations
 
@@ -54,12 +58,14 @@ class FLModel:
     eval_metrics: Callable[..., torch.Tensor]
     batch_shape: Tuple[int, ...]
     batch_dtype: Any = np.float32
+    #: the bound ModelConfig of an LM entry (None for cnn / logreg)
+    config: Any = None
 
 
 MODELS: Dict[str, Callable[[DataDims], FLModel]] = {}
 
 #: registered in the reference, not yet in the port -> the ROADMAP item
-UNPORTED_MODELS: Dict[str, str] = {"tiny_lm": "A11", "tiny_lm_long": "A11"}
+UNPORTED_MODELS: Dict[str, str] = {}
 
 #: the ``task`` values spec versions 1/2 used, mapped to registry names
 LEGACY_TASKS: Dict[str, str] = {"image": "cnn", "text": "logreg"}
@@ -132,5 +138,68 @@ def _make_logreg(dims: DataDims) -> FLModel:
         batch_shape=(dims.n_features,))
 
 
+# ---------------------------------------------------------------------------
+# tiny_lm: the LM stack on the federated path
+# ---------------------------------------------------------------------------
+
+def _make_tiny_lm(dims: DataDims, arch: str = "tiny-lm",
+                  name: str = "tiny_lm") -> FLModel:
+    """A tiny dense causal LM (``configs/tiny_lm.py``) trained federated
+    on class-conditional token streams: the reference's ``tiny_lm``.
+
+    Params come from the LM's own specs (``models/lm.py``), flattened;
+    the forward is ``transformer.forward_train_clients`` over the K
+    clients' params at once; the objective is next-token cross-entropy
+    averaged per sample, then mask-weighted over the client's sample
+    slots.  ``dims.attention_backend`` lands on the bound config."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import common, lm, transformer
+
+    cfg = get_config(arch).replace(
+        vocab_size=dims.vocab_size,
+        attention_backend=dims.attention_backend)
+
+    def apply(params, x):
+        """params: flat, every leaf (K, ...); x: (K, B, S) tokens ->
+        logits (K, B, S, V) fp32."""
+        return transformer.forward_train_clients(
+            cfg, common.unflatten_tree(params), x)
+
+    def _per_sample_ce(params, x):
+        logp = torch.log_softmax(apply(params, x)[..., :-1, :], dim=-1)
+        labels = x[..., 1:].long()
+        nll = -logp.gather(-1, labels[..., None])[..., 0]   # (K, B, S-1)
+        return nll.mean(dim=-1)                              # (K, B)
+
+    def loss(params, x, y, mask):
+        del y  # next-token objective; the class label only shapes the data
+        ce = _per_sample_ce(params, x)
+        return (ce * mask).sum(dim=-1) / mask.sum(dim=-1).clamp_min(1.0)
+
+    def eval_metrics(params, x, y, mask):
+        del y
+        pred = apply(params, x)[..., :-1, :].argmax(dim=-1)  # (K, B, S-1)
+        ok = (pred == x[..., 1:].long()).float().mean(dim=-1)
+        return (ok * mask).sum(dim=-1) / mask.sum(dim=-1).clamp_min(1.0)
+
+    def init_params(gen: torch.Generator):
+        tree = common.init_from_specs(lm.param_specs(cfg, 1), gen, "cpu",
+                                      torch.float32)
+        return common.flatten_tree(tree)
+
+    return FLModel(
+        name=name, data_kind="tokens", init_params=init_params,
+        apply=apply, loss=loss, eval_metrics=eval_metrics,
+        batch_shape=(dims.seq_len,), batch_dtype=np.int32, config=cfg)
+
+
+def _make_tiny_lm_long(dims: DataDims) -> FLModel:
+    """The long-sequence tiny LM (arch ``tiny-lm-long``): the same stack
+    with ``attn_chunk`` 32, for seq_len about 128."""
+    return _make_tiny_lm(dims, arch="tiny-lm-long", name="tiny_lm_long")
+
+
 register_model("cnn", _make_cnn)
 register_model("logreg", _make_logreg)
+register_model("tiny_lm", _make_tiny_lm)
+register_model("tiny_lm_long", _make_tiny_lm_long)

@@ -4,15 +4,23 @@ The port of ``repro/models/transformer.py`` for ``family="dense"``.  One
 block = preRMS -> attention -> residual -> preRMS -> SwiGLU -> residual.
 Layers are stacked on a leading axis L, as in the reference's param tree,
 and iterated by a Python loop over per-layer views (the reference's
-``lax.scan``).  The MoE family and the vlm/audio frontends are not ported
-yet (ROADMAP A17) and raise.  Forward only: training through the LM is
-the federated ``tiny_lm`` slice (ROADMAP A11).
+``lax.scan``); under ``cfg.remat`` each block of a differentiated forward
+is a ``torch.utils.checkpoint`` (the reference's ``jax.checkpoint``), so
+its activations, the flash forward included, are recomputed in the
+backward.  :func:`loss_fn` is the reference's seq-chunked causal-LM
+cross-entropy.  :func:`forward_train_clients` runs K models at once, every
+param with a leading client axis (the federated LM's client update: the
+written-out form of the reference's ``vmap``; projections are batched
+matmuls over K, and attention folds K into its batch dim).  The MoE family
+and the vlm/audio frontends are not ported yet (ROADMAP A17) and raise.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
@@ -74,7 +82,8 @@ def _ffn(cfg: ModelConfig, lp, h: torch.Tensor) -> torch.Tensor:
 
 def _block_train(cfg: ModelConfig, tp: int, x: torch.Tensor,
                  positions: torch.Tensor, lp) -> torch.Tensor:
-    """One layer, full-sequence (forward only)."""
+    """One layer, full-sequence.  x: (..., S, d); ``lp``'s leaves
+    broadcast against x's leading dims."""
     h = rms_norm(x, lp["ln1"], cfg.rms_eps)
     x = x + attn.full_attention(cfg, lp["attn"], h, positions, tp)
     h = rms_norm(x, lp["ln2"], cfg.rms_eps)
@@ -114,16 +123,99 @@ def lm_head(cfg: ModelConfig, p, x: torch.Tensor) -> torch.Tensor:
     return torch.matmul(x, w)
 
 
+def _run_layers(cfg: ModelConfig, tp: int, x: torch.Tensor, layers,
+                take: Callable[[Any, int], Any]) -> torch.Tensor:
+    """Every block over x (..., S, d); ``take(layers, i)`` is layer i's
+    params.  A differentiated forward under ``cfg.remat`` checkpoints each
+    block (the reference remats the scanned block)."""
+    positions = torch.arange(x.shape[-2], dtype=torch.int32, device=x.device)
+    remat = cfg.remat and cfg.scan_layers and torch.is_grad_enabled()
+    for i in range(cfg.n_layers):
+        lp = take(layers, i)
+        if remat:
+            x = checkpoint(_block_train, cfg, tp, x, positions, lp,
+                           use_reentrant=False)
+        else:
+            x = _block_train(cfg, tp, x, positions, lp)
+    return x
+
+
 def forward_train(cfg: ModelConfig, p, batch, tp: int
                   ) -> Tuple[torch.Tensor, torch.Tensor, int]:
     """Returns (features (B,S,d), aux_loss, prefix_len), prefix_len 0."""
     attn.check_tp(tp)
     x = embed_inputs(cfg, p, batch, tp)
-    positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
-    for i in range(cfg.n_layers):
-        x = _block_train(cfg, tp, x, positions, index_tree(p["layers"], i))
+    x = _run_layers(cfg, tp, x, p["layers"], index_tree)
     x = rms_norm(x, p["final_norm"], cfg.rms_eps)
     return x, torch.zeros((), dtype=torch.float32, device=x.device), 0
+
+
+def loss_fn(cfg: ModelConfig, p, batch, tp: int, loss_chunk: int = 512
+            ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Causal-LM loss with a seq-chunked head (the reference's
+    ``loss_fn``): labels are the tokens shifted left, the last position
+    masked; the (B, S, V) logits never materialise at once, only one
+    (B, loss_chunk, V) chunk of them (fp32).  Returns (loss, {"ce_loss",
+    "aux_loss"})."""
+    x, aux, _ = forward_train(cfg, p, batch, tp)
+    B, S, _ = x.shape
+    vp = cfg.padded_vocab(tp)
+    tok = batch["tokens"].long()
+    labels = F.pad(tok[:, 1:], (0, 1))
+    mask = F.pad(torch.ones((B, S - 1), dtype=torch.float32,
+                            device=x.device), (0, 1))
+    C = min(loss_chunk, S)
+    head_w = p["embed"].T if cfg.tie_embeddings else p["lm_head"]
+    bias = None
+    if vp > cfg.vocab_size:
+        bias = torch.cat([
+            torch.zeros((cfg.vocab_size,), dtype=torch.float32,
+                        device=x.device),
+            torch.full((vp - cfg.vocab_size,), -1e9, dtype=torch.float32,
+                       device=x.device)])
+    nll_sums, m_sums = [], []
+    for c0 in range(0, S - S % C, C):
+        logits = torch.matmul(x[:, c0:c0 + C], head_w).float()
+        if bias is not None:
+            logits = logits + bias
+        lc, mc = labels[:, c0:c0 + C], mask[:, c0:c0 + C]
+        lse = torch.logsumexp(logits, dim=-1)
+        gold = logits.gather(-1, lc[..., None])[..., 0]
+        nll_sums.append(((lse - gold) * mc).sum())
+        m_sums.append(mc.sum())
+    loss = torch.stack(nll_sums).sum() / torch.stack(m_sums).sum().clamp_min(
+        1.0)
+    return loss + aux, {"ce_loss": loss, "aux_loss": aux}
+
+
+def _client_view(leaf: torch.Tensor, rank: int = 4) -> torch.Tensor:
+    """A (K, *shape) client-stacked leaf padded with unit dims after K to
+    ``rank``, so that it broadcasts against x (K, B, S, d): a matrix as
+    (K, 1, d, out) in a batched matmul, a vector as (K, 1, 1, d)."""
+    K, shape = leaf.shape[0], tuple(leaf.shape[1:])
+    return leaf.reshape((K,) + (1,) * (rank - 1 - len(shape)) + shape)
+
+
+def _client_layer(layers, i: int):
+    return {k: (_client_layer(v, i) if isinstance(v, dict)
+                else _client_view(v[:, i]))
+            for k, v in layers.items()}
+
+
+def forward_train_clients(cfg: ModelConfig, p, tokens: torch.Tensor
+                          ) -> torch.Tensor:
+    """K models at once: every leaf of ``p`` carries a leading client
+    axis K (the reference's param tree under ``vmap``); tokens (K, B, S)
+    -> logits (K, B, S, V) fp32.  Attention runs as one (K*B)-batch
+    call."""
+    check_family(cfg)
+    K = tokens.shape[0]
+    rows = torch.arange(K, device=tokens.device)[:, None, None]
+    x = p["embed"][rows, tokens.long()]                      # (K, B, S, d)
+    x = _run_layers(cfg, 1, x, p["layers"], _client_layer)
+    x = rms_norm(x, _client_view(p["final_norm"]), cfg.rms_eps)
+    w = p["embed"].transpose(1, 2) if cfg.tie_embeddings else p["lm_head"]
+    return torch.matmul(x, _client_view(w)).float()
 
 
 # ---------------------------------------------------------------------------

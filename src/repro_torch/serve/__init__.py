@@ -10,9 +10,10 @@ The port of ``repro/serve``:
   * :mod:`repro_torch.serve.spec`    — :class:`ServeSpec`.
 
 Serving a federated checkpoint (``repro/serve/loader.py``) needs the
-federated ``tiny_lm`` training path and the checkpoint module first
-(ROADMAP A11, A12): :func:`load_checkpoint`, :class:`LoadedCheckpoint` and
-:func:`serve_from_checkpoint` raise until then.
+engine's checkpointing first (ROADMAP A12; the federated ``tiny_lm``
+path and the checkpoint module are ported): :func:`load_checkpoint`,
+:class:`LoadedCheckpoint` and :func:`serve_from_checkpoint` raise until
+then.
 """
 from repro_torch.serve.engine import ServeEngine, ServeRequest  # noqa: F401
 from repro_torch.serve.loadgen import (  # noqa: F401
@@ -23,8 +24,8 @@ from repro_torch.serve.loadgen import (  # noqa: F401
 from repro_torch.serve.spec import ServeSpec  # noqa: F401
 
 _UNPORTED = ("serving a federated checkpoint is not ported to the PyTorch "
-             "package yet (ROADMAP A11: the federated tiny_lm path, A12: "
-             "checkpoint/ckpt.py); serve a zoo decoder with "
+             "package yet (ROADMAP A12: the engine's checkpoint and "
+             "resume); serve a zoo decoder with "
              "python -m repro_torch.launch.serve")
 
 

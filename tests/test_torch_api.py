@@ -64,7 +64,6 @@ def test_old_documents_parse_like_the_reference():
 
 
 @pytest.mark.parametrize("path,value,item", [
-    ("data.model", "tiny_lm", "A11"),
     ("faults.churn_rate", 0.1, "A12"),
     ("faults.blackouts", 2, "A12"),
     ("faults.checkpoint_every", 5, "A12"),

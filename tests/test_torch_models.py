@@ -185,7 +185,10 @@ def test_weighted_average_matches_reference():
     dict(task="features", n_clients=4, n_features=16, n_classes=3),
     dict(task="text", n_clients=3, n_features=8),
     dict(task="image", n_clients=4, image_hw=4, partitioner="dirichlet:0.3"),
-    dict(task="image", n_clients=4, image_hw=4, classes_per_client=10)])
+    dict(task="image", n_clients=4, image_hw=4, classes_per_client=10),
+    dict(task="tokens", n_clients=4, vocab_size=20, seq_len=8),
+    dict(task="tokens", n_clients=3, vocab_size=9, seq_len=5,
+         partitioner="dirichlet:0.3")])
 def test_federated_data_bitwise(kwargs):
     jd = jfed.make_federated(samples_per_client=30, seed=3, **kwargs)
     td = tfed.make_federated(samples_per_client=30, seed=3, **kwargs)
@@ -196,10 +199,3 @@ def test_federated_data_bitwise(kwargs):
     for a, b in zip(jd.clients, td.clients):
         assert np.array_equal(a.x_test, b.x_test)
         assert np.array_equal(a.y_test, b.y_test)
-
-
-def test_tokens_kind_names_its_roadmap_item():
-    with pytest.raises(NotImplementedError, match="A11"):
-        tfed.make_federated(task="tokens", n_clients=2)
-    with pytest.raises(NotImplementedError, match="A11"):
-        treg.build_model("tiny_lm", treg.DataDims())

@@ -208,7 +208,8 @@ def test_launch_counts_gather_every_kernel():
     tkernels.reset_launch_counts()
     assert tkernels.launch_counts() == {
         "compress": 0, "decompress": 0, "roundtrip": 0,
-        "flash_attention": 0, "wkv6": 0, "ssd": 0}
+        "flash_attention": 0, "flash_attention_bwd": 0, "wkv6": 0,
+        "ssd": 0}
 
 
 def test_library_counts_only_successful_launches(monkeypatch):

@@ -268,12 +268,12 @@ def test_prototype_server_matches_reference():
 def test_checkpoint_serving_is_not_ported_yet(capsys):
     for fn in (tserve.load_checkpoint, tserve.LoadedCheckpoint,
                tserve.serve_from_checkpoint):
-        with pytest.raises(NotImplementedError, match="A11.*A12"):
+        with pytest.raises(NotImplementedError, match="A12"):
             fn("some/dir")
     with pytest.raises(SystemExit) as e:
         tcli.main(["serve", "--resume-from", "x"])
     msg = str(e.value)
-    assert "A11/A12" in msg and "python -m repro_torch.launch.serve" in msg
+    assert "A12" in msg and "python -m repro_torch.launch.serve" in msg
     # the LM facade is the same object the launcher and engine use
     assert tlaunch.lm is tlm
 
