@@ -83,14 +83,20 @@ only, never JAX or the reference package.  Phases:
     that recycles slots, prefill logits within a relative L2 of 1e-4.
 
 13. Hold the flash attention backward (B2 bwd, the training paths'
-    kernel) against its plain version on the card: phase 6's cases, a
-    GQA hd-128 case and S != T, dO contiguous, strided and misaligned, in
-    fp32 (1e-4 of each gradient's max) and bf16 (2e-2, and within 3 bf16
-    roundings plus 1% of the max of the fp32 gradients), with the
-    forward's log-sum-exp against the plain one.  Time it at the
-    trainer's shape (fp32 and bf16) and the federated LM's beside the
-    plain version, SDPA's backward (the yardstick) and the bound (5
-    products over the visible pairs); log grid, CTAs per SM and waves.
+    kernels: bf16 on wgmma + TMA, fp32 in 3xTF32 on mma.sync) against its
+    plain version on the card: phase 6's cases, a GQA hd-128 case and
+    S != T, dO contiguous, strided and misaligned (bf16 copies it for
+    TMA, counted), in fp32 (1e-4 of each gradient's max) and bf16 (2e-2,
+    and within 3 bf16 roundings plus 1% of the max of the fp32
+    gradients), with the forward's log-sum-exp against the plain one;
+    every call twice, with equal bits.  Check the SASS (HGMMA and UTMALDG
+    in the bf16 kernels, HMMA in the fp32 ones, no other design) and log
+    each kernel's registers and spills.  Time it at the trainer's shape
+    (fp32 and bf16) and the federated LM's, the whole call (eager, and in
+    a CUDA graph) and each of its three kernels alone in a graph, beside
+    the plain version, SDPA's backward (the yardstick) and the bound (5
+    products over the visible pairs; on the tensor cores: 3xTF32 for
+    fp32); log grid, CTAs per SM and waves.
 14. The federated LM on the card: tiny_lm_long through
     ``api.build(spec).run()`` (the reference's _lm_spec scenario: seq 128,
     24 clients, 3 tiers, K=4, quantize8, 16 updates, backend flash),
@@ -1332,8 +1338,9 @@ def ssd_inputs(torch, g, B, S, H, P, N, dtype):
 def _bound(nbytes, flops, dtype):
     """The bound at the card's rate for ``dtype`` outside the tensor cores
     (fp32) or on them (bf16), and beside it ``tc_bound_ms``, the products
-    on the tensor cores as the scan kernels run them: 3xTF32 (3x the
-    operations at the TF32 rate) for fp32, the bf16 rate for bf16."""
+    on the tensor cores as the scan kernels and the flash backward run
+    them: 3xTF32 (3x the operations at the TF32 rate) for fp32, the bf16
+    rate for bf16."""
     peak = FP32_OPS_PER_S if dtype == "float32" else BF16_OPS_PER_S
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / peak * 1e3
     t_tc = (3 * flops / TF32_OPS_PER_S if dtype == "float32"
@@ -1898,17 +1905,16 @@ BWD_SHAPES = {
 def attention_bwd_bound(B, S, T, H, KV, hd, causal, window, dtype):
     """Least time for one backward: q, k, v, o, dO and lse read once, dq,
     dk, dv written once, and the 5 products of the recompute backward
-    (S, dP, dV, dK, dQ: 2.5x the forward's 2) over the visible pairs."""
+    (S, dP, dV, dK, dQ: 2.5x the forward's 2) over the visible pairs: fp32
+    at the FFMA rate, bf16 at the bf16 tensor-core rate; beside it
+    ``tc_bound_ms``, the products as the kernels run them on the tensor
+    cores: 3xTF32 for fp32 (3x the operations at the TF32 rate), bf16 as
+    ``bound_ms``."""
     size = 4 if dtype == "float32" else 2
     nbytes = (size * (4 * B * S * H * hd + 4 * B * T * KV * hd)
               + 4 * B * H * S)
     flops = 10 * B * H * visible_pairs(S, T, causal, window) * hd
-    peak = FP32_OPS_PER_S if dtype == "float32" else BF16_OPS_PER_S
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / peak * 1e3
-    return {"bound_ms": max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "bytes": nbytes, "flops": flops}
+    return _bound(nbytes, flops, dtype)
 
 
 def _grad_errs(got, want):
@@ -1917,17 +1923,85 @@ def _grad_errs(got, want):
             for a, b in zip(got, want)]
 
 
-def check_flash_bwd(torch, fa, ref):
+def ptxas_usage(build_log: str) -> dict:
+    """{kernel symbol: {"registers", "spill_stores", "spill_loads"}} from
+    the ``-Xptxas -v`` log of a build (empty when the build was reused)."""
+    out, fn = {}, None
+    for line in build_log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            fn = m[1]
+            out[fn] = {}
+            continue
+        if fn is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            out[fn].update(spill_stores=int(m[1]), spill_loads=int(m[2]))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            out[fn]["registers"] = int(m[1])
+    return out
+
+
+def _short(fn: str) -> str:
+    """A backward kernel's symbol as name<D>, or name<type> for D's."""
+    m = re.search(r"(flash_bwd_\w+?_kernel)I(?:Li(\d+)E|(\w+?)E)", fn)
+    if not m:
+        return fn
+    return f"{m[1]}<{m[2] or ('f32' if m[3] == 'f' else 'bf16')}>"
+
+
+def check_bwd_build(lib_path: str, build_log: str) -> dict:
+    """The backward's SASS and ptxas report: HGMMA and UTMALDG in each bf16
+    (wgmma) dK/dV and dQ kernel, HMMA and no HGMMA in each fp32 (mma.sync)
+    one, no other kernel than these and D's; setmaxnreg honoured.
+    Returns {short name: {opcode counts, registers, spills}}."""
+    sass = sass_counts(lib_path)
+    usage = ptxas_usage(build_log)
+    check("setmaxnreg ignored" not in build_log,
+          "ptxas ignored setmaxnreg in the backward's wgmma kernels")
+    out = {}
+    for fn, c in sass.items():
+        name = _short(fn)
+        kind = re.sub(r"<.*", "", name)
+        check(kind in ("flash_bwd_delta_kernel",
+                       "flash_bwd_dkdv_wgmma_kernel",
+                       "flash_bwd_dq_wgmma_kernel",
+                       "flash_bwd_dkdv_mma_kernel", "flash_bwd_dq_mma_kernel"),
+              f"unexpected kernel in flash_attention_bwd: {fn}")
+        if "wgmma" in kind:
+            check(c["HGMMA"] > 0 and c["UTMALDG"] > 0,
+                  f"{name} lacks wgmma or TMA instructions: {c}")
+        elif "mma" in kind:
+            check(c["HMMA"] > 0 and c["HGMMA"] == 0,
+                  f"{name} is not an mma.sync design: {c}")
+        out[name] = dict(c, **usage.get(fn, {}))
+    check(len(out) == 2 + 2 * 2 + 2 * 5,
+          f"flash_attention_bwd kernels: {sorted(out)}")
+    for name, c in sorted(out.items()):
+        log(f"phase 13: {name}: {c['HGMMA']} HGMMA, {c['UTMALDG']} UTMALDG, "
+            f"{c['HMMA']} HMMA; " + (
+                f"{c['registers']} registers, spills {c['spill_stores']} / "
+                f"{c['spill_loads']} bytes stored / loaded"
+                if "registers" in c else "ptxas report not available"))
+    return out
+
+
+def check_flash_bwd(torch, fa, ref, lib_path, build_log):
     """The forward's lse and the backward kernels against the plain
     versions on every case, in fp32 and bf16, with dO taken contiguous,
-    strided (a slice of a wider tensor) and misaligned for 16-byte loads;
-    then times at the training shapes."""
+    strided (a slice of a wider tensor) and misaligned for 16-byte loads
+    (bf16: copied for TMA, counted), twice with equal bits; then times at
+    the training shapes, the whole call and each of its three kernels."""
+    out = {"kernels": check_bwd_build(lib_path, build_log)}
     g = torch.Generator(device="cuda").manual_seed(13)
-    out = {}
     for dtype in ("float32", "bfloat16"):
         dt = getattr(torch, dtype)
         worst, worst_abs, worst_lse, worst_round = 0.0, 0.0, 0.0, 0.0
         n = 0
+        fa.reset_layout_copy_counts()
         for (S, T, H, KV, hd, causal, window) in BWD_CASES:
             q, k, v = attn_inputs(torch, g, 2, S, T, H, KV, hd, dtype)
             o, lse = fa.flash_attention(q, k, v, causal=causal,
@@ -1949,7 +2023,13 @@ def check_flash_bwd(torch, fa, ref):
                 got = fa.flash_attention_backward(q, k, v, o, lse, do,
                                                   causal=causal,
                                                   window=window)
+                again = fa.flash_attention_backward(q, k, v, o, lse, do,
+                                                    causal=causal,
+                                                    window=window)
                 torch.cuda.synchronize()
+                check(all(torch.equal(a, b) for a, b in zip(got, again)),
+                      f"bwd {dtype} {(S, T, H, KV, hd)} {dname}: two calls "
+                      f"gave different bits")
                 want = ref.blocked_attention_backward(
                     q, k, v, o, lse, do, causal=causal, window=window)
                 for a, b in zip(got, want):
@@ -1982,16 +2062,23 @@ def check_flash_bwd(torch, fa, ref):
                     check(worst_round <= BWD_BF16_ROUNDINGS,
                           f"bwd bf16 {(S, T, H, KV, hd)}: {worst_round} "
                           f"bf16 roundings from the fp32 gradients")
+        # bf16 copies the misaligned dO of each case (twice) for TMA
+        copies = fa.layout_copy_counts()["flash_attention_bwd_dout"]
+        want_copies = 2 * len(BWD_CASES) if dtype == "bfloat16" else 0
+        check(copies == want_copies,
+              f"bwd {dtype}: {copies} dO layout copies, expected "
+              f"{want_copies}")
         out[dtype] = {"max_rel_err": worst, "max_abs_err": worst_abs,
                       "cases": len(BWD_CASES), "comparisons": n,
-                      "lse_max_abs_err": worst_lse}
+                      "lse_max_abs_err": worst_lse, "dout_copies": copies}
         if dtype == "bfloat16":
             out[dtype]["roundings_from_fp32"] = worst_round
         log(f"phase 13: flash backward {dtype}: {n} comparisons on "
-            f"{len(BWD_CASES)} shapes (dO contiguous, strided, misaligned) "
-            f"within {BWD_TOL[dtype]} of each gradient's max (worst "
-            f"{worst:.3g}, max abs err {worst_abs:.3g}); lse max abs err "
-            f"{worst_lse:.3g}"
+            f"{len(BWD_CASES)} shapes (dO contiguous, strided, misaligned; "
+            f"{copies} dO copies for TMA) within {BWD_TOL[dtype]} of each "
+            f"gradient's max (worst {worst:.3g}, max abs err "
+            f"{worst_abs:.3g}), every call twice with equal bits; lse max "
+            f"abs err {worst_lse:.3g}"
             + (f"; bf16 within {worst_round:.3g} roundings (+1% of max) "
                f"of the fp32 gradients" if dtype == "bfloat16" else ""))
     sms = torch.cuda.get_device_properties(0).multi_processor_count
@@ -2011,21 +2098,28 @@ def check_flash_bwd(torch, fa, ref):
             gd = "; ".join(f"{w} grid {v['grid']}, {v['ctas_per_sm']} "
                            f"CTA/SM, {v['waves']:.2f} waves"
                            for w, v in res["grid"].items())
+            pt = ", ".join(f"{k} {t:.4f}" for k, t in res["parts_ms"].items())
             log(f"phase 13: flash backward {dtype} {name} B={P['B']} "
                 f"S=T={P['S']} H={P['H']} KV={P['KV']} hd={P['hd']} causal: "
-                f"kernel {res['ms']:.4f} ms (runs {res['ms_runs']}), plain "
-                f"{res['plain_ms']:.4f} ms, SDPA backward "
+                f"kernel {res['ms']:.4f} ms (runs {res['ms_runs']}; in a "
+                f"CUDA graph {res['graph_ms']:.4f} ms, each kernel alone: "
+                f"{pt} ms), plain {res['plain_ms']:.4f} ms, SDPA backward "
                 + (f"{res['library_ms']:.4f} ms" if res["library_ms"]
                    is not None else f"n/a ({res['library_note']})")
                 + f", bound {res['bound_ms']:.4f} ms ({res['bound_by']}; "
-                f"{100 * res['bound_ms'] / res['ms']:.1f}% of it); {gd}")
+                f"{100 * res['bound_ms'] / res['ms']:.1f}% of it), on the "
+                f"tensor cores {res['tc_bound_ms']:.4f} ms "
+                f"({100 * res['tc_bound_ms'] / res['ms']:.1f}%); "
+                f"{res['flops'] / res['ms'] / 1e9:.1f} TFLOP/s of the 5 "
+                f"products; {gd}")
     return out
 
 
 def time_flash_bwd(torch, fa, ref, g, P, dtype):
-    """Backward kernel, plain version and SDPA's backward (the yardstick,
-    timed here only and never called by the port) at one shape, beside
-    the bound."""
+    """Backward kernels (the whole call, twice with equal bits; then in a
+    CUDA graph, and each of its three kernels alone in one), plain version
+    and SDPA's backward (the yardstick, timed here only and never called
+    by the port) at one shape, beside the bound."""
     B, S, H, KV, hd = P["B"], P["S"], P["H"], P["KV"], P["hd"]
     q, k, v = attn_inputs(torch, g, B, S, S, H, KV, hd, dtype)
     do = torch.randn(B, S, H, hd, device="cuda",
@@ -2035,6 +2129,15 @@ def time_flash_bwd(torch, fa, ref, g, P, dtype):
         q, k, v, o, lse, do, causal=True)
     plain = lambda: ref.blocked_attention_backward(  # noqa: E731
         q, k, v, o, lse, do, causal=True)
+    first, second = kern(), kern()
+    torch.cuda.synchronize()
+    check(all(torch.equal(a, b) for a, b in zip(first, second)),
+          f"bwd {dtype} {P}: two calls gave different bits")
+    want = plain()
+    errs = _grad_errs(first, want)
+    check(max(errs) <= BWD_TOL[dtype],
+          f"bwd {dtype} {P}: rel errs {errs} > {BWD_TOL[dtype]}")
+    del first, second, want
     note, library = None, None
     try:
         qs, ks, vs = (x.transpose(1, 2).detach().requires_grad_(True)
@@ -2054,11 +2157,20 @@ def time_flash_bwd(torch, fa, ref, g, P, dtype):
     p1 = event_time_ms(torch, plain, 1 if S >= 4096 else 3)
     k1 = event_time_ms(torch, kern, iters)
     l1 = event_time_ms(torch, library, iters) if library else None
+    # device time without the host's launch cost: the whole call and each
+    # kernel alone in CUDA graphs
+    graph = graph_time_ms(torch, kern, iters)
+    parts = {part: graph_time_ms(torch, lambda part=part:
+                                 fa.flash_attention_backward(
+                                     q, k, v, o, lse, do, causal=True,
+                                     only=part), iters)
+             for part in fa.BWD_KERNELS}
     k2 = event_time_ms(torch, kern, iters)
     p2 = event_time_ms(torch, plain, 1 if S >= 4096 else 3)
     b = attention_bwd_bound(B, S, S, H, KV, hd, True, None, dtype)
-    return dict(b, ms=min(k1, k2), ms_runs=[k1, k2], plain_ms=min(p1, p2),
-                plain_ms_runs=[p1, p2], library_ms=l1, library_note=note)
+    return dict(b, ms=min(k1, k2), ms_runs=[k1, k2], graph_ms=graph,
+                parts_ms=parts, plain_ms=min(p1, p2), plain_ms_runs=[p1, p2],
+                library_ms=l1, library_note=note, rel_errs=errs)
 
 
 # ---------------------------------------------------------------------------
@@ -2473,7 +2585,9 @@ def main() -> None:
                                             serve, serve_launch)
 
     # phase 13
-    flash_bwd = check_flash_bwd(torch, fa, ref)
+    flash_bwd = check_flash_bwd(torch, fa, ref,
+                                built["flash_attention_bwd"]["path"],
+                                str(built["flash_attention_bwd"]["log"]))
     torch.cuda.empty_cache()
     # phase 14: the federated LM, counts from 0
     fedlm = run_federated_lm(torch, api, kernels)
@@ -2551,14 +2665,18 @@ def main() -> None:
         "ms": t32["ms"], "plain_ms": t32["plain_ms"],
         "bound_ms": t32["bound_ms"], "bound_by": t32["bound_by"],
         "library_ms": t32["library_ms"], "grid": t32["grid"],
+        "tc_bound_ms": t32["tc_bound_ms"], "graph_ms": t32["graph_ms"],
+        "parts_ms": t32["parts_ms"],
         "bf16_ms": t16["ms"], "bf16_plain_ms": t16["plain_ms"],
         "bf16_bound_ms": t16["bound_ms"],
         "bf16_library_ms": t16["library_ms"],
+        "bf16_graph_ms": t16["graph_ms"], "bf16_parts_ms": t16["parts_ms"],
         "bf16_max_rel_err": flash_bwd["bfloat16"]["max_rel_err"],
         "fedlm_launches": fedlm["launches"]["flash_attention_bwd"],
         "fedlm_ms": fl["ms"], "fedlm_plain_ms": fl["plain_ms"],
         "fedlm_bound_ms": fl["bound_ms"], "fedlm_bound_by": fl["bound_by"],
-        "fedlm_library_ms": fl["library_ms"]})
+        "fedlm_library_ms": fl["library_ms"],
+        "fedlm_graph_ms": fl["graph_ms"], "fedlm_parts_ms": fl["parts_ms"]})
     for name, src, line, arch, res in (
             ("wkv6", "wkv6.cu", "rwkv6_scan.py:68", "rwkv6-3b", wkv),
             ("ssd", "ssd.cu", "ssd.py:64", "zamba2-2.7b", ssd)):

@@ -43,8 +43,9 @@
 // 4-byte cp.async instead.
 //
 // bf16: the tensor cores (flash_fwd_wgmma_kernel), FlashAttention-3's
-// shape at its simplest.  One CTA of 2 consumer warpgroups and a producer
-// warp per (batch*head, 128-row query tile).  The producer issues TMA
+// shape at its simplest (the TMA and wgmma wrappers: wgmma_tma.cuh).
+// One CTA of 2 consumer warpgroups and a producer warp per (batch*head,
+// 128-row query tile).  The producer issues TMA
 // loads (4-D tensor maps over (hd, heads, seq, batch) with 128-byte
 // swizzle, built on the host) of the Q tile once and of 64-key K/V tiles
 // into a 3-stage ring guarded by full/empty mbarriers; each consumer
@@ -85,6 +86,8 @@
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "wgmma_tma.cuh"
 
 namespace {
 
@@ -129,15 +132,13 @@ __device__ __forceinline__ bool tile_masked(const Params& p, int q0, int rows,
          (p.window > 0 && q0 + rows - 1 - k0 >= p.window);
 }
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
 // ---------------------------------------------------------------------------
 // fp32: register-tiled FFMA
 // ---------------------------------------------------------------------------
 
 namespace ffma {
+
+using sm90::smem_u32;
 
 constexpr int kBK = 64;        // key rows per K/V tile
 constexpr int kThreads = 256;  // 16 x 16: ty picks 8 rows, tx the columns
@@ -439,11 +440,12 @@ cudaError_t dispatch(const Params& p, cudaStream_t stream) {
 
 namespace tc {
 
+using namespace sm90;
+
 constexpr int kBK = 64;          // key rows per K/V tile
 constexpr int kStages = 3;       // K/V ring
 constexpr int kConsumers = 256;  // 2 consumer warpgroups
 constexpr int kThreads = kConsumers + 32;  // and a producer warp
-constexpr int kBox = 64;         // bf16 columns per 128-byte swizzled box
 
 template <int D>
 struct Layout {
@@ -459,170 +461,6 @@ struct Layout {
   // base to the 1024-byte swizzle atom: 163 KiB at D = 128
   static constexpr int kBytes = kBar + (1 + 2 * kStages) * 8 + 1024;
 };
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
-               "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile(
-      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
-      "r"(bytes)
-      : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
-               : "memory");
-}
-
-__device__ __forceinline__ bool mbar_try_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done;
-  asm volatile(
-      "{\n.reg .pred P1;\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 P1, [%1], %2;\n"
-      "selp.b32 %0, 1, 0, P1;\n}\n"
-      : "=r"(done)
-      : "r"(bar), "r"(parity)
-      : "memory");
-  return done != 0;
-}
-
-__device__ __forceinline__ uint64_t global_ns() {
-  uint64_t t;
-  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
-  return t;
-}
-
-// Wait until the phase of the given parity has completed.  A phase that
-// does not complete within 10 s is a bug: trap (a launch error) rather
-// than hang the card.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  if (mbar_try_wait(bar, parity)) return;
-  const uint64_t t0 = global_ns();
-  while (!mbar_try_wait(bar, parity))
-    if (global_ns() - t0 > 10000000000ull) __trap();
-}
-
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
-                                         uint32_t bar, int c0, int c1, int c2,
-                                         int c3) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
-      "r"(c2), "r"(c3)
-      : "memory");
-}
-
-// Shared-memory matrix descriptor of a 128-byte-swizzled operand: lbo and
-// sbo in bytes (for K-major operands lbo is unused).
-__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo,
-                                               uint32_t sbo) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
-         (static_cast<uint64_t>(lbo >> 4) << 16) |
-         (static_cast<uint64_t>(sbo >> 4) << 32) | (1ull << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-// Wait until at most N committed groups of wgmma are still running.
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-// Pins accumulator registers at this point of the program for the
-// compiler (wgmma writes them asynchronously).
-template <int N>
-__device__ __forceinline__ void fence_regs(float (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
-}
-template <int N>
-__device__ __forceinline__ void fence_regs(uint32_t (&r)[N][4]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(r[i][j])::"memory");
-}
-
-#define ACC8(i)                                                         \
-  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]),           \
-      "+f"(d[i + 4]), "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
-#define ACC32 ACC8(0), ACC8(8), ACC8(16), ACC8(24)
-#define ACC64 ACC32, ACC8(32), ACC8(40), ACC8(48), ACC8(56)
-#define REGS32                                                          \
-  "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "   \
-  "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "   \
-  "%28, %29, %30, %31"
-#define REGS64                                                          \
-  REGS32 ", %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, "    \
-         "%43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, " \
-         "%55, %56, %57, %58, %59, %60, %61, %62, %63"
-
-// d (+)= A B, A and B K-major in shared memory (64 x 16 and 64 x 16);
-// scale_d = 0 overwrites d.
-__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t a,
-                                         uint64_t b, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {" REGS32
-      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
-      : ACC32
-      : "l"(a), "l"(b), "r"(scale_d));
-}
-
-// d += A B, A (64 x 16) in registers, B (16 x N) MN-major in shared
-// memory (the transpose bit).
-__device__ __forceinline__ void wgmma_rs(float (&d)[32],
-                                         const uint32_t (&a)[4], uint64_t b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {" REGS32
-      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : ACC32
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
-}
-__device__ __forceinline__ void wgmma_rs(float (&d)[64],
-                                         const uint32_t (&a)[4], uint64_t b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {" REGS64
-      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-      : ACC64
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
-}
-
-#undef ACC8
-#undef ACC32
-#undef ACC64
-#undef REGS32
-#undef REGS64
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// S = Q K^T of one warpgroup's 64 rows: D / 16 steps of m64nBKk16, both
-// operands K-major in 128-byte-swizzled boxes of 64 columns.
-template <int D>
-__device__ __forceinline__ void qk_product(float (&s)[kBK / 2], uint32_t q_rows,
-                                           uint32_t k_tile) {
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-    const uint32_t col = (kk % 4) * 32;  // 16 columns into a box
-    wgmma_ss(s, sw128_desc(q_rows + (kk / 4) * kBQ * 128 + col, 16, 1024),
-             sw128_desc(k_tile + (kk / 4) * kBK * 128 + col, 16, 1024),
-             kk > 0);
-  }
-}
 
 // O += (hi + lo) V: per 16 keys, two m64nDk16 steps with P from registers
 // and V MN-major (its boxes of 64 head-dim columns lie kBK * 128 bytes
@@ -645,15 +483,6 @@ __device__ __forceinline__ void pv_product(float (&o)[D / 2],
 // exp2(fma(kMasked, c, -kMasked c)) = 1 exactly, as the reference's
 // exp(-1e30 - -1e30) does; any visible key then takes its weight to 0.
 constexpr float kMasked = -0x1p100f;
-
-// 2^x on the special function unit: relative error near 2^-22, results
-// below 2^-126 flushed to 0 (a probability that small is 0 beside the
-// row's largest, which is 1).
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
 
 // The online softmax of one tile in this thread's rows rA and rA + 8:
 // masks the logits in s, turns them into probabilities p = 2^(c s - m)
@@ -824,7 +653,7 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
       int st = lo % kStages;
       mbar_wait(bar_full + 8 * st, (lo / kStages) & 1);
       wgmma_fence();
-      qk_product<D>(s, q_rows, sK + st * L::kKVBytes);
+      wgmma_abt<D, kBQ, kBK>(s, q_rows, sK + st * L::kKVBytes);
       wgmma_commit();
       wgmma_wait<0>();
       fence_regs(s);
@@ -838,7 +667,7 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
         st = it % kStages;
         mbar_wait(bar_full + 8 * st, (it / kStages) & 1);
         wgmma_fence();
-        qk_product<D>(s, q_rows, sK + st * L::kKVBytes);
+        wgmma_abt<D, kBQ, kBK>(s, q_rows, sK + st * L::kKVBytes);
         wgmma_commit();
         pv_product<D>(o, phi, plo, sV + prev * L::kKVBytes);
         wgmma_commit();
@@ -921,64 +750,6 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
   }
 }
 
-// cuTensorMapEncodeTiled through the runtime's driver entry point, so the
-// library needs no -lcuda.
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                void*, const cuuint64_t*, const cuuint64_t*,
-                                const cuuint32_t*, const cuuint32_t*,
-                                CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion,
-                                CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* ptr = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &ptr, 12000, cudaEnableDefault, &found);
-#else
-    const cudaError_t err = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &found);
-#endif
-    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(ptr);
-  }
-  return fn;
-}
-
-// A 4-D map over (hd, heads, seq, batch) of a bf16 tensor with element
-// strides s_h, s_s, s_b, read as boxes of (64, 1, rows, 1): 64 columns
-// (128 bytes, swizzled) of `rows` sequence positions, zero-filled out of
-// bounds.  The stride of a dimension of size 1 is never used; it is
-// replaced by a valid one.
-bool make_map(CUtensorMap* map, const void* ptr, int hd, int heads, int seq,
-              int batch, long long s_h, long long s_s, long long s_b,
-              int rows) {
-  const EncodeTiled fn = encode_tiled();
-  if (fn == nullptr) return false;
-  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(hd),
-                              static_cast<cuuint64_t>(heads),
-                              static_cast<cuuint64_t>(seq),
-                              static_cast<cuuint64_t>(batch)};
-  const long long given[3] = {s_h, s_s, s_b};
-  cuuint64_t strides[3];
-  unsigned long long prev = (static_cast<unsigned long long>(hd) * 2 + 15) &
-                            ~15ull;  // bytes of the previous dimension
-  for (int i = 0; i < 3; ++i) {
-    strides[i] = dims[i + 1] == 1 ? prev
-                                  : static_cast<cuuint64_t>(given[i]) * 2;
-    prev = strides[i] * dims[i + 1];
-  }
-  const cuuint32_t box[4] = {kBox, 1, static_cast<cuuint32_t>(rows), 1};
-  const cuuint32_t estride[4] = {1, 1, 1, 1};
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr),
-            dims, strides, box, estride, CU_TENSOR_MAP_INTERLEAVE_NONE,
-            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
 template <int D>
 cudaError_t launch(const Params& p, cudaStream_t stream) {
   CUtensorMap qm, km, vm;
@@ -996,15 +767,6 @@ cudaError_t launch(const Params& p, cudaStream_t stream) {
   const dim3 grid(p.B * p.H, (p.S + kBQ - 1) / kBQ);
   flash_fwd_wgmma_kernel<D><<<grid, kThreads, bytes, stream>>>(qm, km, vm, p);
   return cudaGetLastError();
-}
-
-// TMA's rules: a 16-byte-aligned base and strides that are multiples of
-// 16 bytes (8 bf16) in every dimension of more than one element.
-bool tma_ok(const void* ptr, long long s0, int n0, long long s1, int n1,
-            long long s2, int n2) {
-  return reinterpret_cast<uintptr_t>(ptr) % 16 == 0 &&
-         (n0 == 1 || s0 % 8 == 0) && (n1 == 1 || s1 % 8 == 0) &&
-         (n2 == 1 || s2 % 8 == 0);
 }
 
 cudaError_t dispatch(const Params& p, cudaStream_t stream) {

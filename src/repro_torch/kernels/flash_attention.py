@@ -24,8 +24,11 @@ kernel.  Its forward asks the kernel for each row's log-sum-exp as well
 (:func:`flash_attention` with ``return_lse``); its backward is the
 hand-written backward kernel (csrc/flash_attention_bwd.cu, wrapped by
 :func:`flash_attention_backward`), which recomputes P from q, k and the
-log-sum-exp.  The JAX package has no backward kernel (off the TPU it
-differentiates ``repro/kernels/ops.py`` ``blocked_attention``).
+log-sum-exp: bf16 on the tensor cores (wgmma, fed by TMA; a bf16 dO that
+TMA cannot read is copied first, counted by :func:`layout_copy_counts`),
+fp32 in 3xTF32 on ``mma.sync``.  The JAX package has no backward kernel
+(off the TPU it differentiates ``repro/kernels/ops.py``
+``blocked_attention``).
 
 A tensor on the CPU takes the plain versions (kernels/ref.py
 ``blocked_attention`` and ``blocked_attention_backward``); a CUDA tensor
@@ -57,13 +60,32 @@ _LIB = kbuild.Library(
 _BWD = kbuild.Library(
     "flash_attention_bwd", "flash_attention_bwd_error_string",
     {"flash_attention_bwd": [_vp] * 10 + [_ci] * 7 + [_ll] * 12
-     + [_ci, _ci, ctypes.c_float, _vp],
+     + [_ci, _ci, ctypes.c_float, _ci, _vp],
      "flash_attention_bwd_ctas_per_sm": [_ci, _ci, _ci]},
     kernels=("flash_attention_bwd",))
 launch_counts = _LIB.launch_counts
 reset_launch_counts = _LIB.reset_launch_counts
-#: query rows and keys per tile of the backward kernels
-BWD_TILE = 64
+#: rows a CTA of the backward's dK/dV and dQ kernels owns: keys of one KV
+#: head (its two halves split the products), query rows of one head (one
+#: 16- or 64-row block per warp or warpgroup); both stream 64-row tiles
+BWD_TILES = {"dkdv": 64, "dq": 128}
+#: the backward's kernels, as ``flash_attention_backward(only=...)`` names
+#: them, and the bit of each in the C entry point's ``which``
+BWD_KERNELS = {"delta": 1, "dkdv": 2, "dq": 4}
+_BWD_ALL = 7
+#: dO tensors the backward copied into a TMA-readable layout (bf16 only)
+_COPIES = {"flash_attention_bwd_dout": 0}
+
+
+def layout_copy_counts():
+    """Operands the kernels' wrappers copied into a layout the kernel can
+    read since the last reset (a layout step, not a launch)."""
+    return dict(_COPIES)
+
+
+def reset_layout_copy_counts() -> None:
+    for k in _COPIES:
+        _COPIES[k] = 0
 
 
 def bwd_ctas_per_sm(dtype: torch.dtype, hd: int, which: str) -> int:
@@ -75,9 +97,11 @@ def bwd_ctas_per_sm(dtype: torch.dtype, hd: int, which: str) -> int:
 
 
 def bwd_grids(B: int, S: int, T: int, H: int, KV: int):
-    """The launch grids of the backward's dK/dV and dQ kernels."""
-    return {"dkdv": (B * KV, -(-T // BWD_TILE)),
-            "dq": (B * H, -(-S // BWD_TILE))}
+    """The launch grids of the backward's dK/dV and dQ kernels (both
+    dtypes): one CTA per (batch, KV head, 64 keys) and per (batch, head,
+    128 query rows)."""
+    return {"dkdv": (B * KV, -(-T // BWD_TILES["dkdv"])),
+            "dq": (B * H, -(-S // BWD_TILES["dq"]))}
 
 
 def _check_operands(q, k, v) -> None:
@@ -103,6 +127,31 @@ def _check_operands(q, k, v) -> None:
     if min(B, S, T, H) < 1:
         raise ValueError(f"flash_attention: empty operands {tuple(q.shape)}, "
                          f"{tuple(k.shape)}")
+
+
+def tma_readable(x: torch.Tensor) -> bool:
+    """Whether TMA can load tiles of the (B, S, heads, hd) tensor ``x``: a
+    16-byte-aligned data pointer, unit stride in the last dim, and strides
+    that are multiples of 8 elements (16 bf16 bytes) in the batch,
+    sequence and head dims (a dim of size 1 is never stepped)."""
+    return (x.data_ptr() % 16 == 0 and x.stride(-1) == 1
+            and all(x.shape[d] == 1 or x.stride(d) % 8 == 0
+                    for d in range(3)))
+
+
+def dout_for_kernel(dout: torch.Tensor) -> torch.Tensor:
+    """The backward's dO as its kernels read it: a bf16 ``dout`` that TMA
+    cannot read (:func:`tma_readable`) is copied into rows padded to a
+    multiple of 8 elements, and the copy counted in
+    :func:`layout_copy_counts`; any other is returned as it is."""
+    if dout.dtype != torch.bfloat16 or tma_readable(dout):
+        return dout
+    hd = dout.shape[-1]
+    buf = torch.empty(*dout.shape[:-1], -(-hd // 8) * 8, dtype=dout.dtype,
+                      device=dout.device)[..., :hd]
+    buf.copy_(dout)
+    _COPIES["flash_attention_bwd_dout"] += 1
+    return buf
 
 
 def check_cuda_operands(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -175,11 +224,19 @@ def flash_attention_backward(q: torch.Tensor, k: torch.Tensor,
                              v: torch.Tensor, out: torch.Tensor,
                              lse: torch.Tensor, dout: torch.Tensor,
                              causal: bool = True,
-                             window: Optional[int] = None):
+                             window: Optional[int] = None, *,
+                             only: Optional[str] = None):
     """(dq, dk, dv) of :func:`flash_attention` from its output ``out``
     (contiguous (B, S, H, hd)), its ``lse`` ((B, H, S) float32) and the
     output's gradient ``dout`` (any strides whose last one is 1), in the
-    dtypes and shapes of q, k, v (new contiguous tensors)."""
+    dtypes and shapes of q, k, v (new contiguous tensors).
+
+    A bf16 ``dout`` that TMA cannot read (:func:`tma_readable`) is copied
+    into one it can first, counted in :func:`layout_copy_counts`.
+    ``only`` (CUDA only; one of :data:`BWD_KERNELS`) launches just that one
+    of the three kernels, to time the parts of a call: it counts no
+    launch, the outputs it does not write come back uninitialised, and
+    "dkdv" and "dq" read D (of no call: a scratch) as they find it."""
     _check_operands(q, k, v)
     B, S, H, hd = q.shape
     T, KV = k.shape[1], k.shape[2]
@@ -191,13 +248,20 @@ def flash_attention_backward(q: torch.Tensor, k: torch.Tensor,
             f"dout {tuple(dout.shape)} {dout.dtype} and lse "
             f"{tuple(lse.shape)} {lse.dtype} must be q's shape and dtype "
             f"and (B, H, S) float32 for q {tuple(q.shape)} {q.dtype}")
+    if only is not None and (only not in BWD_KERNELS
+                             or q.device.type != "cuda"):
+        raise ValueError(f"flash_attention_backward: only must be one of "
+                         f"{sorted(BWD_KERNELS)}, on CUDA tensors; got "
+                         f"{only!r} on {q.device}")
     if q.device.type == "cpu":
         return ref.blocked_attention_backward(q, k, v, out, lse, dout,
                                               causal=causal, window=window)
     check_cuda_operands(q, k, v, window)   # what the forward took
-    if -(-max(S, T) // BWD_TILE) > 65535:
-        raise ValueError(f"flash_attention_backward supports S, T <= "
-                         f"{65535 * BWD_TILE}, got {S}, {T}")
+    if (-(-S // BWD_TILES["dq"]) > 65535
+            or -(-T // BWD_TILES["dkdv"]) > 65535):
+        raise ValueError(f"flash_attention_backward supports S <= "
+                         f"{65535 * BWD_TILES['dq']} and T <= "
+                         f"{65535 * BWD_TILES['dkdv']}, got {S}, {T}")
     if (dout.stride(-1) != 1 or not out.is_contiguous()
             or not lse.is_contiguous()):
         raise ValueError("flash_attention_backward: the last dim of dout "
@@ -206,12 +270,15 @@ def flash_attention_backward(q: torch.Tensor, k: torch.Tensor,
     if not all(x.device == q.device for x in (out, lse, dout)):
         raise ValueError("flash_attention_backward: all operands must be on "
                          f"{q.device}")
+    dout = dout_for_kernel(dout)
     dq = torch.empty((B, S, H, hd), dtype=q.dtype, device=q.device)
     dk = torch.empty((B, T, KV, hd), dtype=q.dtype, device=q.device)
     dv = torch.empty_like(dk)
     delta = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
+    call = (_BWD.launch if only is None else
+            lambda _kernel, fn, *a: _BWD.call(fn, *a))
     with torch.cuda.device(q.device):
-        _BWD.launch(
+        call(
             "flash_attention_bwd", "flash_attention_bwd",
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             dout.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
@@ -222,6 +289,7 @@ def flash_attention_backward(q: torch.Tensor, k: torch.Tensor,
             v.stride(0), v.stride(1), v.stride(2),
             dout.stride(0), dout.stride(1), dout.stride(2),
             int(causal), int(window or 0), 1.0 / (hd ** 0.5),
+            _BWD_ALL if only is None else BWD_KERNELS[only],
             torch.cuda.current_stream().cuda_stream)
     return dq, dk, dv
 

@@ -36,6 +36,7 @@ from repro_torch.kernels import ops as tops
 from repro_torch.kernels import ref as tref
 from repro_torch.kernels import rwkv6_scan as twkv
 from repro_torch.kernels import ssd as tssd
+from _tf32 import mma
 
 torch.set_num_threads(1)
 
@@ -429,28 +430,6 @@ def test_bf16_wkv_is_one_rounding_from_fp32_not_within_the_sweep_bound(seed):
     assert float(((y - want32).abs() / bound).max()) <= 1.0
 
 
-def _tf32(x, mode):
-    """float32 ``x`` cut to TF32's 10 mantissa bits: "rna" rounds to
-    nearest, ties away (the kernels' hi), "trunc" drops the bits (what the
-    tensor cores do with the bits of an operand past TF32's)."""
-    b = np.asarray(x, np.float32).view(np.uint32)
-    if mode == "rna":
-        b = b + np.uint32(0x1000)
-    return (b & np.uint32(0xFFFFE000)).view(np.float32)
-
-
-def _mma(a, b, split):
-    """a @ b as the tensor cores take it in f32 accumulation: "tf32" one
-    product of TF32 operands; "3xtf32" the kernels' split, hi = tf32(x),
-    lo = x - hi (read truncated), lo_a hi_b + hi_a lo_b + hi_a hi_b."""
-    if split == "tf32":
-        return _tf32(a, "rna").astype(np.float64) @ _tf32(b, "rna")
-    ah, bh = _tf32(a, "rna"), _tf32(b, "rna")
-    al, bl = _tf32(a - ah, "trunc"), _tf32(b - bh, "trunc")
-    f = lambda x: x.astype(np.float64)  # noqa: E731
-    return f(al) @ f(bh) + f(ah) @ f(bl) + f(ah) @ f(bh)
-
-
 @pytest.mark.parametrize("seed", [0, 1, 2])
 @pytest.mark.parametrize("product", ["readout", "state"])
 def test_3xtf32_holds_fp32_tolerance_and_tf32_does_not(seed, product):
@@ -468,7 +447,7 @@ def test_3xtf32_holds_fp32_tolerance_and_tf32_does_not(seed, product):
         a = (rng.standard_normal((C, N)) * decay[::-1]).T.astype(np.float32)
         b = rng.standard_normal((C, N)).astype(np.float32)
     want = a.astype(np.float64) @ b
-    rel = {s: float(np.abs(_mma(a, b, s) - want).max() / np.abs(want).max())
+    rel = {s: float(np.abs(mma(a, b, s) - want).max() / np.abs(want).max())
            for s in ("3xtf32", "tf32")}
     assert rel["3xtf32"] <= 1e-4 and rel["3xtf32"] < 1e-5, rel
     assert rel["tf32"] > 1e-4, rel
