@@ -113,6 +113,27 @@ only, never JAX or the reference package.  Phases:
     with the same loss; flash backward launches = 3 layers x 8
     microbatches a step, forward twice that (remat); no failure caught by
     the guarded runner.
+17. FedAT under the fault plane at phase 3's width (``FAULTS``: churn,
+    two tier blackouts, poisoned uplinks, update clipping, engine
+    snapshots every 2 updates; 8 updates): two runs through
+    ``api.build(spec).run(checkpoint_dir=...)`` must agree bitwise
+    (trajectory, final global and tier models); a third run, a CLI child
+    process, is killed with SIGKILL once its second snapshot is on disk
+    and resumed here with ``resume_engine=True``: bitwise equal to the
+    others.  Every fault family must fire (counted and logged: blackout
+    starts and returns, rounds discarded into a blackout, poisoned
+    rounds, clients the gate zero-weighted, clipped updates, clients
+    churned out of their rounds), 2 roundtrip launches a round; 2 gated
+    updates on the card against the CPU (phase 4's bound); events/s
+    beside phase 3's, snapshot save, write and restore seconds, snapshot
+    bytes.
+18. The federated LM (phase 14's scenario) under churn, blackouts and
+    poisoned uplinks through ``python -m repro_torch.api.cli --device
+    cuda --checkpoint-dir`` (called in this process, counts from 0:
+    phase 14's flash and roundtrip launches per committed round), then
+    ``cli serve --resume-from`` of its checkpoint on the card and on the
+    CPU: the same tokens, flash forward launches and no backward in the
+    serving; loading it under another spec's hash is refused.
 
 Any failed check exits non-zero.  The last three lines of standard output
 are the kernel report (JSON), the card's ``name, power.limit`` and
@@ -602,12 +623,14 @@ def run_main_path(torch, api, pc, dev):
     return info, run
 
 
-def card_vs_cpu(torch, api, SimEnv, dev):
+def card_vs_cpu(torch, api, SimEnv, dev, extra=None, phase="4",
+                what="2 FedAT quantize8 updates"):
     """Relative L2 of card - CPU over the CPU params' norm; the tolerance
     is the CPU tests' quantize8 bound: fp32 products summed in another
     order can move a value across a code boundary, a step of
-    max|block|/127."""
-    spec = api.ExperimentSpec().with_overrides(SMALL)
+    max|block|/127.  ``extra`` overrides the SMALL spec (phase 17 turns
+    the fault plane's gate on)."""
+    spec = api.ExperimentSpec().with_overrides(dict(SMALL, **(extra or {})))
     sc = spec.to_sim_config()
     p0 = SimEnv(sc, device="cpu").params0
     out = {}
@@ -624,7 +647,7 @@ def card_vs_cpu(torch, api, SimEnv, dev):
         if name == "w_global":
             check(float((b - w0).norm()) > 0, "w_global did not move")
         rel[name] = float((a - b).norm() / b.norm())
-    log(f"phase 4: card vs CPU after 2 FedAT quantize8 updates: "
+    log(f"phase {phase}: card vs CPU after {what}: "
         f"|card - cpu| / |cpu| = {rel} (tolerance {CARD_VS_CPU_RTOL})")
     for k, v in rel.items():
         check(v <= CARD_VS_CPU_RTOL, f"card and CPU disagree on {k}: {v}")
@@ -2494,6 +2517,400 @@ def profile_train_step(torch, fns, state, batch3, batch4):
     return state, info
 
 
+# ---------------------------------------------------------------------------
+# phase 17: FedAT under the fault plane, killed and resumed
+# ---------------------------------------------------------------------------
+
+#: phase 3's configuration with every fault family on, 8 updates.  Tier 0
+#: commits about once a simulated second, so the 8 updates span about 10
+#: simulated seconds and every window sits inside that.  The host-side
+#: event trace is the same on any device; run for fault seeds 0-11 on the
+#: CPU with the round bodies stubbed out, seed 5 gives two blackouts
+#: (tiers 4 and 0, at 1.77-3.77 and 2.58-4.58 s) that start and end in the
+#: run, a round discarded into one, 3 poisoned rounds and 3 clients
+#: churned out of their rounds.  The updates of this run have delta norms
+#: of 0.37-0.67 (and one of 2.2) on the CPU, so a clip of 0.5 cuts some
+FAULTS = {
+    "engine.total_updates": 8,
+    "faults.churn_rate": 0.1, "faults.churn_window": [0.5, 6.0],
+    "faults.churn_downtime": 3.0, "faults.blackouts": 2,
+    "faults.blackout_window": [1.0, 4.0], "faults.blackout_duration": 2.0,
+    "faults.nan_rate": 0.3, "faults.update_clip": 0.5,
+    "faults.checkpoint_every": 2, "faults.seed": 5,
+}
+#: phase 17's card-against-CPU check: phase 4's small run with the gate
+#: on in both rounds (one client poisoned a round, deltas clipped)
+SMALL_FAULTS = {"faults.nan_rate": 1.0, "faults.update_clip": 0.3}
+FAULT_DIR = ROOT / "build" / "chip_smoke_faults"
+
+
+class FaultCounters:
+    """Counts each fault family over one run: blackout starts and returns
+    and rounds discarded into a blackout (the strategy's hooks), gated and
+    poisoned rounds (the executor's arguments), clients churned out of
+    their rounds (down by churn at completion, not by permanent dropout),
+    and, on the card with no host read until :meth:`close`, the clients
+    the gate zero-weighted and the updates it clipped."""
+
+    def __init__(self, run):
+        from repro_torch.core import faults, steps
+        self.steps, self.run = steps, run
+        st, ex = run.strategy, run.env.executor()
+        self.n = {"blackout_starts": 0, "blackout_returns": 0,
+                  "discarded_rounds": 0, "gated_rounds": 0,
+                  "poisoned_rounds": 0, "churn_dropped_clients": 0}
+        self._dev = []
+        on_fault, on_event = st.on_fault, st.on_event
+        fedat_round, self._gate = ex.fedat_round, steps.gate_updates
+
+        def count_fault(env, ctx, now, actor):
+            self.n["blackout_starts" if actor[0] == faults.BLACKOUT
+                   else "blackout_returns"] += 1
+            return on_fault(env, ctx, now, actor)
+
+        def count_event(env, ctx, now, actor):
+            m, ids = actor
+            if not st.tier_alive[m]:
+                self.n["discarded_rounds"] += 1
+            else:
+                up = env.dropout_at[ids] > now
+                self.n["churn_dropped_clients"] += int(
+                    (up & ~env.alive(now)[ids]).sum())
+            return on_event(env, ctx, now, actor)
+
+        def count_round(*a, **k):
+            self.n["gated_rounds"] += k.get("gate") is not None
+            self.n["poisoned_rounds"] += bool(
+                k.get("poison") is not None and k["poison"].any())
+            return fedat_round(*a, **k)
+
+        def count_gate(cp, w, ref, clip):
+            k = w.shape[0]
+            ok, sq = w > 0, 0
+            for key in sorted(cp):
+                ok = ok & cp[key].isfinite().reshape(k, -1).all(dim=1)
+                d = cp[key].float() - ref[key][None].float()
+                sq = sq + d.reshape(k, -1).square().sum(dim=1)
+            self._dev.append((((w > 0) & ~ok).sum(),
+                              (ok & (sq.sqrt() > clip)).sum()))
+            return self._gate(cp, w, ref, clip)
+
+        st.on_fault, st.on_event = count_fault, count_event
+        ex.fedat_round = count_round
+        steps.gate_updates = count_gate
+
+    def close(self) -> dict:
+        del self.run.env.executor().fedat_round
+        del self.run.strategy.on_fault, self.run.strategy.on_event
+        self.steps.gate_updates = self._gate
+        self.n["gate_zeroed_clients"] = sum(int(z) for z, _ in self._dev)
+        self.n["clipped_updates"] = sum(int(c) for _, c in self._dev)
+        return dict(self.n)
+
+
+class CheckpointTimes:
+    """Host seconds of each CheckpointManager save (the caller's part: the
+    device-to-host copy), background write (npz, manifest, fsyncs,
+    rename) and restore, keyed by the manager's directory."""
+
+    NAMES = ("save", "_write", "restore")
+
+    def __init__(self):
+        from repro_torch.checkpoint import ckpt
+        self.cls = ckpt.CheckpointManager
+        self.orig = {n: getattr(self.cls, n) for n in self.NAMES}
+        self.s = {n: [] for n in self.NAMES}
+        for n, f in self.orig.items():
+            setattr(self.cls, n, self._timed(n, f))
+
+    def _timed(self, name, f):
+        def timed(mgr, *a, **k):
+            t0 = time.perf_counter()
+            out = f(mgr, *a, **k)
+            self.s[name].append((mgr.dir, time.perf_counter() - t0))
+            return out
+        return timed
+
+    def close(self):
+        for n, f in self.orig.items():
+            setattr(self.cls, n, f)
+
+    def engine(self, name):
+        return [t for d, t in self.s[name] if d.endswith("engine")]
+
+
+def _trajectory(m):
+    return [m.times, m.rounds, m.acc, m.acc_var, m.bytes_up, m.bytes_down]
+
+
+def _bits_equal(a, b) -> bool:
+    import torch
+    return sorted(a) == sorted(b) and all(torch.equal(a[k], b[k])
+                                          for k in a)
+
+
+def run_faults(torch, api, kernels, SimEnv, dev, phase3_events_per_s):
+    """FedAT under every fault family at phase 3's width: two runs in this
+    process must agree bitwise; a third, a CLI child process, is killed
+    with SIGKILL once its second engine snapshot is on disk and resumed
+    here, and must agree with them bitwise; 2 gated updates on the card
+    against the CPU; every fault family must have fired."""
+    import os
+    import shutil
+    import signal
+    spec = api.ExperimentSpec().with_overrides(dict(FULL, **FAULTS))
+    every = spec.faults.checkpoint_every
+    shutil.rmtree(FAULT_DIR, ignore_errors=True)
+    FAULT_DIR.mkdir(parents=True)
+    try:
+        runs, out = [], {}
+        timer = CheckpointTimes()
+        try:
+            for i in (1, 2):
+                run = api.build(spec, device=dev)
+                counters = FaultCounters(run) if i == 1 else None
+                torch.cuda.synchronize()
+                kernels.reset_launch_counts()
+                t0 = time.perf_counter()
+                res = run.run(checkpoint_dir=str(FAULT_DIR / f"run{i}"))
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                if i == 1:
+                    counts = kernels.launch_counts()
+                    fired = counters.close()
+                    saves = timer.engine("save")
+                    writes = timer.engine("_write")
+                runs.append((res, run))
+                out[f"run{i}_wall_s"] = wall
+        finally:
+            timer.close()
+        (res1, run1), (res2, run2) = runs
+        m = res1.metrics
+        check(m.rounds and m.rounds[-1] == 8, f"phase 17: rounds {m.rounds}")
+        check(all(math.isfinite(a) and 0.0 <= a <= 1.0 for a in m.acc),
+              f"phase 17: accuracies {m.acc}")
+        check(all(bool(torch.isfinite(v).all())
+                  for v in run1.strategy.global_params().values()),
+              "phase 17: non-finite global model")
+        check(_trajectory(res2.metrics) == _trajectory(m)
+              and _bits_equal(run2.strategy.w_global, run1.strategy.w_global)
+              and _bits_equal(run2.strategy.tier_models,
+                              run1.strategy.tier_models),
+              "phase 17: two uninterrupted runs on the card disagree")
+        committed = fired["gated_rounds"]
+        check(counts == {"compress": 0, "decompress": 0,
+                         "roundtrip": 2 * committed, "flash_attention": 0,
+                         "flash_attention_bwd": 0, "wkv6": 0, "ssd": 0}
+              and committed == 8,
+              f"phase 17: launch counts {counts} for {committed} gated "
+              f"rounds, expected 2 roundtrip launches a round")
+        silent = [k for k, v in fired.items() if v == 0]
+        check(not silent, f"phase 17: fault families that did not fire: "
+                          f"{silent} ({fired})")
+        step_dir = FAULT_DIR / "run1" / "engine" / f"step_{8:010d}"
+        snap_bytes = sum(p.stat().st_size for p in step_dir.iterdir())
+
+        # the kill: a CLI child process, SIGKILL once its second engine
+        # snapshot is complete on disk, then the resume in this process
+        spec_path = FAULT_DIR / "spec.json"
+        spec_path.write_text(spec.to_json())
+        ck3 = FAULT_DIR / "run3"
+        second = ck3 / "engine" / f"step_{2 * every:010d}"
+        env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+        t0 = time.perf_counter()
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.api.cli", "--device", dev,
+             "--spec", str(spec_path), "--checkpoint-dir", str(ck3)],
+            cwd=ROOT, env=env, stdout=subprocess.DEVNULL,
+            stderr=subprocess.PIPE, text=True)
+        try:
+            while proc.poll() is None and not second.is_dir():
+                check(time.perf_counter() - t0 < 300,
+                      "phase 17: the child wrote no second snapshot in 300 s")
+                time.sleep(0.02)
+            alive = proc.poll() is None
+            proc.send_signal(signal.SIGKILL)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+            err = proc.communicate()[1]
+        check(alive, f"phase 17: the child ended (code {proc.returncode}) "
+                     f"before the kill: {err[-2000:]}")
+        check(proc.returncode == -signal.SIGKILL,
+              f"phase 17: child exit code {proc.returncode}")
+        kill_s = time.perf_counter() - t0
+        left = sorted(p.name for p in (ck3 / "engine").iterdir())
+        timer = CheckpointTimes()
+        try:
+            run3 = api.build(spec, device=dev)
+            t0 = time.perf_counter()
+            res3 = run3.run(checkpoint_dir=str(ck3), resume_engine=True)
+            torch.cuda.synchronize()
+            resume_wall = time.perf_counter() - t0
+            restores = timer.engine("restore")
+        finally:
+            timer.close()
+        check(_trajectory(res3.metrics) == _trajectory(m)
+              and _bits_equal(run3.strategy.w_global, run1.strategy.w_global)
+              and _bits_equal(run3.strategy.tier_models,
+                              run1.strategy.tier_models),
+              "phase 17: the resumed run disagrees with the uninterrupted "
+              "ones")
+
+        agree = card_vs_cpu(torch, api, SimEnv, dev, SMALL_FAULTS, "17",
+                            "2 gated FedAT quantize8 updates")
+        eps = 8 / out["run1_wall_s"]
+        out.update({
+            "spec_hash": res1.spec_hash, "events_per_s": eps,
+            "phase3_events_per_s": phase3_events_per_s,
+            "launches": counts, "fired": fired, "acc": m.acc,
+            "sim_time": m.times[-1], "snapshot_save_s": saves,
+            "snapshot_write_s": writes, "snapshot_bytes": snap_bytes,
+            "restore_s": restores, "kill_after_s": kill_s,
+            "snapshots_at_kill": left, "resume_wall_s": resume_wall,
+            "card_vs_cpu": agree})
+        log(f"phase 17: FedAT quantize8 full width under faults, 8 updates "
+            f"({m.times[-1]:.2f} simulated s): {out['run1_wall_s']:.3f} s, "
+            f"{eps:.4f} events/s (phase 3: {phase3_events_per_s:.4f}), "
+            f"acc {m.acc}; second run {out['run2_wall_s']:.3f} s, bitwise "
+            f"equal; fired {fired}; launches {counts}")
+        log(f"phase 17: {len(saves)} engine snapshots of {snap_bytes} bytes: "
+            f"save {min(saves):.4f}-{max(saves):.4f} s on the caller, write "
+            f"{min(writes):.4f}-{max(writes):.4f} s in the background; child "
+            f"killed {kill_s:.1f} s after its start with {left} on disk; "
+            f"restore {restores[0]:.4f} s, resumed run {resume_wall:.3f} s, "
+            f"trajectory and final params bitwise equal to the "
+            f"uninterrupted runs")
+        return out
+    finally:
+        shutil.rmtree(FAULT_DIR, ignore_errors=True)
+
+
+# ---------------------------------------------------------------------------
+# phase 18: a federated LM checkpoint served on the card
+# ---------------------------------------------------------------------------
+
+#: phase 14's scenario with churn, blackouts and poisoned uplinks, engine
+#: snapshots every 4 updates.  Its 16 updates span about 63 simulated
+#: seconds; fault seed 2 (of 0-9, traced on the CPU with the round bodies
+#: stubbed) gives two blackouts (tiers 1 and 0, 11.9-19.9 and 14.6-22.6 s)
+#: with 2 rounds discarded into them, 6 poisoned rounds and a client
+#: churned out of its round
+FEDLM_FAULTS = dict(FEDLM, **{
+    "faults.churn_rate": 0.1, "faults.churn_window": [2.0, 30.0],
+    "faults.churn_downtime": 8.0, "faults.blackouts": 2,
+    "faults.blackout_window": [5.0, 25.0], "faults.blackout_duration": 8.0,
+    "faults.nan_rate": 0.3, "faults.checkpoint_every": 4, "faults.seed": 2})
+SERVE_ARGS = ["--requests", "8", "--slots", "4", "--prompt-len", "16",
+              "--max-new", "8", "--seed", "3"]
+
+
+def run_fedlm_checkpoint(torch, api, cli, serve, kernels):
+    """tiny_lm_long under faults through the CLI with --checkpoint-dir on
+    the card (counts from 0), then ``cli serve --resume-from`` of its
+    checkpoint on the card and on the CPU: the same tokens; a load under
+    another spec's hash is refused."""
+    import shutil
+    spec = api.ExperimentSpec().with_overrides(FEDLM_FAULTS)
+    d = FAULT_DIR / "fedlm"
+    shutil.rmtree(FAULT_DIR, ignore_errors=True)
+    d.mkdir(parents=True)
+    try:
+        spec_path = FAULT_DIR / "fedlm.json"
+        spec_path.write_text(spec.to_json())
+        # the CLI's run takes this cached environment; wrap its executor
+        # and eval to count rounds and eval chunks (phase 14's launch rule)
+        env = api.get_env(spec, "cuda")
+        ex = env.executor()
+        rounds, evals = [], []
+        orig_round, orig_eval = ex.fedat_round, env.eval_fn
+
+        def counted_round(*a, **k):
+            rounds.append(k.get("poison") is not None and k["poison"].any())
+            return orig_round(*a, **k)
+
+        def counted_eval(params, x, y, mask):
+            C, N = y.shape
+            evals.append(-(-C // max(1, 1024 // max(N, 1))))
+            return orig_eval(params, x, y, mask)
+
+        ex.fedat_round, env.eval_fn = counted_round, counted_eval
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        try:
+            (res,) = cli.main(["--device", "cuda", "--spec", str(spec_path),
+                               "--checkpoint-dir", str(d)])
+            torch.cuda.synchronize()
+        finally:
+            del ex.fedat_round
+            env.eval_fn = orig_eval
+        wall = time.perf_counter() - t0
+        train = kernels.launch_counts()
+        cfg = env.model.config
+        steps = env.sc.local_epochs * (int(env.train["y"].shape[1])
+                                       // env.sc.batch_size)
+        L, n = cfg.n_layers, len(rounds)
+        want = {"flash_attention": n * steps * L + sum(evals) * L,
+                "flash_attention_bwd": n * steps * L, "roundtrip": 2 * n}
+        check(n == 16 and res.metrics.rounds[-1] == 16 and any(rounds)
+              and train == dict({k: 0 for k in train}, **want),
+              f"phase 18: {n} rounds ({sum(rounds)} poisoned), launches "
+              f"{train}, expected {want}")
+        check(sorted(p.name for p in (d / "engine").iterdir())[-1]
+              == f"step_{16:010d}" and (d / "spec.json").exists(),
+              "phase 18: the run left no final engine snapshot or sidecar")
+
+        reps = {}
+        for device in ("cuda", "cpu"):
+            rep_path = FAULT_DIR / f"serve_{device}.json"
+            kernels.reset_launch_counts()
+            cli.main(["serve", "--resume-from", str(d), "--device", device,
+                      *SERVE_ARGS, "--out", str(rep_path)])
+            if device == "cuda":
+                torch.cuda.synchronize()
+                served = kernels.launch_counts()
+            reps[device] = json.loads(rep_path.read_text())
+        card, cpu = reps["cuda"], reps["cpu"]
+        check(card["spec_hash"] == spec.hash() and card["step"] == 16,
+              f"phase 18: served spec {card['spec_hash']} step "
+              f"{card['step']}")
+        check(card["tokens"] == cpu["tokens"],
+              f"phase 18: card and CPU served other tokens: "
+              f"{card['tokens']} / {cpu['tokens']}")
+        check(served["flash_attention"] > 0
+              and served["flash_attention"] % L == 0
+              and served["flash_attention_bwd"] == 0,
+              f"phase 18: serving launches {served}")
+        other = spec.with_overrides({"engine.lr": 0.123})
+        try:
+            serve.load_checkpoint(str(d), expect_spec=other, device="cuda")
+            refused = False
+        except api.SpecError as e:
+            refused = "was written by spec" in str(e)
+        check(refused, "phase 18: a load under another spec's hash was "
+                       "not refused")
+        n_tok = sum(len(v) for v in card["tokens"].values())
+        info = {"spec_hash": res.spec_hash, "wall_s": wall,
+                "events_per_s": 16 / wall, "acc": res.metrics.acc,
+                "poisoned_rounds": int(sum(rounds)),
+                "train_launches": train, "expected_launches": want,
+                "serve_launches": served, "served_tokens": n_tok,
+                "serve_card": {k: card[k] for k in (
+                    "tok_per_s", "latency_p50_s", "requests", "shapes")},
+                "serve_cpu_tok_per_s": cpu["tok_per_s"]}
+        log(f"phase 18: federated LM under faults (tiny_lm_long, 16 "
+            f"updates, {int(sum(rounds))} poisoned) through the CLI with "
+            f"--checkpoint-dir: {wall:.3f} s ({16 / wall:.4f} events/s), "
+            f"launches {train}; served from its checkpoint on the card: "
+            f"{card['requests']} requests, {n_tok} tokens equal to the "
+            f"CPU's, {card['tok_per_s']:.1f} tok/s, launches {served}; "
+            f"another spec's hash refused")
+        return info
+    finally:
+        shutil.rmtree(FAULT_DIR, ignore_errors=True)
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="also write every number as JSON here")
@@ -2507,6 +2924,7 @@ def main() -> None:
              f"{Path(__file__).name}")
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch import api, kernels, serve
+    from repro_torch.api import cli
     from repro_torch.core.simulation import SimEnv
     from repro_torch.kernels import build as kbuild
     from repro_torch.kernels import flash_attention as fa
@@ -2596,6 +3014,12 @@ def main() -> None:
     torch.cuda.empty_cache()
     # phase 16: the trainer, counts from 0 per run
     trainer = run_trainer(torch, kernels)
+    torch.cuda.empty_cache()
+    # phase 17: FedAT under faults, killed and resumed, counts from 0
+    faults = run_faults(torch, api, kernels, SimEnv, dev,
+                        main_path["events_per_s"])
+    # phase 18: the federated LM's checkpoint served, counts from 0
+    fedlm_ckpt = run_fedlm_checkpoint(torch, api, cli, serve, kernels)
 
     src = "src/repro_torch/kernels/csrc/polyline_codec.cu"
     # the main path's lossy step: B1a and B1b fused, per stacked uplink
@@ -2611,7 +3035,10 @@ def main() -> None:
         "warm_ms": up["warm_ms"], "pair_ms": up["pair_ms"],
         "floor_ms": up["floor_ms"], "yardstick_ms": up["yardstick_ms"],
         "downlink_ms": down["ms"], "downlink_bound_ms": down["bound_ms"],
-        "downlink_floor_ms": down["floor_ms"]}]
+        "downlink_floor_ms": down["floor_ms"],
+        "faults_launches": faults["launches"]["roundtrip"],
+        "fedlm_faults_launches":
+            fedlm_ckpt["train_launches"]["roundtrip"]}]
     # the reference's pair, held in phase 2 and off the main path since
     # the roundtrip fused it (its launches there are 0)
     for name, line in (("compress", 52), ("decompress", 69)):
@@ -2647,7 +3074,11 @@ def main() -> None:
         "hd80_bf16_bound_ms": z16["bound_ms"],
         "hd80_bf16_library_ms": z16["library_ms"],
         "train_launches": trainer["launches"]["flash_attention"],
-        "fedlm_launches": fedlm["launches"]["flash_attention"]})
+        "fedlm_launches": fedlm["launches"]["flash_attention"],
+        "fedlm_faults_launches":
+            fedlm_ckpt["train_launches"]["flash_attention"],
+        "serve_ckpt_launches":
+            fedlm_ckpt["serve_launches"]["flash_attention"]})
     # B2's backward: fp32 at the trainer's shape is the trainer's path
     tb = flash_bwd["shapes"]
     t32 = tb["trainer (qwen2-7b widths) float32"]
@@ -2676,7 +3107,9 @@ def main() -> None:
         "fedlm_ms": fl["ms"], "fedlm_plain_ms": fl["plain_ms"],
         "fedlm_bound_ms": fl["bound_ms"], "fedlm_bound_by": fl["bound_by"],
         "fedlm_library_ms": fl["library_ms"],
-        "fedlm_graph_ms": fl["graph_ms"], "fedlm_parts_ms": fl["parts_ms"]})
+        "fedlm_graph_ms": fl["graph_ms"], "fedlm_parts_ms": fl["parts_ms"],
+        "fedlm_faults_launches":
+            fedlm_ckpt["train_launches"]["flash_attention_bwd"]})
     for name, src, line, arch, res in (
             ("wkv6", "wkv6.cu", "rwkv6_scan.py:68", "rwkv6-3b", wkv),
             ("ssd", "ssd.cu", "ssd.py:64", "zamba2-2.7b", ssd)):
@@ -2708,7 +3141,8 @@ def main() -> None:
             "recurrent_card_vs_cpu": recurrent_agree,
             "flash_bwd": flash_bwd, "federated_lm": fedlm,
             "federated_lm_card_vs_cpu": fedlm_agree,
-            "trainer": trainer}, indent=2))
+            "trainer": trainer, "faults": faults,
+            "fedlm_checkpoint": fedlm_ckpt}, indent=2))
     print(json.dumps({"kernels": report}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

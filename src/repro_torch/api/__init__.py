@@ -12,7 +12,8 @@ CLI: ``python -m repro_torch.api.cli --set strategy.name=fedat
 --sweep transport.codec=none,quantize8 [--device cpu]``.
 """
 from repro_torch.api.build import (Result, Run, build,  # noqa: F401
-                                   clear_env_cache, get_env, run_spec, sweep)
+                                   clear_env_cache, get_env, run_spec,
+                                   save_checkpoint, sweep)
 from repro_torch.api.spec import (SPEC_VERSION, DataSpec,  # noqa: F401
                                   EngineSpec, ExperimentSpec, FaultSpec,
                                   MeshSpec, PopulationSpec, SpecError,

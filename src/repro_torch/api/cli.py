@@ -16,11 +16,20 @@ summary and the eval trajectory.  ``--device`` picks the device (default
 cuda; without CUDA the run fails unless ``--device cpu`` is given).
 
 The federated LM runs like any other model (``--set data.model=tiny_lm``
-or ``tiny_lm_long``).  Not ported yet: the ``serve`` subcommand (serving a
-federated checkpoint: the loader of ROADMAP A15, after A12; zoo decoders
-are served by
-``python -m repro_torch.launch.serve``) and
-``--checkpoint-dir`` / ``--resume-from`` / ``--resume`` (ROADMAP A12).
+or ``tiny_lm_long``).  ``--checkpoint-dir`` saves the final params + spec
+hash after a single run; ``--resume-from`` restores such a checkpoint as
+the initial model (the saved spec hash must match).  With
+``faults.checkpoint_every > 0`` the run also snapshots full engine state
+under ``<checkpoint-dir>/engine``, and ``--resume`` replays a killed run
+from the newest snapshot to a bitwise-identical trajectory.
+
+Serving: ``repro_torch.api.cli serve --resume-from DIR [--device cpu]``
+loads a ``--checkpoint-dir`` checkpoint of either package (spec-hash
+verified against its ``spec.json`` sidecar), rebuilds the registry model
+from the embedded spec, and serves it with the continuous-batching engine
+under open-loop Poisson load (``--rate``), printing p50/p95/p99 latency
+and tok/s (``--out`` writes the full report as JSON).  Zoo decoders are
+served by ``python -m repro_torch.launch.serve``.
 """
 from __future__ import annotations
 
@@ -67,16 +76,83 @@ def _print_row(res: api.Result) -> None:
           f"t={s['sim_time']:7.0f}s  {s['total_mb']:7.1f}MB", flush=True)
 
 
+def _device(name: Optional[str]):
+    try:
+        return resolve_device(name)
+    except (RuntimeError, ValueError) as e:
+        raise SystemExit(f"device error: {e}")
+
+
+def _serve_main(argv: List[str]) -> Dict[str, Any]:
+    """``repro_torch.api.cli serve --resume-from DIR``: load a
+    spec-hash-verified federated checkpoint and serve it under open-loop
+    Poisson load."""
+    from repro_torch import serve as serving
+
+    ap = argparse.ArgumentParser(
+        prog="repro_torch.api.cli serve",
+        description="Serve a federated checkpoint (continuous batching).")
+    ap.add_argument("--resume-from", metavar="DIR", required=True,
+                    help="checkpoint dir written by --checkpoint-dir; its "
+                         "spec.json sidecar names the model + spec hash")
+    ap.add_argument("--requests", type=int, default=8)
+    ap.add_argument("--rate", type=float, default=0.0,
+                    help="Poisson arrival rate (req/s); 0 = closed burst")
+    ap.add_argument("--slots", type=int, default=4)
+    ap.add_argument("--prompt-len", type=int, default=16)
+    ap.add_argument("--max-new", type=int, default=8)
+    ap.add_argument("--max-len", type=int, default=0,
+                    help="position budget per slot "
+                         "(0 = prompt-len + 4*max-new)")
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--device", default=None,
+                    help="torch device: cuda (default), cuda:N or cpu")
+    ap.add_argument("--out", metavar="FILE",
+                    help="write the latency/throughput report as JSON")
+    args = ap.parse_args(argv)
+    device = _device(args.device)
+
+    try:
+        loaded = serving.load_checkpoint(args.resume_from, device=device)
+        cfg = loaded.config
+        max_len = args.max_len or (args.prompt_len + 4 * args.max_new)
+        spec = serving.ServeSpec(slots=args.slots, max_len=max_len,
+                                 prefill_len=min(args.prompt_len, max_len),
+                                 max_new=args.max_new, seed=args.seed)
+        reqs = serving.make_requests(args.requests, args.rate,
+                                     spec.prefill_len, args.max_new,
+                                     cfg.vocab_size, args.seed)
+        engine = serving.ServeEngine(cfg, loaded.lm_params, spec)
+        done = engine.run(reqs)
+    except api.SpecError as e:
+        raise SystemExit(f"spec error: {e}")
+
+    rep = serving.report(done)
+    rep.update(spec_hash=loaded.spec_hash, step=loaded.step,
+               model=loaded.spec.data.model, rate=args.rate,
+               device=str(device),
+               shapes={k: len(v) for k, v in engine.call_shapes.items()},
+               tokens={r.rid: [int(t) for t in r.out] for r in done})
+    print(f"serving {rep['model']} @ spec {rep['spec_hash']} "
+          f"(step {rep['step']}) on {rep['device']}")
+    print(f"  {rep['requests']} requests ({rep['truncated']} truncated)  "
+          f"{rep['tok_per_s']:.1f} tok/s  "
+          f"p50/p95/p99 latency {rep['latency_p50_s']:.3f}/"
+          f"{rep['latency_p95_s']:.3f}/{rep['latency_p99_s']:.3f}s",
+          flush=True)
+    if args.out:
+        with open(args.out, "w") as f:
+            json.dump(rep, f, indent=2)
+        print(f"wrote {args.out}", file=sys.stderr)
+    return rep
+
+
 def main(argv: Optional[List[str]] = None) -> List[api.Result]:
     if argv is None:
         argv = sys.argv[1:]
     if argv and argv[0] == "serve":
-        raise SystemExit("the serve subcommand (serving a federated "
-                         "checkpoint) is not ported to the PyTorch package "
-                         "yet: it needs the checkpoint loader (the rest of "
-                         "ROADMAP A15), which waits for A12; serve a zoo "
-                         "decoder with python -m repro_torch.launch.serve "
-                         "--arch <id>")
+        _serve_main(argv[1:])
+        return []
     ap = argparse.ArgumentParser(
         prog="repro_torch.api.cli",
         description="Run declarative FL experiments (ExperimentSpec) with "
@@ -95,17 +171,24 @@ def main(argv: Optional[List[str]] = None) -> List[api.Result]:
     ap.add_argument("--device", default=None,
                     help="torch device: cuda (default), cuda:N or cpu")
     ap.add_argument("--checkpoint-dir", metavar="DIR",
-                    help="not ported yet (ROADMAP A12)")
+                    help="save final params + spec hash after the run "
+                         "(single runs only)")
     ap.add_argument("--resume-from", metavar="DIR",
-                    help="not ported yet (ROADMAP A12)")
+                    help="restore initial params from a --checkpoint-dir "
+                         "checkpoint whose spec hash matches")
     ap.add_argument("--resume", action="store_true",
-                    help="not ported yet (ROADMAP A12)")
+                    help="resume a killed run from its newest engine "
+                         "snapshot under <checkpoint-dir>/engine (needs "
+                         "--checkpoint-dir and faults.checkpoint_every > 0)")
     ap.add_argument("--print-spec", action="store_true",
                     help="print the resolved base spec and exit")
     args = ap.parse_args(argv)
-    if args.checkpoint_dir or args.resume_from or args.resume:
-        ap.error("--checkpoint-dir/--resume-from/--resume are not ported "
-                 "to the PyTorch package yet (ROADMAP A12)")
+    if (args.checkpoint_dir or args.resume_from) and args.sweeps:
+        ap.error("--checkpoint-dir/--resume-from apply to single runs, "
+                 "not sweeps")
+    if args.resume and not args.checkpoint_dir:
+        ap.error("--resume needs --checkpoint-dir (engine snapshots live "
+                 "under <checkpoint-dir>/engine)")
 
     try:
         if args.spec:
@@ -123,10 +206,7 @@ def main(argv: Optional[List[str]] = None) -> List[api.Result]:
             print(spec.to_json())
             return []
         spec.validate()
-        try:
-            device = resolve_device(args.device)
-        except (RuntimeError, ValueError) as e:
-            raise SystemExit(f"device error: {e}")
+        device = _device(args.device)
 
         grid = {}
         for s in args.sweeps:
@@ -140,7 +220,10 @@ def main(argv: Optional[List[str]] = None) -> List[api.Result]:
                                 device=device)
         else:
             print(f"spec {spec.hash()}", flush=True)
-            res = api.build(spec, device=device).run()
+            res = api.build(spec, device=device,
+                            resume_from=args.resume_from).run(
+                checkpoint_dir=args.checkpoint_dir,
+                resume_engine=args.resume)
             _print_row(res)
             results = [res]
     except api.SpecError as e:

@@ -6,11 +6,11 @@ therefore the same content hash (the default spec hashes to
 ``60fd95ec9d49`` in both packages).  The device a run uses is *not* part of
 the spec: it is an argument of ``api.build``.
 
-Validation is the reference's for everything the port runs.  Sections
-whose planes are not ported yet accept only their defaults and name the
-ROADMAP item that ports them: faults and checkpointing (A12), population
-(A13), topology (A14), mesh (A16).  Every registered model is ported,
-the ``tiny_lm`` LMs included.
+Validation is the reference's for everything the port runs, the fault
+plane's ``faults`` section included.  Sections whose planes are not
+ported yet accept only their defaults and name the ROADMAP item that
+ports them: population (A13), topology (A14), mesh (A16).  Every
+registered model is ported, the ``tiny_lm`` LMs included.
 """
 from __future__ import annotations
 
@@ -267,7 +267,14 @@ class MeshSpec:
 
 @dataclasses.dataclass
 class FaultSpec:
-    """Deterministic fault plane; not ported yet (all knobs must stay 0)."""
+    """Deterministic fault plane (core/faults.py).
+
+    Every fault draw comes from a dedicated rng stream seeded by
+    ``faults.seed``, so the all-defaults section is *exactly* the
+    zero-fault engine.  Churn shapes the environment's availability
+    windows; blackouts/poisoning/clipping act inside the engine loop;
+    ``checkpoint_every`` enables bitwise crash-resume.
+    """
     churn_rate: float = 0.0
     churn_events: int = 2
     churn_downtime: float = 30.0
@@ -285,7 +292,36 @@ class FaultSpec:
         self.blackout_window = tuple(float(v) for v in self.blackout_window)
 
     def validate(self) -> None:
-        _unported("faults", _require_default(self), "A12", "the fault plane")
+        _require(0 <= self.churn_rate <= 1,
+                 f"faults.churn_rate must be in [0, 1], "
+                 f"got {self.churn_rate}")
+        _require(self.churn_events >= 0,
+                 f"faults.churn_events must be >= 0, "
+                 f"got {self.churn_events}")
+        _require(self.churn_downtime > 0,
+                 f"faults.churn_downtime must be > 0, "
+                 f"got {self.churn_downtime}")
+        lo, hi = self.churn_window
+        _require(0 <= lo <= hi,
+                 f"faults.churn_window must satisfy 0 <= lo <= hi, "
+                 f"got ({lo}, {hi})")
+        _require(self.blackouts >= 0,
+                 f"faults.blackouts must be >= 0, got {self.blackouts}")
+        _require(self.blackout_duration > 0,
+                 f"faults.blackout_duration must be > 0, "
+                 f"got {self.blackout_duration}")
+        lo, hi = self.blackout_window
+        _require(0 <= lo <= hi,
+                 f"faults.blackout_window must satisfy 0 <= lo <= hi, "
+                 f"got ({lo}, {hi})")
+        _require(0 <= self.nan_rate <= 1,
+                 f"faults.nan_rate must be in [0, 1], got {self.nan_rate}")
+        _require(self.update_clip >= 0,
+                 f"faults.update_clip must be >= 0 (0 = off), "
+                 f"got {self.update_clip}")
+        _require(self.checkpoint_every >= 0,
+                 f"faults.checkpoint_every must be >= 0 (0 = off), "
+                 f"got {self.checkpoint_every}")
 
 
 @dataclasses.dataclass
@@ -517,3 +553,33 @@ class ExperimentSpec:
             churn_downtime=self.faults.churn_downtime,
             churn_window=self.faults.churn_window,
             fault_seed=self.faults.seed)
+
+    @classmethod
+    def from_sim_config(cls, sc: SimConfig) -> "ExperimentSpec":
+        """The inverse bridge: a truthful spec echo for runs driven through
+        an already-built environment (the legacy ``run_*`` wrappers).  The
+        unported planes are at their defaults (``SimEnv`` refuses
+        others)."""
+        sc.check_ported()
+        return cls(
+            data=DataSpec(
+                model=sc.model, n_clients=sc.n_clients,
+                n_classes=sc.n_classes, partitioner=sc.partitioner,
+                classes_per_client=sc.classes_per_client,
+                samples_per_client=sc.samples_per_client,
+                image_hw=sc.image_hw, n_features=sc.n_features,
+                vocab_size=sc.vocab_size, seq_len=sc.seq_len,
+                attention_backend=sc.attention_backend,
+                seed=sc.seed),
+            tiers=TierSpec(
+                n_tiers=sc.n_tiers, clients_per_round=sc.clients_per_round,
+                delay_bands=sc.delay_bands, base_compute=sc.base_compute,
+                n_unstable=sc.n_unstable,
+                dropout_window=sc.dropout_window),
+            engine=EngineSpec(
+                local_epochs=sc.local_epochs, batch_size=sc.batch_size,
+                lr=sc.lr, prox_lambda=sc.prox_lambda),
+            faults=FaultSpec(
+                churn_rate=sc.churn_rate, churn_events=sc.churn_events,
+                churn_downtime=sc.churn_downtime,
+                churn_window=sc.churn_window, seed=sc.fault_seed))

@@ -10,6 +10,12 @@ environment's device:
   client-batched model -> uplink ``codec.lossy`` -> Eq. 4 intra-tier
   average -> tier-slot update -> Eq. 3 cross-tier average.
 * FedAvg/TiFL (:meth:`fedavg_round`) and FedAsync (:meth:`fedasync_round`).
+* With the fault plane's gate (``gate=``, core/steps.py), FedAT and
+  FedAvg/TiFL rounds take a separate gated body: after the uplink decode
+  the poisoned slots are NaN'd, the gate zero-weights non-finite clients,
+  clips deltas from the decoded downlink and renormalizes Eq. 4, and a
+  round with no surviving client keeps the previous tier slot (FedAT) or
+  model (FedAvg).  ``gate=None`` runs the ungated bodies unchanged.
 
 **Fixed-shape padding contract** (kept from the reference): a sample of
 ``n`` live clients is padded to ``clients_per_round`` slots by repeating a
@@ -35,6 +41,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import aggregation
+from repro_torch.core import steps as fl_steps
 
 Params = Dict[str, torch.Tensor]
 PermSource = Callable[[int, int, int], torch.Tensor]
@@ -101,13 +108,21 @@ class RoundExecutor:
     # ------------------------------------------------------------------
     def fedat_round(self, w_global: Params, tier_models: Params, m: int,
                     ids: np.ndarray, seed: int, *, codec, use_prox: bool,
-                    cross_weights) -> Tuple[Params, Params]:
+                    cross_weights, gate=None, poison=None
+                    ) -> Tuple[Params, Params]:
         """One FedAT tier-completion round (Algorithm 1 steps 1-5).
 
         ``cross_weights`` is the (M,) Eq. 3 weight vector the strategy
         computed on the host.  ``tier_models`` slot ``m`` is overwritten in
-        place.  Returns ``(w_global, tier_models)``.
+        place.  Returns ``(w_global, tier_models)``.  ``gate`` (an
+        :class:`~repro_torch.core.steps.UpdateGate`) selects the gated
+        body, ``poison`` its (K,) bool uplink-poison mask (None = none).
         """
+        if gate is not None:
+            return self._fedat_round_gated(
+                w_global, tier_models, m, ids, seed, codec=codec,
+                use_prox=use_prox, cross_weights=cross_weights, gate=gate,
+                poison=poison)
         pid, ns = self._pad_ids(ids)
         perms = self._perms(seed, len(ids), self.K)
         update = (self.env.update_fn if use_prox
@@ -124,10 +139,15 @@ class RoundExecutor:
         return w_global, tier_models
 
     def fedavg_round(self, w: Params, ids: np.ndarray, seed: int, *,
-                     codec=None) -> Params:
+                     codec=None, gate=None, poison=None) -> Params:
         """One synchronous FedAvg round over the sampled clients (TiFL
         rounds run through here too).  ``codec=None`` is the paper's raw
-        f32 link; a codec compresses both links as in the FedAT round."""
+        f32 link; a codec compresses both links as in the FedAT round.
+        ``gate``/``poison`` select the gated body, as in
+        :meth:`fedat_round`."""
+        if gate is not None:
+            return self._fedavg_round_gated(w, ids, seed, codec=codec,
+                                            gate=gate, poison=poison)
         pid, ns = self._pad_ids(ids)
         perms = self._perms(seed, len(ids), self.K)
         w_in = w if codec is None else codec.lossy(w)
@@ -137,6 +157,62 @@ class RoundExecutor:
             client_params = codec.lossy(client_params)
         return aggregation.weighted_average(
             client_params, self._weights(aggregation.client_weights_host(ns)))
+
+    # ------------------------------------------------------------------
+    # the fault plane's gated bodies
+    # ------------------------------------------------------------------
+    def _poison(self, poison: Optional[np.ndarray]) -> torch.Tensor:
+        mask = np.zeros(self.K, bool) if poison is None else poison
+        return torch.from_numpy(np.asarray(mask, bool)).to(self.device)
+
+    def _gated_uplink(self, client_params: Params, ns: np.ndarray,
+                      ref: Params, gate, poison):
+        """Poison the decoded uplink, then gate it against ``ref``:
+        (sanitized params, gated Eq. 4 weights, any_ok)."""
+        client_params = fl_steps.poison_updates(client_params,
+                                                self._poison(poison))
+        return fl_steps.gate_updates(
+            client_params, self._weights(aggregation.client_weights_host(ns)),
+            ref, float(gate.clip_norm))
+
+    def _fedat_round_gated(self, w_global: Params, tier_models: Params,
+                           m: int, ids: np.ndarray, seed: int, *, codec,
+                           use_prox: bool, cross_weights, gate, poison
+                           ) -> Tuple[Params, Params]:
+        """The FedAT round with the gate spliced in after the uplink
+        decode; the clip reference is the decoded downlink ``w_sent``.
+        With no surviving client the tier slot keeps its model."""
+        pid, ns = self._pad_ids(ids)
+        perms = self._perms(seed, len(ids), self.K)
+        update = (self.env.update_fn if use_prox
+                  else self.env.update_fn_noprox)
+        w_sent = codec.lossy(w_global)
+        client_params, _ = update(w_sent, self._select(pid), perms)
+        client_params = codec.lossy(client_params)
+        client_params, w_ok, any_ok = self._gated_uplink(
+            client_params, ns, w_sent, gate, poison)
+        tier_model = aggregation.weighted_average(client_params, w_ok)
+        for k, v in tier_model.items():
+            tier_models[k][m] = torch.where(any_ok, v, tier_models[k][m])
+        w_global = aggregation.weighted_average(
+            tier_models, self._weights(cross_weights))
+        return w_global, tier_models
+
+    def _fedavg_round_gated(self, w: Params, ids: np.ndarray, seed: int, *,
+                            codec, gate, poison) -> Params:
+        """The FedAvg/TiFL round with the gate; with no surviving client
+        the server keeps its previous model."""
+        pid, ns = self._pad_ids(ids)
+        perms = self._perms(seed, len(ids), self.K)
+        w_in = w if codec is None else codec.lossy(w)
+        client_params, _ = self.env.update_fn_noprox(
+            w_in, self._select(pid), perms)
+        if codec is not None:
+            client_params = codec.lossy(client_params)
+        client_params, w_ok, any_ok = self._gated_uplink(
+            client_params, ns, w_in, gate, poison)
+        new_w = aggregation.weighted_average(client_params, w_ok)
+        return {k: torch.where(any_ok, new_w[k], w[k]) for k in w}
 
     def fedasync_round(self, w: Params, client: int, a_eff: float,
                        seed: int, *, codec=None) -> Params:

@@ -8,10 +8,12 @@ latencies, and dropout schedule.
 The port of ``repro/core/simulation.py``, legacy data plane only: the same
 ``np.random.default_rng(seed)`` stream in the same order, so partitions,
 latencies, tier maps and the dropout schedule equal the reference's
-bitwise.  The padded train stacks live on the environment's device.  The
-initial model comes from a ``torch.Generator`` seeded with ``seed``, or is
-injected (``params0=``, e.g. the reference's as numpy; a nested tree,
-the LM's, is flattened to the model's flat keys).
+bitwise, and the fault plane's transient churn windows come from the same
+dedicated stream (core/faults.py ``churn_schedule``).  The padded train
+stacks live on the environment's device.  The initial model comes from a
+``torch.Generator`` seeded with ``seed``, or is injected (``params0=``,
+e.g. the reference's as numpy; a nested tree, the LM's, is flattened to
+the model's flat keys).
 """
 from __future__ import annotations
 
@@ -21,6 +23,7 @@ from typing import Any, Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch.core import faults as faults_mod
 from repro_torch.core import tiering
 from repro_torch.core.clients import make_client_update, make_eval_fn
 from repro_torch.data.federated import make_federated, pad_stack
@@ -35,8 +38,8 @@ PAPER_DELAY_BANDS = ((0.0, 0.0), (0.0, 5.0), (6.0, 10.0), (11.0, 15.0),
 @dataclasses.dataclass
 class SimConfig:
     """The reference's SimConfig fields.  The planes the port does not
-    run yet must stay at their defaults: churn (``churn_rate``, ROADMAP
-    A12), ``population`` (A13), ``topology`` (A14) and ``mesh`` (A16)."""
+    run yet must stay at their defaults: ``population`` (ROADMAP A13),
+    ``topology`` (A14) and ``mesh`` (A16)."""
     model: str = "cnn"
     n_clients: int = 100
     n_classes: int = 10
@@ -72,7 +75,6 @@ class SimConfig:
     def check_ported(self) -> None:
         """Raise for a plane the port does not run yet."""
         for on, what, item in (
-                (self.churn_rate > 0, "client churn (churn_rate > 0)", "A12"),
                 (self.population is not None, "the population plane", "A13"),
                 (self.topology is not None, "the topology plane", "A14"),
                 (self.mesh not in (None, "single") or self.shard_tiers,
@@ -123,6 +125,13 @@ class SimEnv:
         self.dropout_at = np.full(sc.n_clients, np.inf)
         self.dropout_at[self.dropout_ids] = rng.uniform(
             *sc.dropout_window, size=sc.n_unstable)
+
+        # transient churn windows on top of permanent dropout, drawn from
+        # the dedicated fault stream so the environment rng above is
+        # untouched; None when churn is off
+        self.churn_down = faults_mod.churn_schedule(
+            sc.n_clients, sc.churn_rate, sc.churn_events,
+            sc.churn_downtime, sc.churn_window, sc.fault_seed)
 
         if params0 is None:
             gen = torch.Generator().manual_seed(sc.seed)
@@ -175,8 +184,18 @@ class SimEnv:
         return self._executor
 
     def alive(self, now: float) -> np.ndarray:
-        """Per-client availability at ``now``: not permanently dropped."""
-        return self.dropout_at > now
+        """Per-client availability at ``now``: not permanently dropped and
+        not inside a transient churn down-window.  A client sampled while
+        up can be down by the time its round completes — the strategies
+        re-filter on completion, which is how mid-round failures shrink
+        the participant set.  With churn off this is the exact
+        permanent-dropout compare."""
+        up = self.dropout_at > now
+        if self.churn_down is not None:
+            starts, ends = self.churn_down
+            down = ((starts <= now) & (now < ends)).any(axis=1)
+            up = up & ~down
+        return up
 
     def retier(self, rng: np.random.Generator, drift: float = 0.2) -> bool:
         """Re-profile client latencies and rebuild the tier map; returns

@@ -8,9 +8,11 @@ cosine schedule, and AdamW with global-norm clipping.  The trainer's
 state is updated in place (``optim.adamw``), so a model of billions of
 parameters keeps one copy of its params and moments on the card.
 
-The multi-pod FedAT step (pods as tiers), the batch split for pods and
-the fault plane's update gate are not ported yet: they raise naming
-ROADMAP A16 (the mesh) and A12 (the fault plane).
+The fault plane's server-side update gate (:class:`UpdateGate`,
+:func:`poison_updates`, :func:`gate_updates`) runs as plain torch ops on
+the K-stacked client dict, with no host read, inside the executor's gated
+rounds.  The multi-pod FedAT step (pods as tiers) and the batch split for
+pods are not ported yet: they raise naming ROADMAP A16 (the mesh).
 """
 from __future__ import annotations
 
@@ -130,20 +132,86 @@ def split_batch_for_pods(*args, **kwargs):
         "yet (ROADMAP A16: the mesh)")
 
 
-def _fault_plane(what: str):
-    return NotImplementedError(
-        f"{what} (the fault plane's update gate) is not ported to the "
-        f"PyTorch package yet (ROADMAP A12)")
+# ---------------------------------------------------------------------------
+# server-side update validation gate (the fault plane)
+# ---------------------------------------------------------------------------
 
-
+@dataclasses.dataclass(frozen=True)
 class UpdateGate:
-    def __init__(self, *args, **kwargs):
-        raise _fault_plane("UpdateGate")
+    """Validation applied to *decoded* client uplinks before Eq. 4:
+    non-finite client updates are zero-weighted (and their payloads
+    sanitized to the reference params, since NaN * 0 is still NaN inside
+    the weighted average) and, when ``clip_norm > 0``, every surviving
+    update's delta from the reference is L2-clipped."""
+    clip_norm: float = 0.0
 
 
-def poison_updates(*args, **kwargs):
-    raise _fault_plane("poison_updates")
+def _expand(mask: torch.Tensor, leaf: torch.Tensor) -> torch.Tensor:
+    return mask.reshape((-1,) + (1,) * (leaf.dim() - 1))
 
 
-def gate_updates(*args, **kwargs):
-    raise _fault_plane("gate_updates")
+def poison_updates(client_params: Dict[str, torch.Tensor],
+                   poison: torch.Tensor) -> Dict[str, torch.Tensor]:
+    """Overwrite poisoned clients' float leaves with NaN — the fault
+    plane's stand-in for a corrupted uplink.  Applied *after* the uplink
+    codec decode (a lossy codec would otherwise scrub the injected NaNs
+    before the gate sees them).  ``poison`` is a (K,) bool tensor over the
+    padded client axis."""
+    return {k: (torch.where(_expand(poison, v),
+                            torch.full((), float("nan"), dtype=v.dtype,
+                                       device=v.device), v)
+                if v.is_floating_point() else v)
+            for k, v in client_params.items()}
+
+
+def gate_updates(client_params: Dict[str, torch.Tensor],
+                 w_intra: torch.Tensor, ref: Dict[str, torch.Tensor],
+                 clip_norm: float):
+    """The gate body: ``client_params`` is the K-stacked decoded uplink
+    dict, ``w_intra`` the (K,) Eq. 4 sample weights, ``ref`` the params
+    the clients trained from.  Returns ``(sanitized_params,
+    gated_weights, any_ok)``, ``any_ok`` a 0-d bool tensor (never read on
+    the host here):
+
+      * clients with any non-finite float leaf get weight 0 and their
+        payload replaced by ``ref`` (sanitize, then weight);
+      * with ``clip_norm > 0`` each surviving delta from ``ref`` is
+        clipped to that L2 norm, summed in f32 over the leaves in the
+        reference's leaf order (sorted keys);
+      * surviving weights renormalize to 1 over the finite clients;
+      * ``any_ok`` is False when *no* client survived — callers keep the
+        previous model in that case.
+    """
+    keys = sorted(client_params)
+    k = w_intra.shape[0]
+    ok = torch.ones((k,), dtype=torch.bool, device=w_intra.device)
+    for key in keys:
+        leaf = client_params[key]
+        if leaf.is_floating_point():
+            ok = ok & torch.isfinite(leaf).reshape(k, -1).all(dim=1)
+    client_params = {
+        key: torch.where(_expand(ok, client_params[key]), client_params[key],
+                         ref[key][None].expand_as(client_params[key]))
+        for key in keys}
+
+    if clip_norm > 0:
+        sq = torch.zeros((k,), dtype=torch.float32, device=w_intra.device)
+        for key in keys:
+            d = (client_params[key].to(torch.float32)
+                 - ref[key][None].to(torch.float32))
+            sq = sq + (d.reshape(k, -1) ** 2).sum(dim=1)
+        norm = torch.sqrt(sq)
+        scale = (clip_norm / norm.clamp_min(1e-12)).clamp_max(1.0)
+        client_params = {
+            key: (ref[key][None].to(torch.float32)
+                  + (client_params[key].to(torch.float32)
+                     - ref[key][None].to(torch.float32))
+                  * _expand(scale, client_params[key])
+                  ).to(client_params[key].dtype)
+            for key in keys}
+
+    w = w_intra * ok
+    total = w.sum()
+    any_ok = total > 0
+    w = torch.where(any_ok, w / total.clamp_min(1e-30), torch.zeros_like(w))
+    return client_params, w, any_ok

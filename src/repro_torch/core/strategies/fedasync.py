@@ -64,3 +64,13 @@ class FedAsyncStrategy(ServerStrategy):
         if self.codec is not None:  # track the drifting wire ratio, sampled
             self._ratio = self.codec.measure_ratio(self.w,
                                                    self.ratio_sample_elems)
+
+    # -- crash-resume ---------------------------------------------------
+    def snapshot(self):
+        return ({"w": {k: v.clone() for k, v in self.w.items()}},
+                {"version": self.server_version, "ratio": self._ratio})
+
+    def restore(self, dev, host) -> None:
+        self.w = dev["w"]
+        self.server_version = int(host["version"])
+        self._ratio = host["ratio"]

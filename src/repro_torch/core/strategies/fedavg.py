@@ -4,7 +4,9 @@ clients globally, wait for the slowest (paper §6.1).
 The paper's baseline runs raw f32 links (``codec=None``, the default); a
 transport codec compresses both links exactly like the FedAT round.  A
 round is scheduled while handling the previous round's completion event,
-so the engine's queue always holds exactly one round event.
+so the engine's queue always holds exactly one round event.  Under the
+fault plane's gate the round runs gated (poisoned uplinks zero-weighted,
+deltas clipped); blackout markers are ignored, as in the reference.
 """
 from __future__ import annotations
 
@@ -61,8 +63,15 @@ class FedAvgStrategy(ServerStrategy):
             self._schedule(env, ctx)
             return Outcome.SKIP_ROUND
         ctx.bytes_down += len(ids) * env.model_bytes * self._ratio
-        self.w = ctx.executor.fedavg_round(self.w, ids, ctx.draw_seed(),
-                                           codec=self.codec)
+        gate = None if ctx.faults is None else ctx.faults.gate
+        if gate is None:
+            self.w = ctx.executor.fedavg_round(self.w, ids, ctx.draw_seed(),
+                                               codec=self.codec)
+        else:
+            poison = ctx.faults.draw_poison(len(ids), ctx.executor.K)
+            self.w = ctx.executor.fedavg_round(self.w, ids, ctx.draw_seed(),
+                                               codec=self.codec, gate=gate,
+                                               poison=poison)
         ctx.bytes_up += len(ids) * env.model_bytes * self._ratio
         self._schedule(env, ctx)
         return Outcome.STEP
@@ -74,3 +83,12 @@ class FedAvgStrategy(ServerStrategy):
         if self.codec is not None:  # track the drifting wire ratio, sampled
             self._ratio = self.codec.measure_ratio(self.w,
                                                    self.ratio_sample_elems)
+
+    # -- crash-resume ---------------------------------------------------
+    def snapshot(self):
+        return ({"w": {k: v.clone() for k, v in self.w.items()}},
+                {"ratio": self._ratio})
+
+    def restore(self, dev, host) -> None:
+        self.w = dev["w"]
+        self._ratio = host["ratio"]

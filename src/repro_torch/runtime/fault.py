@@ -20,8 +20,8 @@ train step with:
   * simulated failure injection for tests (``inject_failure_rate``).
 
 This wrapper guards the *datacenter trainer* loop (launch/train.py).  The
-simulation engine's fault story (the reference's core/faults.py, ROADMAP
-A12 in the port) is another thing: there,
+simulation engine's fault story (core/faults.py) is another thing:
+there,
 faults are spec-driven and deterministic (churn windows, tier blackouts,
 poisoned uplinks, bitwise crash-resume), because the engine's contract is
 a reproducible trajectory — retry/backoff wall-clock machinery like this

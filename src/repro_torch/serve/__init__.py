@@ -8,14 +8,16 @@ The port of ``repro/serve``:
   * :mod:`repro_torch.serve.loadgen` — open-loop Poisson load generation
     and the p50/p95/p99 latency + throughput report.
   * :mod:`repro_torch.serve.spec`    — :class:`ServeSpec`.
-
-Serving a federated checkpoint (``repro/serve/loader.py``) needs the
-engine's checkpointing first (ROADMAP A12; the federated ``tiny_lm``
-path and the checkpoint module are ported): :func:`load_checkpoint`,
-:class:`LoadedCheckpoint` and :func:`serve_from_checkpoint` raise until
-then.
+  * :mod:`repro_torch.serve.loader`  — resolve a checkpoint directory by
+    spec hash (the ``spec.json`` sidecar), rebuild the registered model
+    from the spec, restore the exact step the sidecar names onto the
+    caller's device.
 """
 from repro_torch.serve.engine import ServeEngine, ServeRequest  # noqa: F401
+from repro_torch.serve.loader import (  # noqa: F401
+    LoadedCheckpoint,
+    load_checkpoint,
+)
 from repro_torch.serve.loadgen import (  # noqa: F401
     make_requests,
     poisson_arrivals,
@@ -23,20 +25,12 @@ from repro_torch.serve.loadgen import (  # noqa: F401
 )
 from repro_torch.serve.spec import ServeSpec  # noqa: F401
 
-_UNPORTED = ("serving a federated checkpoint is not ported to the PyTorch "
-             "package yet (ROADMAP A12: the engine's checkpoint and "
-             "resume); serve a zoo decoder with "
-             "python -m repro_torch.launch.serve")
 
-
-def load_checkpoint(*args, **kwargs):
-    raise NotImplementedError(_UNPORTED)
-
-
-class LoadedCheckpoint:
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(_UNPORTED)
-
-
-def serve_from_checkpoint(*args, **kwargs):
-    raise NotImplementedError(_UNPORTED)
+def serve_from_checkpoint(checkpoint_dir, serve_spec, requests,
+                          device=None):
+    """Load a spec-hash-verified checkpoint onto ``device`` (None = cuda)
+    and serve ``requests`` through a fresh engine; returns ``(loaded,
+    done_requests)``."""
+    loaded = load_checkpoint(checkpoint_dir, device=device)
+    eng = ServeEngine(loaded.config, loaded.lm_params, serve_spec)
+    return loaded, eng.run(requests)

@@ -63,6 +63,11 @@ def test_old_documents_parse_like_the_reference():
         tapi.ExperimentSpec().with_overrides({"nope.x": 1})
 
 
+#: an out-of-range value of each fault knob, refused by both packages
+FAULT_BAD = {"faults.churn_rate": 1.5, "faults.blackouts": -1,
+             "faults.checkpoint_every": -2}
+
+
 @pytest.mark.parametrize("path,value,item", [
     ("faults.churn_rate", 0.1, "A12"),
     ("faults.blackouts", 2, "A12"),
@@ -72,8 +77,25 @@ def test_old_documents_parse_like_the_reference():
     ("mesh.kind", "host", "A16"),
 ])
 def test_unported_sections_name_their_roadmap_item(path, value, item):
+    """The planes still to port (A13, A14, A16) refuse non-default
+    values naming their item.  The fault plane (A12) is ported: its
+    knobs validate, hash as in the reference, and an out-of-range value
+    raises the reference's message."""
     spec = tapi.ExperimentSpec().with_overrides({path: value})
-    japi.ExperimentSpec().with_overrides({path: value})   # valid there
+    jspec = japi.ExperimentSpec().with_overrides({path: value})
+    jspec.validate()                                       # valid there
+    if item == "A12":
+        spec.validate()
+        assert spec.hash() == jspec.hash()
+        assert spec.env_hash() == jspec.env_hash()
+        msgs = []
+        for api in (japi, tapi):
+            with pytest.raises(api.SpecError) as e:
+                api.ExperimentSpec().with_overrides(
+                    {path: FAULT_BAD[path]}).validate()
+            msgs.append(str(e.value))
+        assert msgs[1] == msgs[0] and path in msgs[1]
+        return
     with pytest.raises(tapi.SpecError, match=item):
         spec.validate()
 
@@ -116,14 +138,26 @@ def test_cli_print_spec_matches_reference(capsys):
 
 
 @pytest.mark.parametrize("argv,match", [
-    (["serve", "--resume-from", "x"], "A15"),
-    (["--checkpoint-dir", "x"], "A12"),
-    (["--resume-from", "x"], "A12"),
+    pytest.param(["serve", "--resume-from", "no/such/dir"],
+                 "spec error: no spec.json", id="argv0-A15"),
+    pytest.param(["--checkpoint-dir", "x", "--sweep",
+                  "transport.codec=none,quantize8"],
+                 "apply to single runs, not sweeps", id="argv1-A12"),
+    pytest.param([*SMALL, "--resume-from", "no/such/dir"],
+                 "spec error: no spec.json", id="argv2-A12"),
 ])
 def test_cli_unported_paths_fail_fast(argv, match, capsys):
-    with pytest.raises(SystemExit) as e:
-        tcli.main(argv)
-    assert match in str(e.value) + capsys.readouterr().err
+    """The checkpoint flags and the serve subcommand are ported (A12,
+    A15): a bad use fails fast with the reference CLI's message."""
+    from repro.api import cli as jcli
+    msgs = []
+    for main, extra in ((jcli.main, []), (tcli.main, ["--device", "cpu"])):
+        with pytest.raises(SystemExit) as e:
+            main(argv + extra)
+        err = capsys.readouterr().err
+        msgs.append(str(e.value) if e.value.code != 2
+                    else err.splitlines()[-1].split(": error: ")[1])
+    assert msgs[1] == msgs[0] and match in msgs[1]
 
 
 def test_default_device_is_cuda_and_never_falls_back(monkeypatch):

@@ -278,7 +278,22 @@ def test_runs_are_deterministic(envs):
     ("churn_rate", 0.1, "A12"), ("population", object(), "A13"),
     ("topology", object(), "A14"), ("mesh", "host", "A16")])
 def test_unported_planes_name_their_roadmap_item(field, value, item):
-    sc = TSimConfig(n_clients=4, n_tiers=2, clients_per_round=2)
+    """The planes still to port refuse to build, naming their item.
+    Churn (A12) is ported: the environment builds with the reference's
+    churn windows (bitwise) layered on the dropout schedule."""
+    sc = TSimConfig(n_clients=4, n_tiers=2, clients_per_round=2,
+                    n_unstable=1)
     setattr(sc, field, value)
+    if item == "A12":
+        from repro.core.faults import churn_schedule
+        env = TSimEnv(sc, device="cpu")
+        want = churn_schedule(4, value, sc.churn_events, sc.churn_downtime,
+                              sc.churn_window, sc.fault_seed)
+        if want is None:
+            assert env.churn_down is None
+        else:
+            assert all(np.array_equal(a, b)
+                       for a, b in zip(env.churn_down, want))
+        return
     with pytest.raises(NotImplementedError, match=item):
         TSimEnv(sc, device="cpu")

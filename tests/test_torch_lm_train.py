@@ -175,5 +175,14 @@ def test_init_state_draws_on_the_device():
                                   "poison_updates", "gate_updates",
                                   "UpdateGate"])
 def test_unported_steps_raise(name):
-    with pytest.raises(NotImplementedError, match="A1[26]"):
-        getattr(tsteps, name)()
+    """The multi-pod step and its batch split raise naming A16; the fault
+    plane's update gate (A12) is ported with the reference's signatures
+    (tests/test_torch_faults.py holds its results to the reference's)."""
+    if name in ("make_fedat_step", "split_batch_for_pods"):
+        with pytest.raises(NotImplementedError, match="A16"):
+            getattr(tsteps, name)()
+        return
+    import inspect
+    from repro.core import steps as jsteps
+    assert (list(inspect.signature(getattr(tsteps, name)).parameters)
+            == list(inspect.signature(getattr(jsteps, name)).parameters))

@@ -266,14 +266,24 @@ def test_prototype_server_matches_reference():
 
 
 def test_checkpoint_serving_is_not_ported_yet(capsys):
-    for fn in (tserve.load_checkpoint, tserve.LoadedCheckpoint,
-               tserve.serve_from_checkpoint):
-        with pytest.raises(NotImplementedError, match="A12"):
-            fn("some/dir")
+    """Checkpoint serving is ported (A15): the loader, the
+    ``serve_from_checkpoint`` entry and the CLI's ``serve`` subcommand
+    refuse a directory without a checkpoint with the reference's error
+    (tests/test_torch_loader.py serves real checkpoints)."""
+    from repro.serve import load_checkpoint as jload
+    with pytest.raises(JSpecError) as want:
+        jload("some/dir")
+    for call in (lambda: tserve.load_checkpoint("some/dir", device="cpu"),
+                 lambda: tserve.serve_from_checkpoint(
+                     "some/dir", TSpec(), [], device="cpu")):
+        with pytest.raises(TSpecError) as e:
+            call()
+        assert str(e.value) == str(want.value)
+    assert tserve.LoadedCheckpoint.__dataclass_fields__.keys() == {
+        "spec", "spec_hash", "step", "params", "model"}
     with pytest.raises(SystemExit) as e:
-        tcli.main(["serve", "--resume-from", "x"])
-    msg = str(e.value)
-    assert "A12" in msg and "python -m repro_torch.launch.serve" in msg
+        tcli.main(["serve", "--resume-from", "some/dir", "--device", "cpu"])
+    assert str(e.value) == f"spec error: {want.value}"
     # the LM facade is the same object the launcher and engine use
     assert tlaunch.lm is tlm
 
