@@ -134,6 +134,27 @@ only, never JAX or the reference package.  Phases:
     ``cli serve --resume-from`` of its checkpoint on the card and on the
     CPU: the same tokens, flash forward launches and no backward in the
     serving; loading it under another spec's hash is refused.
+19. The population plane: FedAT quantize8 over 1,000,000 simulated
+    clients on the streaming plane (``POPULATION``: the paper CNN at
+    CIFAR-10 shape, K = 32, 5 tiers, availability, responsiveness and
+    completion processes, 10 updates) through ``api.build(spec).run()``,
+    counts from 0: exactly 2 roundtrip launches a committed round and no
+    other kernel, no resident train stack, data-plane bytes within 10% of
+    the same spec at 1,000 clients; the host time of each round's
+    materialization and upload, the population's build time, peak host
+    RSS and device memory.  The same spec at N = 256 on the stacked and
+    the streaming plane bitwise equal; a small streaming run on the card
+    against the CPU (phase 4's bound).
+20. The topology plane: FedAT quantize8 over 2 silos x 2 edges at phase
+    3's width (``TOPOLOGY``: WAN delay bands, silo skew 3, compensation
+    0.5, quantize8 on all three links, 10 silo rounds), counts from 0:
+    exactly 7 roundtrip launches a silo round and no other kernel, the
+    per-link byte ledger equal to the host-side sum over the committed
+    rounds; B1's device time in one profiled silo round.  The degenerate
+    tree (1 silo, 1 edge, zero delays) at phase 4's width bitwise the flat
+    run; two runs with snapshots every 2 updates and a run resumed from
+    its second snapshot bitwise equal; a small tree on the card against
+    the CPU (phase 4's bound).
 
 Any failed check exits non-zero.  The last three lines of standard output
 are the kernel report (JSON), the card's ``name, power.limit`` and
@@ -2911,6 +2932,468 @@ def run_fedlm_checkpoint(torch, api, cli, serve, kernels):
         shutil.rmtree(FAULT_DIR, ignore_errors=True)
 
 
+# ---------------------------------------------------------------------------
+# phase 19: the population plane at a million clients
+# ---------------------------------------------------------------------------
+
+#: the reference's population scenario (benchmarks/run.py:457-471, its 1M
+#: row) at the paper CNN's CIFAR-10 width, with the completion process
+#: on: rows capped at 4 x 24 = 96 (76 train rows), K = 32 over 5 tiers,
+#: one local epoch of batch 10 (7 local steps a round).  The streamed
+#: batch is 32 x 76 x (3072 x 4 + 4 + 1) B = 29.9 MB a round.
+POPULATION = {
+    "data.model": "cnn", "data.image_hw": 32, "data.n_classes": 10,
+    "data.n_clients": 1_000_000, "data.classes_per_client": 2,
+    "data.samples_per_client": 24, "data.seed": 8,
+    "tiers.n_tiers": 5, "tiers.clients_per_round": 32,
+    "tiers.n_unstable": 1_000_000 // 16,
+    "engine.local_epochs": 1, "engine.batch_size": 10,
+    "engine.total_updates": 10, "engine.eval_every": 10,
+    "strategy.name": "fedat", "transport.codec": "quantize8",
+    "population.plane": "streaming",
+    "population.availability": "bernoulli:0.9:20",
+    "population.responsiveness": "lognormal:0.25",
+    "population.completion": "bernoulli:0.95",
+    "population.eval_clients": 64, "population.seed": 1,
+}
+#: phase 19's card-against-CPU check: phase 4's small run on the
+#: streaming plane with every process on (1-second slots)
+SMALL_POPULATION = {
+    "population.plane": "streaming",
+    "population.availability": "bernoulli:0.9:1",
+    "population.responsiveness": "lognormal:0.25",
+    "population.completion": "bernoulli:0.9:1",
+    "population.eval_clients": 8, "population.seed": 1,
+}
+
+
+def peak_rss_bytes() -> int:
+    """This process's peak host resident set (Linux reports KiB)."""
+    import resource
+    return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024
+
+
+def _population_spec(api, n, **over):
+    return api.ExperimentSpec().with_overrides(dict(POPULATION, **{
+        "data.n_clients": n, "tiers.n_unstable": max(n // 16, 1)}, **over))
+
+
+def population_parity(torch, api, dev):
+    """The phase's spec at N = 256 on the stacked plane (the train stack
+    resident on the card) and the streaming plane: bitwise equal Metrics,
+    w_global and tier models."""
+    out = []
+    for plane in ("stacked", "streaming"):
+        run = api.build(_population_spec(
+            api, 256, **{"population.plane": plane}), device=dev)
+        out.append((run, run.run().metrics))
+        api.clear_env_cache()
+    (a, ma), (b, mb) = out
+    check(a.env.train_dev is not None and b.env.train_dev is None,
+          "phase 19: the planes' stacks are not where they belong")
+    resident = sum(v.numel() * v.element_size()
+                   for v in a.env.train_dev.values())
+    check(_trajectory(ma) == _trajectory(mb)
+          and _bits_equal(a.strategy.w_global, b.strategy.w_global)
+          and _bits_equal(a.strategy.tier_models, b.strategy.tier_models),
+          "phase 19: streaming and stacked planes disagree at N = 256")
+    return {"resident_train_bytes": resident, "rounds": ma.rounds,
+            "acc": ma.acc}
+
+
+def run_population(torch, api, kernels, SimEnv, dev):
+    """FedAT quantize8 over a million streamed clients through
+    ``api.build(spec).run()``, counts from 0: 2 roundtrip launches a
+    committed round and no other kernel, no resident train stack, the
+    data-plane bytes flat against 1,000 clients; then streaming against
+    stacked at N = 256 and a small run on the card against the CPU."""
+    spec = api.ExperimentSpec().with_overrides(POPULATION)
+    t0 = time.perf_counter()
+    run = api.build(spec, device=dev)
+    build_s = time.perf_counter() - t0
+    rss = peak_rss_bytes()
+    env, ex = run.env, run.env.executor()
+    pop = env.population
+    check(env.streaming and env.train is None and env.train_dev is None,
+          "phase 19: the streaming plane holds a resident train stack")
+    check((pop.n, pop.cap, pop.cap_train) == (1_000_000, 96, 76),
+          f"phase 19: population {pop.n}, caps {pop.cap}/{pop.cap_train}")
+    n_params = sum(v.numel() for v in env.params0.values())
+    check(n_params == 122570, f"phase 19: CNN has {n_params} params")
+
+    mat_s, data_s, round_s = [], [], []
+    materialize, round_data, fedat_round = \
+        pop.materialize, ex._round_data, ex.fedat_round
+
+    def timed_materialize(ids):
+        t0 = time.perf_counter()
+        out = materialize(ids)
+        mat_s.append(time.perf_counter() - t0)
+        return out
+
+    def timed_data(pid):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = round_data(pid)
+        torch.cuda.synchronize()
+        data_s.append(time.perf_counter() - t0)
+        return out
+
+    def timed_round(*a, **k):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fedat_round(*a, **k)
+        torch.cuda.synchronize()
+        round_s.append(time.perf_counter() - t0)
+        return out
+
+    pop.materialize, ex._round_data = timed_materialize, timed_data
+    ex.fedat_round = timed_round
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = run.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    del pop.materialize, ex._round_data, ex.fedat_round
+    peak = torch.cuda.max_memory_allocated()
+
+    m = res.metrics
+    rounds = len(round_s)
+    check(rounds == 10 and m.rounds and m.rounds[-1] == 10,
+          f"phase 19: {rounds} rounds, Metrics rounds {m.rounds}")
+    check(all(math.isfinite(a) and 0.0 <= a <= 1.0 for a in m.acc),
+          f"phase 19: accuracies {m.acc}")
+    check(all(bool(torch.isfinite(v).all())
+              for v in run.strategy.w_global.values()),
+          "phase 19: non-finite global model")
+    check(counts == {"compress": 0, "decompress": 0, "roundtrip": 2 * rounds,
+                     "flash_attention": 0, "flash_attention_bwd": 0,
+                     "wkv6": 0, "ssd": 0},
+          f"phase 19: launch counts {counts}, expected {2 * rounds} "
+          f"roundtrip launches and no other")
+    check(len(mat_s) == len(data_s) == rounds,
+          f"phase 19: {len(mat_s)} materializations for {rounds} rounds")
+    check(ex.stream_bytes == pop.batch_nbytes(32),
+          f"phase 19: streamed {ex.stream_bytes} bytes a round, expected "
+          f"{pop.batch_nbytes(32)}")
+    upload_s = [d - t for d, t in zip(data_s, mat_s)]
+    dp, batch = env.data_plane_bytes(), ex.stream_bytes
+    api.clear_env_cache()
+    del run, env, ex, pop
+
+    # the flat-memory bound: the same spec at 1,000 clients
+    small = api.build(_population_spec(api, 1000, **{
+        "engine.total_updates": 2, "engine.eval_every": 2}), device=dev)
+    small.run()
+    dp_1k = small.env.data_plane_bytes()
+    api.clear_env_cache()
+    del small
+    check(abs(dp / dp_1k - 1.0) <= 0.10,
+          f"phase 19: data-plane bytes {dp} at 1M against {dp_1k} at 1k")
+    parity = population_parity(torch, api, dev)
+    agree = card_vs_cpu(torch, api, SimEnv, dev, SMALL_POPULATION, "19",
+                        "2 FedAT quantize8 updates on the streaming plane")
+    info = {
+        "spec_hash": res.spec_hash, "rounds": rounds, "wall_s": wall,
+        "events_per_s": rounds / wall,
+        "ms_per_round": 1e3 * float(np.median(round_s)),
+        "ms_per_round_each": [1e3 * r for r in round_s],
+        "materialize_ms_each": [1e3 * t for t in mat_s],
+        "upload_ms_each": [1e3 * t for t in upload_s],
+        "materialize_ms": 1e3 * float(np.median(mat_s)),
+        "upload_ms": 1e3 * float(np.median(upload_s)),
+        "batch_bytes": batch,
+        "build_s": build_s, "peak_rss_bytes_after_build": rss,
+        "peak_mem_bytes": peak, "launches": counts,
+        "data_plane_bytes": dp, "data_plane_bytes_1k": dp_1k,
+        "acc": m.acc, "sim_time": m.times[-1], "parity_256": parity,
+        "card_vs_cpu": agree,
+    }
+    log(f"phase 19: FedAT quantize8 over {POPULATION['data.n_clients']:,} "
+        f"streamed clients (K=32, 7 local steps a round): built in "
+        f"{build_s:.2f} s (process peak host RSS {rss / 2**30:.2f} GiB), "
+        f"{rounds} rounds in {wall:.3f} s "
+        f"({info['events_per_s']:.4f} events/s, {info['ms_per_round']:.2f} "
+        f"ms/round median), materialize {info['materialize_ms']:.2f} ms "
+        f"and upload {info['upload_ms']:.2f} ms a round (medians) of "
+        f"{batch} bytes; acc {m.acc}, peak {peak / 2**20:.1f} MiB, "
+        f"launches {counts}")
+    log(f"phase 19: data-plane bytes {dp} at 1M, {dp_1k} at 1k "
+        f"(ratio {dp / dp_1k:.4f}); N = 256 stacked "
+        f"({parity['resident_train_bytes']} resident bytes) and streaming "
+        f"bitwise equal")
+    return info
+
+
+# ---------------------------------------------------------------------------
+# phase 20: the topology plane at full width
+# ---------------------------------------------------------------------------
+
+#: the reference's topology scenario (benchmarks/run.py:542-562) at phase
+#: 3's width: 2 silos x 2 edges of K_edge = 5 over 100 clients of 500
+#: samples, one flat tier (the edges are the latency tiers inside each
+#: silo), WAN delays on every link class, silo 1's WAN 4x silo 0's,
+#: compensation 0.5, quantize8 on all three links: 7 roundtrip launches a
+#: silo round (3 downlink, 1 client_edge uplink, 2 edge_silo, 1
+#: silo_global)
+TOPOLOGY = dict(FULL, **{
+    "tiers.n_tiers": 1, "tiers.n_unstable": 0,
+    "topology.n_silos": 2, "topology.edges_per_silo": 2,
+    "topology.clients_per_edge": 5,
+    "topology.delay.client_edge": [0.5, 1.5],
+    "topology.delay.edge_silo": [1.0, 3.0],
+    "topology.delay.silo_global": [20.0, 60.0],
+    "topology.silo_skew": 3.0, "topology.compensation": 0.5,
+    "topology.codec.client_edge": "quantize8",
+    "topology.codec.edge_silo": "quantize8",
+    "topology.codec.silo_global": "quantize8",
+})
+#: roundtrip launches a silo round: the downlink chain (3), the
+#: client_edge uplink (1), one edge_silo per edge (2), silo_global (1)
+TOPOLOGY_LAUNCHES = 7
+#: the crash-resume check, cut in depth: 6 updates, snapshots every 2
+TOPOLOGY_RESUME = {"engine.total_updates": 6, "engine.eval_every": 2,
+                   "faults.checkpoint_every": 2}
+#: phase 20's card-against-CPU check: phase 4's small run as a 2 x 2 tree
+SMALL_TOPOLOGY = {
+    "tiers.n_tiers": 1, "topology.n_silos": 2, "topology.edges_per_silo": 2,
+    "topology.clients_per_edge": 2, "topology.delay.silo_global": [1.0, 3.0],
+    "topology.compensation": 0.5, "topology.codec.edge_silo": "quantize8",
+    "topology.codec.silo_global": "quantize8",
+}
+TOPOLOGY_DIR = ROOT / "build" / "chip_smoke_topology"
+
+
+class _Abort(Exception):
+    pass
+
+
+def degenerate_tree(torch, api, dev):
+    """1 silo, 1 edge, zero-width delay band at phase 4's width, one flat
+    tier: bitwise the flat FedAT quantize8 run on the card."""
+    base = dict(SMALL, **{"tiers.n_tiers": 1, "engine.total_updates": 4,
+                          "engine.eval_every": 2})
+    runs = []
+    for over in ({}, {"topology.delay.silo_global": [0.0, 0.0]}):
+        run = api.build(api.ExperimentSpec().with_overrides(
+            dict(base, **over)), device=dev)
+        runs.append((run, run.run().metrics))
+    (a, ma), (b, mb) = runs
+    check(b.env.topology is not None and a.env.topology is None,
+          "phase 20: the degenerate tree did not build a topology")
+    check(_trajectory(ma) == _trajectory(mb)
+          and _bits_equal(a.strategy.w_global, b.strategy.w_global)
+          and _bits_equal(a.strategy.tier_models, b.strategy.tier_models),
+          "phase 20: the degenerate tree differs from the flat run")
+    return {"rounds": mb.rounds, "acc": mb.acc}
+
+
+def topology_resume(torch, api, dev):
+    """Two runs with engine snapshots every 2 updates, then a run cut at
+    its third eval (snapshots 2 and 4 on disk) resumed from the second
+    snapshot: all three bitwise equal (trajectory, w_global, the silo and
+    dispatch stacks, the per-link ledger)."""
+    import shutil
+    spec = api.ExperimentSpec().with_overrides(dict(TOPOLOGY,
+                                                    **TOPOLOGY_RESUME))
+    shutil.rmtree(TOPOLOGY_DIR, ignore_errors=True)
+    TOPOLOGY_DIR.mkdir(parents=True)
+    try:
+        runs = []
+        for i in (1, 2):
+            run = api.build(spec, device=dev)
+            m = run.run(checkpoint_dir=str(TOPOLOGY_DIR / f"run{i}")).metrics
+            runs.append((run, m))
+        seen = []
+
+        def bomb(point):
+            seen.append(point)
+            if len(seen) == 3:
+                raise _Abort
+        cut = str(TOPOLOGY_DIR / "cut")
+        try:
+            api.build(spec, device=dev).run(on_eval=bomb, checkpoint_dir=cut)
+            fail("phase 20: the cut run was not cut")
+        except _Abort:
+            pass
+        left = sorted(p.name for p in (TOPOLOGY_DIR / "cut" /
+                                       "engine").glob("step_*"))
+        check(left == [f"step_{2:010d}", f"step_{4:010d}"],
+              f"phase 20: snapshots at the cut: {left}")
+        run3 = api.build(spec, device=dev)
+        t0 = time.perf_counter()
+        runs.append((run3, run3.run(checkpoint_dir=cut,
+                                    resume_engine=True).metrics))
+        torch.cuda.synchronize()
+        resume_s = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(TOPOLOGY_DIR, ignore_errors=True)
+    (a, ma) = runs[0]
+    for b, mb in runs[1:]:
+        check(_trajectory(mb) == _trajectory(ma)
+              and all(_bits_equal(getattr(a.strategy, n),
+                                  getattr(b.strategy, n))
+                      for n in ("w_global", "tier_models", "dispatch"))
+              and a.strategy.link_bytes == b.strategy.link_bytes,
+              "phase 20: snapshotted or resumed silo runs disagree")
+    return {"snapshots_at_cut": left, "resume_wall_s": resume_s,
+            "rounds": ma.rounds}
+
+
+def profile_silo_round(torch, run, kernels):
+    """One more silo round under torch.profiler (outside the counted
+    run): B1's device time and launches in it."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    env, st = run.env, run.strategy
+    topo = env.topology
+    ids = [m[:topo.k_edge] for m in topo.edge_members[0]]
+    cw = np.full(topo.n_silos, 1.0 / topo.n_silos, np.float32)
+    torch.cuda.synchronize()
+    before = kernels.launch_counts()["roundtrip"]
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        env.executor().fedat_topology_round(
+            st.w_global, st.tier_models, st.dispatch, 0, ids, 12345,
+            codecs=st.link_codecs, use_prox=True, cross_weights=cw)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    launches = kernels.launch_counts()["roundtrip"] - before
+    dev_ms, codec_ms, events = 0.0, 0.0, 0
+    for e in prof.key_averages():
+        if getattr(e, "device_type", None) != DeviceType.CUDA:
+            continue
+        dev_ms += e.self_device_time_total / 1e3
+        if "roundtrip_kernel" in e.key:
+            codec_ms += e.self_device_time_total / 1e3
+            events += e.count
+    check(launches == TOPOLOGY_LAUNCHES,
+          f"phase 20: the profiled silo round made {launches} roundtrip "
+          f"launches, expected {TOPOLOGY_LAUNCHES}")
+    if dev_ms == 0:
+        log("phase 20: profiler saw no kernel time: B1's share not measured")
+        return {"profiled_wall_ms": wall_ms, "device_ms": None,
+                "codec_launches": launches}
+    return {"profiled_wall_ms": wall_ms, "device_ms": dev_ms,
+            "codec_ms": codec_ms, "codec_kernel_events": events,
+            "codec_launches": launches}
+
+
+def run_topology(torch, api, kernels, SimEnv, dev):
+    """FedAT quantize8 over the 2 x 2 tree at phase 3's width through
+    ``api.build(spec).run()``, counts from 0: 7 roundtrip launches a
+    committed silo round and no other kernel, the per-link ledger equal to
+    the host-side sum over the committed rounds; then the degenerate tree,
+    crash-resume and a small tree on the card against the CPU."""
+    from repro_torch.core.topology import LINK_CLASSES
+    spec = api.ExperimentSpec().with_overrides(TOPOLOGY)
+    t0 = time.perf_counter()
+    run = api.build(spec, device=dev)
+    build_s = time.perf_counter() - t0
+    env, ex = run.env, run.env.executor()
+    topo = env.topology
+    check((topo.n_silos, topo.edges_per_silo, topo.k_edge) == (2, 2, 5),
+          f"phase 20: tree {topo.n_silos} x {topo.edges_per_silo}, "
+          f"K_edge {topo.k_edge}")
+    live, round_s = [], []
+    orig = ex.fedat_topology_round
+
+    def timed(w, silos, dispatch, s, ids_edges, seed, **k):
+        live.append([len(i) for i in ids_edges])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = orig(w, silos, dispatch, s, ids_edges, seed, **k)
+        torch.cuda.synchronize()
+        round_s.append(time.perf_counter() - t0)
+        return out
+
+    ex.fedat_topology_round = timed
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = run.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    del ex.fedat_topology_round
+    peak = torch.cuda.max_memory_allocated()
+
+    m, st = res.metrics, run.strategy
+    rounds = len(round_s)
+    check(rounds == 10 and m.rounds and m.rounds[-1] == 10,
+          f"phase 20: {rounds} silo rounds, Metrics rounds {m.rounds}")
+    check(all(math.isfinite(a) and 0.0 <= a <= 1.0 for a in m.acc),
+          f"phase 20: accuracies {m.acc}")
+    check(all(bool(torch.isfinite(v).all()) for v in st.w_global.values()),
+          "phase 20: non-finite global model")
+    check(counts == {"compress": 0, "decompress": 0,
+                     "roundtrip": TOPOLOGY_LAUNCHES * rounds,
+                     "flash_attention": 0, "flash_attention_bwd": 0,
+                     "wkv6": 0, "ssd": 0},
+          f"phase 20: launch counts {counts}, expected "
+          f"{TOPOLOGY_LAUNCHES} roundtrip launches x {rounds} silo rounds "
+          f"and no other")
+    # the ledger, summed on the host from the committed rounds' live
+    # counts (quantize8's wire ratio depends on the leaf sizes only)
+    mb = env.model_bytes
+    ratio = dict(zip(LINK_CLASSES, (c.measure_ratio(env.params0)
+                                    for c in st.link_codecs)))
+    want = {k: 0.0 for k in LINK_CLASSES}
+    for n in live:
+        want["client_edge"] += 2 * sum(n) * mb * ratio["client_edge"]
+        want["edge_silo"] += 2 * sum(1 for x in n if x) * mb \
+            * ratio["edge_silo"]
+        want["silo_global"] += 2 * mb * ratio["silo_global"]
+    check(st.link_bytes == want,
+          f"phase 20: link bytes {st.link_bytes}, expected {want}")
+    profile = profile_silo_round(torch, run, kernels)
+    del run, env, ex
+    # the checks; the resumed runs reuse the cached environment
+    part_s = {}
+    t0 = time.perf_counter()
+    resume = topology_resume(torch, api, dev)
+    api.clear_env_cache()
+    part_s["resume"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    degenerate = degenerate_tree(torch, api, dev)
+    part_s["degenerate"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    agree = card_vs_cpu(torch, api, SimEnv, dev, SMALL_TOPOLOGY, "20",
+                        "2 silo rounds of a 2 x 2 tree")
+    part_s["card_vs_cpu"] = time.perf_counter() - t0
+    api.clear_env_cache()
+    info = {
+        "spec_hash": res.spec_hash, "rounds": rounds, "wall_s": wall,
+        "events_per_s": rounds / wall,
+        "ms_per_round": 1e3 * float(np.median(round_s)),
+        "ms_per_round_each": [1e3 * r for r in round_s],
+        "live_per_edge": live, "link_bytes": dict(st.link_bytes),
+        "peak_mem_bytes": peak, "launches": counts, "acc": m.acc,
+        "sim_time": m.times[-1], "profile": profile, "build_s": build_s,
+        "check_s": part_s, "degenerate": degenerate, "resume": resume,
+        "card_vs_cpu": agree,
+    }
+    codec = ("not measured" if profile["device_ms"] is None else
+             f"{profile['codec_ms']:.4f} ms of {profile['device_ms']:.1f} "
+             f"ms device time in {profile['codec_kernel_events']} events")
+    log(f"phase 20: FedAT quantize8 over a 2 x 2 tree at full width, "
+        f"{rounds} silo rounds ({m.times[-1]:.1f} simulated s) in "
+        f"{wall:.3f} s ({info['events_per_s']:.4f} events/s, "
+        f"{info['ms_per_round']:.2f} ms a silo round median), acc {m.acc}, "
+        f"peak {peak / 2**20:.1f} MiB, launches {counts}; link bytes "
+        f"{st.link_bytes}; B1 in a profiled silo round: {codec}")
+    log(f"phase 20: degenerate tree bitwise the flat run; snapshots "
+        f"{resume['snapshots_at_cut']} at the cut, resumed in "
+        f"{resume['resume_wall_s']:.3f} s, bitwise equal; environment "
+        f"built in {build_s:.2f} s, checks took {part_s} s")
+    return info
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="also write every number as JSON here")
@@ -3020,6 +3503,12 @@ def main() -> None:
                         main_path["events_per_s"])
     # phase 18: the federated LM's checkpoint served, counts from 0
     fedlm_ckpt = run_fedlm_checkpoint(torch, api, cli, serve, kernels)
+    torch.cuda.empty_cache()
+    # phase 19: the population plane at 1M clients, counts from 0
+    population = run_population(torch, api, kernels, SimEnv, dev)
+    torch.cuda.empty_cache()
+    # phase 20: the topology plane at full width, counts from 0
+    topology = run_topology(torch, api, kernels, SimEnv, dev)
 
     src = "src/repro_torch/kernels/csrc/polyline_codec.cu"
     # the main path's lossy step: B1a and B1b fused, per stacked uplink
@@ -3038,7 +3527,10 @@ def main() -> None:
         "downlink_floor_ms": down["floor_ms"],
         "faults_launches": faults["launches"]["roundtrip"],
         "fedlm_faults_launches":
-            fedlm_ckpt["train_launches"]["roundtrip"]}]
+            fedlm_ckpt["train_launches"]["roundtrip"],
+        "population_launches": population["launches"]["roundtrip"],
+        "topology_launches": topology["launches"]["roundtrip"],
+        "topology_silo_round_ms": topology["profile"].get("codec_ms")}]
     # the reference's pair, held in phase 2 and off the main path since
     # the roundtrip fused it (its launches there are 0)
     for name, line in (("compress", 52), ("decompress", 69)):
@@ -3142,7 +3634,8 @@ def main() -> None:
             "flash_bwd": flash_bwd, "federated_lm": fedlm,
             "federated_lm_card_vs_cpu": fedlm_agree,
             "trainer": trainer, "faults": faults,
-            "fedlm_checkpoint": fedlm_ckpt}, indent=2))
+            "fedlm_checkpoint": fedlm_ckpt, "population": population,
+            "topology": topology}, indent=2))
     print(json.dumps({"kernels": report}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -6,11 +6,11 @@ therefore the same content hash (the default spec hashes to
 ``60fd95ec9d49`` in both packages).  The device a run uses is *not* part of
 the spec: it is an argument of ``api.build``.
 
-Validation is the reference's for everything the port runs, the fault
-plane's ``faults`` section included.  Sections whose planes are not
-ported yet accept only their defaults and name the ROADMAP item that
-ports them: population (A13), topology (A14), mesh (A16).  Every
-registered model is ported, the ``tiny_lm`` LMs included.
+Validation is the reference's for everything the port runs, the fault,
+population and topology sections included.  The ``mesh`` section, whose
+plane is not ported yet, accepts only its defaults and names the ROADMAP
+item that ports it (A16).  Every registered model is ported, the
+``tiny_lm`` LMs included.
 """
 from __future__ import annotations
 
@@ -21,6 +21,8 @@ import json
 from typing import Any, Dict, Optional, Tuple
 
 from repro_torch.compress import transport
+from repro_torch.core import population as population_mod
+from repro_torch.core import topology as topology_mod
 from repro_torch.core.simulation import PAPER_DELAY_BANDS, SimConfig
 
 SPEC_VERSION = 7
@@ -326,31 +328,154 @@ class FaultSpec:
 
 @dataclasses.dataclass
 class PopulationSpec:
-    """Million-client population plane; not ported yet (legacy only)."""
+    """Million-client population plane (core/population.py).
+
+    ``plane`` selects the data path: ``"legacy"`` (the default) keeps the
+    seed generator and device-resident stacked train data — with every
+    other field at its default this section maps to *no* population
+    config at all, so golden trajectories are untouched.  ``"stacked"``
+    switches to the indexed population generator (vectorized size/class
+    draws, per-client content streams) with the full train stack still
+    device-resident; ``"streaming"`` keeps the same generator but
+    materializes only the K sampled clients' rows per round, so device
+    memory stays flat in N (the 100k–1M regime).
+
+    The stochastic client-state processes follow FLGo's taxonomy and are
+    drawn from dedicated population rng streams seeded by ``seed``:
+
+    * ``availability`` — ``"always"``, ``"bernoulli:<p>[:<period>]"``
+      (per time-slot of length ``period``, default 20 sim-seconds, each
+      client is available with probability p — fresh iid draw per slot),
+      or the diurnal ``"sine:<p>,<amp>,<period>"`` (the slot probability
+      follows ``clip(p + amp*sin(2*pi*t/period), 0, 1)``).
+    * ``responsiveness`` — ``"none"``, ``"lognormal:<sigma>"`` or
+      ``"uniform:<lo>,<hi>"``: a per-client latency multiplier applied
+      to the profiled latencies *before* tier assignment.
+    * ``completion`` — same grammar as availability: per-slot probability
+      that a sampled client actually completes its round (incomplete
+      clients are dropped before Eq. 4, which renormalizes over the
+      survivors without retracing).
+
+    ``profile`` bundles the three processes into device-class presets:
+    ``"phone:<frac>"`` marks that fraction of clients as phone-like
+    (diurnal sine availability, lognormal responsiveness, bernoulli
+    completion — the ``core/population.PHONE_*`` presets) with the rest
+    staying always-on; the class assignment draws from its own dedicated
+    stream.
+    A profile owns the process fields, so combining it with explicit
+    non-default availability/responsiveness/completion is rejected.
+
+    ``eval_clients`` caps the server-side eval set to a fixed random
+    subset (0 = every client), which keeps the test stack O(1) in N.
+    """
+    #: "legacy" | "stacked" | "streaming" (see class docstring)
     plane: str = "legacy"
     availability: str = "always"
     responsiveness: str = "none"
     completion: str = "none"
+    #: "none" or "phone:<frac>" — bundled device-class preset (owns the
+    #: three process fields above)
     profile: str = "none"
+    #: eval on a fixed random subset of this many clients (0 = all)
     eval_clients: int = 0
+    #: the dedicated population rng stream seed
     seed: int = 0
 
     def validate(self, n_clients: int) -> None:
-        _unported("population", _require_default(self), "A13",
-                  "the population plane")
+        _require(self.plane in population_mod.PLANES,
+                 f"population.plane must be one of "
+                 f"{population_mod.PLANES}, got {self.plane!r}")
+        for field_name, value, off in (
+                ("availability", self.availability, "always"),
+                ("completion", self.completion, "none")):
+            try:
+                population_mod.parse_process(value, field_name, off)
+            except ValueError as e:
+                raise SpecError(f"population.{field_name}: {e}")
+        try:
+            population_mod.parse_responsiveness(self.responsiveness)
+        except ValueError as e:
+            raise SpecError(f"population.responsiveness: {e}")
+        try:
+            prof = population_mod.parse_profile(self.profile)
+        except ValueError as e:
+            raise SpecError(f"population.profile: {e}")
+        if prof is not None and (self.availability != "always"
+                                 or self.responsiveness != "none"
+                                 or self.completion != "none"):
+            raise SpecError(
+                f"population.profile={self.profile!r} owns the "
+                f"availability/responsiveness/completion processes; drop "
+                f"the explicit process fields (or drop the profile)")
+        _require(0 <= self.eval_clients <= n_clients,
+                 f"population.eval_clients must be in "
+                 f"[0, n_clients={n_clients}], got {self.eval_clients}")
+
+    def to_config(self) -> Optional[population_mod.PopulationConfig]:
+        """The :class:`SimConfig` payload; ``None`` when every knob is at
+        its default (modulo seed), which is *exactly* the legacy plane."""
+        cfg = population_mod.PopulationConfig(
+            plane=self.plane, availability=self.availability,
+            responsiveness=self.responsiveness, completion=self.completion,
+            profile=self.profile,
+            eval_clients=self.eval_clients, seed=self.seed)
+        return cfg if cfg.active else None
+
+    @classmethod
+    def from_config(
+            cls, pc: Optional[population_mod.PopulationConfig]
+    ) -> "PopulationSpec":
+        if pc is None:
+            return cls()
+        return cls(plane=pc.plane, availability=pc.availability,
+                   responsiveness=pc.responsiveness,
+                   completion=pc.completion, profile=pc.profile,
+                   eval_clients=pc.eval_clients, seed=pc.seed)
 
 
 @dataclasses.dataclass
 class TopologySpec:
-    """Hierarchical geo-distributed federation; not ported yet (flat only)."""
+    """Hierarchical geo-distributed federation (core/topology.py).
+
+    The tree is clients -> ``edges_per_silo`` edge aggregators per silo
+    -> ``n_silos`` regional silos -> the global server.  Silos take
+    contiguous client-id blocks (region skew under the ``#class``
+    partitioner); edges within a silo are latency tiers.  Edges run the
+    synchronous intra-tier Eq. 4 average; each silo enters the global
+    Eq. 3 asynchronously with the straggler-aware cross weights (slow
+    silos renormalize out during blackouts via the elastic layer).
+
+    Each of the three link classes (``client_edge``, ``edge_silo``,
+    ``silo_global``) takes an optional uniform delay band under
+    ``delay`` (drawn per scheduled silo round from the dedicated
+    topology rng stream, composing with population responsiveness and
+    fault churn) and an optional codec override under ``codec``
+    (``client_edge`` defaults to the strategy/transport codec,
+    the WAN hops default to ``none``); per-link wire bytes are
+    accounted separately by the strategy.  ``compensation`` is the
+    delayed-gradient strength ``lam``: a silo's update is corrected by
+    ``lam * (w_global_now - w_global_at_dispatch)`` before Eq. 3
+    ("Stragglers Are Not Disaster", PAPERS.md).
+
+    The all-defaults section maps to *no* topology config (the flat
+    FedAT engine, bitwise); the degenerate 1-silo/1-edge zero-delay
+    tree is pinned bitwise against the flat ``n_tiers=1`` run.
+    """
     n_silos: int = 1
     edges_per_silo: int = 1
+    #: clients sampled per edge per round (0 = tiers.clients_per_round)
     clients_per_edge: int = 0
+    #: per-link-class [lo, hi] uniform delay bands, e.g.
+    #: {"silo_global": [5, 20]}
     delay: Dict[str, Tuple[float, float]] = dataclasses.field(
         default_factory=dict)
+    #: per-link-class codec overrides, e.g. {"silo_global": "quantize8"}
     codec: Dict[str, str] = dataclasses.field(default_factory=dict)
+    #: delayed-gradient compensation strength lam in [0, 1] (0 = off)
     compensation: float = 0.0
+    #: silo s multiplies its silo_global delay by 1 + silo_skew * s
     silo_skew: float = 0.0
+    #: the dedicated topology rng stream seed
     seed: int = 0
 
     def __post_init__(self):
@@ -359,8 +484,69 @@ class TopologySpec:
         self.codec = dict(self.codec)
 
     def validate(self, n_clients: int) -> None:
-        _unported("topology", _require_default(self), "A14",
-                  "the topology plane")
+        _require(self.n_silos >= 1 and self.edges_per_silo >= 1,
+                 f"topology.n_silos and topology.edges_per_silo must be "
+                 f">= 1, got ({self.n_silos}, {self.edges_per_silo})")
+        _require(self.n_silos * self.edges_per_silo <= n_clients,
+                 f"topology needs n_silos * edges_per_silo <= "
+                 f"n_clients={n_clients}, got "
+                 f"{self.n_silos} * {self.edges_per_silo}")
+        _require(self.clients_per_edge >= 0,
+                 f"topology.clients_per_edge must be >= 0 (0 = inherit "
+                 f"tiers.clients_per_round), got {self.clients_per_edge}")
+        for field_name, mapping in (("delay", self.delay),
+                                    ("codec", self.codec)):
+            unknown = sorted(set(mapping) - set(topology_mod.LINK_CLASSES))
+            if unknown:
+                raise SpecError(
+                    f"topology.{field_name} names unknown link class(es) "
+                    f"{unknown}; the tree (clients -> edges -> silos -> "
+                    f"global) has exactly these link classes: "
+                    f"{list(topology_mod.LINK_CLASSES)}")
+        for link, band in self.delay.items():
+            _require(len(band) == 2 and 0 <= band[0] <= band[1],
+                     f"topology.delay[{link!r}] must be [lo, hi] with "
+                     f"0 <= lo <= hi, got {list(band)}")
+        for link, codec in self.codec.items():
+            try:
+                transport.get_codec(codec)
+            except ValueError as e:
+                raise SpecError(f"topology.codec[{link!r}]: {e}")
+        _require(0 <= self.compensation <= 1,
+                 f"topology.compensation must be in [0, 1], "
+                 f"got {self.compensation}")
+        _require(self.silo_skew >= 0,
+                 f"topology.silo_skew must be >= 0, got {self.silo_skew}")
+
+    def to_config(self) -> Optional[topology_mod.TopologyConfig]:
+        """The :class:`SimConfig` payload; ``None`` when every knob is at
+        its default (modulo seed), which is *exactly* the flat engine."""
+        if (self.n_silos == 1 and self.edges_per_silo == 1
+                and self.clients_per_edge == 0 and not self.delay
+                and not self.codec and self.compensation == 0
+                and self.silo_skew == 0):
+            return None
+        return topology_mod.TopologyConfig(
+            n_silos=self.n_silos, edges_per_silo=self.edges_per_silo,
+            clients_per_edge=self.clients_per_edge,
+            delay=tuple((k, lo, hi)
+                        for k, (lo, hi) in sorted(self.delay.items())),
+            codec=tuple(sorted(self.codec.items())),
+            compensation=self.compensation, silo_skew=self.silo_skew,
+            seed=self.seed)
+
+    @classmethod
+    def from_config(
+            cls, tc: Optional[topology_mod.TopologyConfig]
+    ) -> "TopologySpec":
+        if tc is None:
+            return cls()
+        return cls(n_silos=tc.n_silos, edges_per_silo=tc.edges_per_silo,
+                   clients_per_edge=tc.clients_per_edge,
+                   delay={k: (lo, hi) for k, lo, hi in tc.delay},
+                   codec=dict(tc.codec),
+                   compensation=tc.compensation, silo_skew=tc.silo_skew,
+                   seed=tc.seed)
 
 
 # ---------------------------------------------------------------------------
@@ -398,6 +584,18 @@ class ExperimentSpec:
         self.faults.validate()
         self.population.validate(self.data.n_clients)
         self.topology.validate(self.data.n_clients)
+        if self.topology.to_config() is not None:
+            _require(self.strategy.name == "fedat",
+                     f"the topology plane runs the tiered FedAT strategy "
+                     f"(edges = Eq. 4, silos = Eq. 3); got "
+                     f"strategy.name={self.strategy.name!r} — drop the "
+                     f"topology section or use fedat")
+            _require(self.faults.nan_rate == 0
+                     and self.faults.update_clip == 0,
+                     "the server-side validation gate (faults.nan_rate / "
+                     "faults.update_clip) is not supported under the "
+                     "topology plane yet; churn, blackouts and "
+                     "crash-resume all compose")
         return self
 
     # -- serialization --------------------------------------------------
@@ -527,8 +725,8 @@ class ExperimentSpec:
     # -- bridge to the core layer ---------------------------------------
     def to_sim_config(self) -> SimConfig:
         """Materialization recipe for :class:`~repro_torch.core.
-        simulation.SimEnv` (the unported planes stay at their defaults,
-        which :meth:`validate` enforces)."""
+        simulation.SimEnv` (the unported mesh stays at its defaults, which
+        :meth:`validate` enforces)."""
         return SimConfig(
             model=self.data.model, n_clients=self.data.n_clients,
             n_classes=self.data.n_classes,
@@ -552,14 +750,15 @@ class ExperimentSpec:
             churn_events=self.faults.churn_events,
             churn_downtime=self.faults.churn_downtime,
             churn_window=self.faults.churn_window,
-            fault_seed=self.faults.seed)
+            fault_seed=self.faults.seed,
+            population=self.population.to_config(),
+            topology=self.topology.to_config())
 
     @classmethod
     def from_sim_config(cls, sc: SimConfig) -> "ExperimentSpec":
         """The inverse bridge: a truthful spec echo for runs driven through
         an already-built environment (the legacy ``run_*`` wrappers).  The
-        unported planes are at their defaults (``SimEnv`` refuses
-        others)."""
+        unported mesh is at its defaults (``SimEnv`` refuses others)."""
         sc.check_ported()
         return cls(
             data=DataSpec(
@@ -582,4 +781,6 @@ class ExperimentSpec:
             faults=FaultSpec(
                 churn_rate=sc.churn_rate, churn_events=sc.churn_events,
                 churn_downtime=sc.churn_downtime,
-                churn_window=sc.churn_window, seed=sc.fault_seed))
+                churn_window=sc.churn_window, seed=sc.fault_seed),
+            population=PopulationSpec.from_config(sc.population),
+            topology=TopologySpec.from_config(sc.topology))

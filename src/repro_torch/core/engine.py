@@ -203,7 +203,11 @@ def run_engine(env: SimEnv, strategy: ServerStrategy, cfg: EngineConfig,
         rng=np.random.default_rng(cfg.seed + strategy.seed_offset),
         metrics=Metrics(), cfg=cfg, executor=env.executor())
     if cfg.faults is not None and cfg.faults.injects_faults:
-        ctx.faults = faults_mod.FaultPlane(cfg.faults, env.tm.n_tiers)
+        # blackouts strike the strategy's cross-aggregation units: flat
+        # tiers, or silos under the topology plane
+        topo = env.topology
+        n_units = topo.n_silos if topo is not None else env.tm.n_tiers
+        ctx.faults = faults_mod.FaultPlane(cfg.faults, n_units)
     strategy.bind(env, cfg)
 
     every = cfg.faults.checkpoint_every if cfg.faults is not None else 0

@@ -10,12 +10,21 @@ environment's device:
   client-batched model -> uplink ``codec.lossy`` -> Eq. 4 intra-tier
   average -> tier-slot update -> Eq. 3 cross-tier average.
 * FedAvg/TiFL (:meth:`fedavg_round`) and FedAsync (:meth:`fedasync_round`).
+* FedAT under the topology plane (:meth:`fedat_topology_round`): one silo
+  round over its E edges x K_edge sampled clients.
 * With the fault plane's gate (``gate=``, core/steps.py), FedAT and
   FedAvg/TiFL rounds take a separate gated body: after the uplink decode
   the poisoned slots are NaN'd, the gate zero-weights non-finite clients,
   clips deltas from the decoded downlink and renormalizes Eq. 4, and a
   round with no surviving client keeps the previous tier slot (FedAT) or
   model (FedAvg).  ``gate=None`` runs the ungated bodies unchanged.
+
+**Streaming population plane**: there is no resident train stack; the
+sampled clients' padded rows are materialized on the host each round
+(``Population.materialize``) and uploaded, and the round bodies read them
+in place of the resident gather (:meth:`_round_data`).  Dead slots repeat
+a live id's rows, so the upload equals the gather of the stacked plane
+byte for byte.
 
 **Fixed-shape padding contract** (kept from the reference): a sample of
 ``n`` live clients is padded to ``clients_per_round`` slots by repeating a
@@ -60,6 +69,16 @@ class RoundExecutor:
         self.K = int(env.sc.clients_per_round)
         self.device = env.device
         self.perm_source: PermSource = perm_source or self.torch_perms
+        self.streaming = bool(env.streaming)
+        #: topology plane: a silo round fans out over E edges x K_edge
+        #: client slots; None = flat
+        self.topo = env.topology
+        if self.topo is not None:
+            self.E = int(self.topo.edges_per_silo)
+            self.K_edge = int(self.topo.k_edge)
+        #: high-water mark of the streamed per-round batch bytes (0 until
+        #: a streaming round runs; SimEnv.data_plane_bytes reads it)
+        self.stream_bytes = 0
 
     # ------------------------------------------------------------------
     # host-side marshalling (tiny per-event vectors)
@@ -83,7 +102,7 @@ class RoundExecutor:
         """Default permutation source: ``n_slots x E`` permutations of the
         sample slots from a CPU generator seeded with ``seed``."""
         sc = self.env.sc
-        cap = self.env.train["y"].shape[1]
+        cap = self.env.client_cap
         g = torch.Generator().manual_seed(int(seed))
         return torch.stack([
             torch.stack([torch.randperm(cap, generator=g)
@@ -94,11 +113,65 @@ class RoundExecutor:
         return self.perm_source(seed, n_live, n_slots).to(
             self.device, torch.int64)
 
-    def _select(self, pid: np.ndarray) -> Dict[str, torch.Tensor]:
-        """The padded clients' rows of the resident train stacks."""
+    def _round_data(self, pid: np.ndarray) -> Dict[str, torch.Tensor]:
+        """The padded clients' rows on the device: gathered from the
+        resident train stacks, or (streaming plane) materialized on the
+        host and uploaded."""
+        if self.streaming:
+            batch = self.env.population.materialize(pid)
+            self.stream_bytes = max(self.stream_bytes,
+                                    sum(a.nbytes for a in batch.values()))
+            return self.env.upload(batch)
         idx = torch.from_numpy(pid.astype(np.int64)).to(self.device)
         stacks = self.env.train_dev
         return {k: stacks[k].index_select(0, idx) for k in ("x", "y", "mask")}
+
+    def _pad_topology(self, ids_edges):
+        """Per-edge live id lists -> the flat (E*K_edge,) padded id
+        vector, the per-edge Eq. 4 weights ``w_intra`` (each edge's K_edge
+        slots sum to 1 over its live clients; empty edges stay all-zero),
+        the Eq. 4-over-edges weights ``w_edge`` (per-edge live sample
+        mass, renormalized over non-empty edges) and the per-edge live
+        counts.  Dead slots repeat a live id behind exactly-zero weights,
+        as in :meth:`_pad_ids`; the reference's numpy, verbatim."""
+        E, Ke = self.E, self.K_edge
+        fallback = next(int(ids[0]) for ids in ids_edges if len(ids))
+        pid = np.full(E * Ke, fallback, np.int32)
+        ns = np.zeros(E * Ke, np.float32)
+        w_intra = np.zeros(E * Ke, np.float32)
+        edge_samples = np.zeros(E, np.float32)
+        counts = []
+        for e, ids in enumerate(ids_edges):
+            n = len(ids)
+            counts.append(n)
+            if n:
+                pid[e * Ke:e * Ke + n] = ids
+                ns[e * Ke:e * Ke + n] = self.env.n_train_all[ids]
+                w_intra[e * Ke:(e + 1) * Ke] = \
+                    aggregation.client_weights_host(ns[e * Ke:(e + 1) * Ke])
+                edge_samples[e] = ns[e * Ke:(e + 1) * Ke].sum(
+                    dtype=np.float32)
+        return pid, w_intra, aggregation.client_weights_host(edge_samples), \
+            counts
+
+    def _topology_perms(self, seed: int, counts) -> torch.Tensor:
+        """One draw for the whole silo round, ``perm_source(seed, n_live,
+        E*K_edge)``: the live rows, in edge order, go to the head of each
+        edge's K_edge block, and the padded slots take the remaining rows
+        in slot order.  The reference's source gives its own permutations
+        (zero keys on the padded rows); with one edge this is the flat
+        round's draw, row for row."""
+        E, Ke = self.E, self.K_edge
+        perms = self._perms(seed, sum(counts), E * Ke)
+        order = np.empty(E * Ke, np.int64)
+        live = np.zeros(E * Ke, bool)
+        off = 0
+        for e, n in enumerate(counts):
+            order[e * Ke:e * Ke + n] = np.arange(off, off + n)
+            live[e * Ke:e * Ke + n] = True
+            off += n
+        order[~live] = np.arange(off, E * Ke)
+        return perms[torch.from_numpy(order).to(perms.device)]
 
     def _weights(self, w: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.asarray(w, np.float32)).to(self.device)
@@ -128,7 +201,7 @@ class RoundExecutor:
         update = (self.env.update_fn if use_prox
                   else self.env.update_fn_noprox)
         w_sent = codec.lossy(w_global)
-        client_params, _ = update(w_sent, self._select(pid), perms)
+        client_params, _ = update(w_sent, self._round_data(pid), perms)
         client_params = codec.lossy(client_params)
         tier_model = aggregation.weighted_average(
             client_params, self._weights(aggregation.client_weights_host(ns)))
@@ -137,6 +210,63 @@ class RoundExecutor:
         w_global = aggregation.weighted_average(
             tier_models, self._weights(cross_weights))
         return w_global, tier_models
+
+    def fedat_topology_round(self, w_global: Params, silo_models: Params,
+                             dispatch: Params, s: int, ids_edges,
+                             seed: int, *, codecs, use_prox: bool,
+                             cross_weights
+                             ) -> Tuple[Params, Params, Params]:
+        """One hierarchical silo round (the reference's
+        ``_fedat_topology_step``, eager).
+
+        ``ids_edges`` is a length-E sequence of per-edge live client id
+        arrays (availability/completion filtered; at least one
+        non-empty), ``codecs`` the (client_edge, edge_silo, silo_global)
+        codec triple, ``cross_weights`` the (S,) Eq. 3 vector.  In order:
+        the downlink chain silo_global -> edge_silo -> client_edge on the
+        silo's dispatch-time global ``dispatch[s]``; local training of
+        all E x K_edge slots as one client-batched model; the client_edge
+        uplink; per-edge Eq. 4 (E slices of the flat Eq. 4 body, in edge
+        order), each through edge_silo; Eq. 4 over the edges;
+        silo_global; the delayed-gradient compensation ``m + lam * (g -
+        st)``, product and add as separate ops (no contraction); the
+        silo-slot write; Eq. 3; the ``dispatch[s] <- w_new`` refresh.
+        ``silo_models`` and ``dispatch`` are written in place.  Returns
+        ``(w_global, silo_models, dispatch)``.
+        """
+        ce, es, sg = codecs
+        E, Ke = self.E, self.K_edge
+        lam = float(self.topo.cfg.compensation)
+        pid, w_intra, w_edge, counts = self._pad_topology(ids_edges)
+        perms = self._topology_perms(seed, counts)
+        update = (self.env.update_fn if use_prox
+                  else self.env.update_fn_noprox)
+        w_stale = {k: v[s] for k, v in dispatch.items()}
+        w_sent = ce.lossy(es.lossy(sg.lossy(w_stale)))
+        client_params, _ = update(w_sent, self._round_data(pid), perms)
+        client_params = ce.lossy(client_params)
+        w_intra = self._weights(w_intra)
+        edge_models = []
+        for e in range(E):
+            pe = {k: v[e * Ke:(e + 1) * Ke] for k, v in client_params.items()}
+            edge_models.append(es.lossy(aggregation.weighted_average(
+                pe, w_intra[e * Ke:(e + 1) * Ke])))
+        edge_stack = {k: torch.stack([em[k] for em in edge_models])
+                      for k in client_params}
+        silo_model = sg.lossy(aggregation.weighted_average(
+            edge_stack, self._weights(w_edge)))
+        if lam > 0:
+            lam32 = torch.tensor(np.float32(lam), device=self.device)
+            silo_model = {k: silo_model[k]
+                          + lam32 * (w_global[k] - w_stale[k])
+                          for k in silo_model}
+        for k, v in silo_model.items():
+            silo_models[k][s] = v
+        w_new = aggregation.weighted_average(
+            silo_models, self._weights(cross_weights))
+        for k, v in w_new.items():
+            dispatch[k][s] = v
+        return w_new, silo_models, dispatch
 
     def fedavg_round(self, w: Params, ids: np.ndarray, seed: int, *,
                      codec=None, gate=None, poison=None) -> Params:
@@ -152,7 +282,7 @@ class RoundExecutor:
         perms = self._perms(seed, len(ids), self.K)
         w_in = w if codec is None else codec.lossy(w)
         client_params, _ = self.env.update_fn_noprox(
-            w_in, self._select(pid), perms)
+            w_in, self._round_data(pid), perms)
         if codec is not None:
             client_params = codec.lossy(client_params)
         return aggregation.weighted_average(
@@ -187,7 +317,7 @@ class RoundExecutor:
         update = (self.env.update_fn if use_prox
                   else self.env.update_fn_noprox)
         w_sent = codec.lossy(w_global)
-        client_params, _ = update(w_sent, self._select(pid), perms)
+        client_params, _ = update(w_sent, self._round_data(pid), perms)
         client_params = codec.lossy(client_params)
         client_params, w_ok, any_ok = self._gated_uplink(
             client_params, ns, w_sent, gate, poison)
@@ -206,7 +336,7 @@ class RoundExecutor:
         perms = self._perms(seed, len(ids), self.K)
         w_in = w if codec is None else codec.lossy(w)
         client_params, _ = self.env.update_fn_noprox(
-            w_in, self._select(pid), perms)
+            w_in, self._round_data(pid), perms)
         if codec is not None:
             client_params = codec.lossy(client_params)
         client_params, w_ok, any_ok = self._gated_uplink(
@@ -225,7 +355,7 @@ class RoundExecutor:
         perms = self._perms(seed, 1, 1)
         w_in = w if codec is None else codec.lossy(w)
         client_params, _ = self.env.update_fn_noprox(
-            w_in, self._select(pid), perms)
+            w_in, self._round_data(pid), perms)
         client_w = {k: v[0] for k, v in client_params.items()}
         if codec is not None:
             client_w = codec.lossy(client_w)

@@ -5,15 +5,18 @@ five delay bands; 10 "unstable" clients that drop out permanently at a
 random time; fixed seeds so every method sees identical partitions,
 latencies, and dropout schedule.
 
-The port of ``repro/core/simulation.py``, legacy data plane only: the same
+The port of ``repro/core/simulation.py``: the same
 ``np.random.default_rng(seed)`` stream in the same order, so partitions,
 latencies, tier maps and the dropout schedule equal the reference's
-bitwise, and the fault plane's transient churn windows come from the same
-dedicated stream (core/faults.py ``churn_schedule``).  The padded train
-stacks live on the environment's device.  The initial model comes from a
-``torch.Generator`` seeded with ``seed``, or is injected (``params0=``,
-e.g. the reference's as numpy; a nested tree, the LM's, is flattened to
-the model's flat keys).
+bitwise; the fault plane's transient churn windows, the population
+plane's client state (core/population.py) and the topology plane's tree
+(core/topology.py) come from their own dedicated streams, as there.  The
+padded train stacks live on the environment's device, except on the
+streaming population plane, which uploads one K-client batch a round
+(core/executor.py).  The initial model comes from a ``torch.Generator``
+seeded with ``seed``, or is injected (``params0=``, e.g. the reference's
+as numpy; a nested tree, the LM's, is flattened to the model's flat
+keys).
 """
 from __future__ import annotations
 
@@ -24,7 +27,9 @@ import numpy as np
 import torch
 
 from repro_torch.core import faults as faults_mod
+from repro_torch.core import population as population_mod
 from repro_torch.core import tiering
+from repro_torch.core import topology as topology_mod
 from repro_torch.core.clients import make_client_update, make_eval_fn
 from repro_torch.data.federated import make_federated, pad_stack
 from repro_torch.device import DeviceLike, resolve_device
@@ -37,9 +42,10 @@ PAPER_DELAY_BANDS = ((0.0, 0.0), (0.0, 5.0), (6.0, 10.0), (11.0, 15.0),
 
 @dataclasses.dataclass
 class SimConfig:
-    """The reference's SimConfig fields.  The planes the port does not
-    run yet must stay at their defaults: ``population`` (ROADMAP A13),
-    ``topology`` (A14) and ``mesh`` (A16)."""
+    """The reference's SimConfig fields.  ``population`` and ``topology``
+    take the planes' configs (None = the legacy data plane and the flat
+    FedAT engine).  The mesh, which the port does not run yet, must stay
+    at its default (ROADMAP A16)."""
     model: str = "cnn"
     n_clients: int = 100
     n_classes: int = 10
@@ -69,20 +75,15 @@ class SimConfig:
     fault_seed: int = 0
     mesh: Optional[str] = None
     shard_tiers: bool = False
-    population: Optional[Any] = None
-    topology: Optional[Any] = None
+    population: Optional[population_mod.PopulationConfig] = None
+    topology: Optional[topology_mod.TopologyConfig] = None
 
     def check_ported(self) -> None:
         """Raise for a plane the port does not run yet."""
-        for on, what, item in (
-                (self.population is not None, "the population plane", "A13"),
-                (self.topology is not None, "the topology plane", "A14"),
-                (self.mesh not in (None, "single") or self.shard_tiers,
-                 "a device mesh", "A16")):
-            if on:
-                raise NotImplementedError(
-                    f"{what} is not ported to the PyTorch package yet: "
-                    f"ROADMAP {item}")
+        if self.mesh not in (None, "single") or self.shard_tiers:
+            raise NotImplementedError(
+                "a device mesh is not ported to the PyTorch package yet: "
+                "ROADMAP A16")
 
 
 class SimEnv:
@@ -102,22 +103,57 @@ class SimEnv:
                 seq_len=sc.seq_len,
                 attention_backend=sc.attention_backend))
 
-        self.ds = make_federated(
-            task=self.model.data_kind, n_clients=sc.n_clients,
-            n_classes=sc.n_classes,
-            classes_per_client=sc.classes_per_client,
-            samples_per_client=sc.samples_per_client,
-            image_hw=sc.image_hw, n_features=sc.n_features, seed=sc.seed,
-            partitioner=sc.partitioner, vocab_size=sc.vocab_size,
-            seq_len=sc.seq_len)
-        self.train = pad_stack(self.ds)
-        self.n_train_all = self.train["n_samples"]
-        self.test = self._stack_test()
+        # population plane (None = the legacy data plane); its draws come
+        # from dedicated spec-seeded streams, so the environment rng below
+        # is untouched either way
+        self.population = (None if sc.population is None
+                           else population_mod.Population(
+                               sc.population, sc, self.model))
+        #: True when per-round batches are materialized on the host and
+        #: uploaded instead of gathered from a resident stack
+        self.streaming = (self.population is not None
+                          and self.population.plane == "streaming")
+        if self.population is not None and self.population.cfg.indexed:
+            # indexed data plane: flat (N,) state arrays + lazy per-client
+            # content streams; the test stack holds the eval subset only
+            pop = self.population
+            self.ds = None
+            self.n_train_all = pop.n_train
+            self.train = None if self.streaming else pop.materialize_stack()
+            self.test = pop.test_stack(pop.eval_ids)
+        else:
+            self.ds = make_federated(
+                task=self.model.data_kind, n_clients=sc.n_clients,
+                n_classes=sc.n_classes,
+                classes_per_client=sc.classes_per_client,
+                samples_per_client=sc.samples_per_client,
+                image_hw=sc.image_hw, n_features=sc.n_features,
+                seed=sc.seed, partitioner=sc.partitioner,
+                vocab_size=sc.vocab_size, seq_len=sc.seq_len)
+            self.train = pad_stack(self.ds)
+            self.n_train_all = self.train["n_samples"]
+            self.test = self._stack_test()
+            if (self.population is not None
+                    and len(self.population.eval_ids) < sc.n_clients):
+                ids = self.population.eval_ids
+                self.test = {k: v[ids] for k, v in self.test.items()}
 
         # latency profile -> tiers (paper: 5 delay bands on top of compute)
         base = np.full(sc.n_clients, sc.base_compute)
         lat = tiering.profile_latencies(base, sc.delay_bands, rng)
+        if (self.population is not None
+                and self.population.resp_factors is not None):
+            # per-client responsiveness multipliers reshape the tiers
+            lat = lat * self.population.resp_factors
         self.tm = tiering.assign_tiers(lat, sc.n_tiers)
+
+        # topology plane: silo/edge membership over the same profiled
+        # latencies; None = flat FedAT.  The per-run link-delay stream
+        # lives on the strategy, so a cached env stays shareable.
+        self.topology = (None if sc.topology is None else
+                         topology_mod.Topology(
+                             sc.topology, sc.n_clients, lat,
+                             sc.clients_per_round))
 
         # unstable clients drop permanently at a random time (+inf = stable)
         self.dropout_ids = rng.choice(sc.n_clients, sc.n_unstable,
@@ -151,11 +187,22 @@ class SimEnv:
                                for v in self.params0.values())
 
         # device-resident data plane: uploaded once, gathered per round
-        self.train_dev = self._upload(self.train)
+        # (the streaming plane has none: one K-client batch a round)
+        self.train_dev = (None if self.train is None
+                          else self.upload(self.train))
         self._test_dev = None
         self._executor = None
 
-    def _upload(self, stack: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
+    @property
+    def client_cap(self) -> int:
+        """Padded train rows per client (the sample-slot axis)."""
+        if self.train is not None:
+            return int(self.train["y"].shape[1])
+        return int(self.population.cap_train)
+
+    def upload(self, stack: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
+        """Host rows ``{x, y, mask}`` -> the device layout the round
+        bodies read (int64 labels, float32 mask)."""
         return {"x": torch.from_numpy(stack["x"]).to(self.device),
                 "y": torch.from_numpy(stack["y"]).to(self.device,
                                                      torch.int64),
@@ -188,14 +235,44 @@ class SimEnv:
         not inside a transient churn down-window.  A client sampled while
         up can be down by the time its round completes — the strategies
         re-filter on completion, which is how mid-round failures shrink
-        the participant set.  With churn off this is the exact
+        the participant set.  A population availability process is folded
+        in too.  With churn and availability off this is the exact
         permanent-dropout compare."""
         up = self.dropout_at > now
         if self.churn_down is not None:
             starts, ends = self.churn_down
             down = ((starts <= now) & (now < ends)).any(axis=1)
             up = up & ~down
+        if self.population is not None:
+            avail = self.population.availability_mask(now)
+            if avail is not None:
+                up = up & avail
         return up
+
+    def completion(self, now: float) -> Optional[np.ndarray]:
+        """Per-client round-completion mask at ``now`` under the
+        population plane's completion process, or None when no process is
+        set (the strategies then keep the plain completion paths)."""
+        if self.population is None:
+            return None
+        return self.population.completion_mask(now)
+
+    def data_plane_bytes(self) -> int:
+        """Peak device-resident data-plane bytes: the train stacks
+        (resident planes) or the streamed per-round batch (the executor's
+        high-water mark, or the static bound before any round ran), plus
+        the eval test stack — counted in the reference's host layout
+        (float32 x, int32 y, bool mask), so both packages report the same
+        number for the same spec."""
+        test = sum(np.asarray(v).nbytes for v in self.test.values())
+        if self.train is not None:
+            return test + sum(self.train[k].nbytes
+                              for k in ("x", "y", "mask"))
+        peak = (self._executor.stream_bytes
+                if self._executor is not None
+                and self._executor.stream_bytes else
+                self.population.batch_nbytes(self.sc.clients_per_round))
+        return test + peak
 
     def retier(self, rng: np.random.Generator, drift: float = 0.2) -> bool:
         """Re-profile client latencies and rebuild the tier map; returns
@@ -216,7 +293,7 @@ class SimEnv:
     def evaluate(self, params) -> Tuple[float, float]:
         """(weighted global accuracy, per-client accuracy variance)."""
         if self._test_dev is None:  # upload the test stack once
-            self._test_dev = self._upload(self.test)
+            self._test_dev = self.upload(self.test)
         t = self._test_dev
         accs = self.eval_fn(params, t["x"], t["y"], t["mask"]).cpu().numpy()
         weights = self.test["mask"].sum(1)

@@ -45,6 +45,14 @@ class FedAsyncStrategy(ServerStrategy):
         c, start_version = actor
         if not env.alive(now)[c]:
             return Outcome.DISCARD
+        done = env.completion(now)
+        if done is not None and not done[c]:
+            # population completion process: the client is up but failed to
+            # finish this update — retry at its own pace, same version
+            ctx.q.push(
+                float(env.tm.latencies[c]) * (1 + ctx.rng.uniform(0, 0.1)),
+                (c, start_version))
+            return Outcome.DISCARD
         ctx.bytes_down += env.model_bytes * self._ratio
         staleness = self.server_version - start_version
         a_eff = self.alpha * (1.0 + staleness) ** (-self.staleness_exp)

@@ -62,6 +62,14 @@ class FedAvgStrategy(ServerStrategy):
         if len(ids) == 0:
             self._schedule(env, ctx)
             return Outcome.SKIP_ROUND
+        done = env.completion(now)
+        if done is not None:
+            # population completion process: drop the sampled clients that
+            # fail to report back; Eq. 4 renormalizes over the survivors
+            ids = ids[done[ids]]
+            if len(ids) == 0:
+                self._schedule(env, ctx)
+                return Outcome.SKIP_ROUND
         ctx.bytes_down += len(ids) * env.model_bytes * self._ratio
         gate = None if ctx.faults is None else ctx.faults.gate
         if gate is None:

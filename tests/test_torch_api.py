@@ -1,5 +1,6 @@
 """The port's spec/API/CLI surface, its device policy, and its isolation
 from JAX and the reference package."""
+import dataclasses
 import json
 import os
 import re
@@ -77,13 +78,24 @@ FAULT_BAD = {"faults.churn_rate": 1.5, "faults.blackouts": -1,
     ("mesh.kind", "host", "A16"),
 ])
 def test_unported_sections_name_their_roadmap_item(path, value, item):
-    """The planes still to port (A13, A14, A16) refuse non-default
-    values naming their item.  The fault plane (A12) is ported: its
-    knobs validate, hash as in the reference, and an out-of-range value
-    raises the reference's message."""
+    """The plane still to port (the mesh, A16) refuses non-default values
+    naming its item.  The fault (A12), population (A13) and topology
+    (A14) planes are ported: their knobs validate, hash as in the
+    reference and bridge to the reference's ``SimConfig`` payload, and
+    an out-of-range fault knob raises the reference's message."""
     spec = tapi.ExperimentSpec().with_overrides({path: value})
     jspec = japi.ExperimentSpec().with_overrides({path: value})
     jspec.validate()                                       # valid there
+    if item in ("A13", "A14"):
+        spec.validate()
+        assert spec.hash() == jspec.hash()
+        assert spec.env_hash() == jspec.env_hash()
+        field = path.split(".")[0]
+        got = getattr(spec.to_sim_config(), field)
+        want = getattr(jspec.to_sim_config(), field)
+        assert dataclasses.asdict(got) == dataclasses.asdict(want)
+        assert type(spec).from_sim_config(spec.to_sim_config()) == spec
+        return
     if item == "A12":
         spec.validate()
         assert spec.hash() == jspec.hash()

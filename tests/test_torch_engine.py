@@ -20,6 +20,8 @@ trajectory runs 4 updates, because the reference's own trajectories are
 chaotic at ulp scale (a 1e-7 change in params0 moves its FedAvg result by
 9.6e-4 after 8 updates).  Accuracy: within 0.02.
 """
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -34,8 +36,11 @@ from repro.core.simulation import SimEnv as JSimEnv
 from repro_torch.core import strategies as tstrategies
 from repro_torch.core.engine import EngineConfig as TEngineConfig
 from repro_torch.core.engine import run_engine as trun_engine
+from repro_torch.core.population import \
+    PopulationConfig as TPopulationConfig
 from repro_torch.core.simulation import SimConfig as TSimConfig
 from repro_torch.core.simulation import SimEnv as TSimEnv
+from repro_torch.core.topology import TopologyConfig as TTopologyConfig
 
 torch.set_num_threads(1)
 
@@ -76,7 +81,7 @@ def jax_perm_source(env):
     permute the sample slots (repro/core/executor.py:_pad_keys ->
     repro/core/clients.py)."""
     E = env.sc.local_epochs
-    cap = env.train["y"].shape[1]
+    cap = env.client_cap
 
     def source(seed, n_live, n_slots):
         keys = jax.random.split(jax.random.PRNGKey(seed), n_live)
@@ -252,7 +257,7 @@ def test_padded_slots_are_exactly_neutral(envs):
                               use_prox=True,
                               cross_weights=np.ones(3, np.float32) / 3)
     perms = ex._perms(77, 2, 4)
-    batch = ex._select(ex._pad_ids(ids)[0])
+    batch = ex._round_data(ex._pad_ids(ids)[0])
     live = {k: v[:2] for k, v in batch.items()}
     cp, _ = tenv.update_fn(tenv.params0, live, perms[:2])
     n = tenv.n_train_all[ids].astype(np.float32)
@@ -275,18 +280,30 @@ def test_runs_are_deterministic(envs):
 
 
 @pytest.mark.parametrize("field,value,item", [
-    ("churn_rate", 0.1, "A12"), ("population", object(), "A13"),
-    ("topology", object(), "A14"), ("mesh", "host", "A16")])
+    ("churn_rate", 0.1, "A12"),
+    ("population", TPopulationConfig(
+        plane="stacked", availability="bernoulli:0.8:20",
+        responsiveness="lognormal:0.3", eval_clients=2, seed=1), "A13"),
+    ("topology", TTopologyConfig(
+        n_silos=2, edges_per_silo=2, clients_per_edge=1,
+        delay=(("silo_global", 1.0, 3.0),), silo_skew=0.5), "A14"),
+    ("mesh", "host", "A16")])
 def test_unported_planes_name_their_roadmap_item(field, value, item):
-    """The planes still to port refuse to build, naming their item.
-    Churn (A12) is ported: the environment builds with the reference's
-    churn windows (bitwise) layered on the dropout schedule."""
+    """The plane still to port (the mesh, A16) refuses to build, naming
+    its item.  Churn (A12), the population plane (A13) and the topology
+    plane (A14) are ported: the environment builds and equals the
+    reference's (churn windows, tier map, eval subset, silo and edge
+    membership, bitwise)."""
     sc = TSimConfig(n_clients=4, n_tiers=2, clients_per_round=2,
                     n_unstable=1)
     setattr(sc, field, value)
+    if item == "A16":
+        with pytest.raises(NotImplementedError, match=item):
+            TSimEnv(sc, device="cpu")
+        return
+    env = TSimEnv(sc, device="cpu")
     if item == "A12":
         from repro.core.faults import churn_schedule
-        env = TSimEnv(sc, device="cpu")
         want = churn_schedule(4, value, sc.churn_events, sc.churn_downtime,
                               sc.churn_window, sc.fault_seed)
         if want is None:
@@ -295,5 +312,31 @@ def test_unported_planes_name_their_roadmap_item(field, value, item):
             assert all(np.array_equal(a, b)
                        for a, b in zip(env.churn_down, want))
         return
-    with pytest.raises(NotImplementedError, match=item):
-        TSimEnv(sc, device="cpu")
+    from repro.core import population as jpopulation
+    from repro.core import topology as jtopology
+    jcls = {"population": jpopulation.PopulationConfig,
+            "topology": jtopology.TopologyConfig}[field]
+    jsc = JSimConfig(n_clients=4, n_tiers=2, clients_per_round=2,
+                     n_unstable=1)
+    setattr(jsc, field, jcls(**dataclasses.asdict(value)))
+    jenv = JSimEnv(jsc)
+    assert np.array_equal(env.tm.tier_of, jenv.tm.tier_of)
+    assert np.array_equal(env.tm.latencies, jenv.tm.latencies)
+    assert np.array_equal(env.dropout_at, jenv.dropout_at)
+    if item == "A13":
+        assert np.array_equal(env.population.eval_ids,
+                              jenv.population.eval_ids)
+        for k in ("x", "y", "mask", "n_samples"):
+            assert np.array_equal(env.train[k], jenv.train[k])
+        for k in ("x", "y", "mask"):
+            assert np.array_equal(env.test[k], jenv.test[k])
+        for now in (0.0, 25.0, 70.0):
+            assert np.array_equal(env.alive(now), jenv.alive(now))
+        return
+    t, j = env.topology, jenv.topology
+    assert t.k_edge == j.k_edge == 1
+    assert all(np.array_equal(a, b)
+               for a, b in zip(t.silo_members, j.silo_members))
+    assert all(np.array_equal(a, b)
+               for ta, ja in zip(t.edge_members, j.edge_members)
+               for a, b in zip(ta, ja))
