@@ -36,7 +36,9 @@ only, never JAX or the reference package.  Phases:
 6. Hold the flash attention kernel against its plain version (the
    materialised oracle) on the card: the reference's seven ATTN_CASES,
    head dims 16 and 120, the qwen2-7b prefill shape and zamba2's shared
-   block (32 heads of 80), in fp32 (max abs error 2e-5; the FFMA design)
+   block (32 heads of 80), and the moe and audio paths' shapes
+   (``PATH_ATTN_SHAPES``: granite and deepseek prefill waves, granite and
+   hubert training microbatches, hubert's non-causal at hd 80), in fp32 (max abs error 2e-5; the FFMA design)
    and bf16 (2e-2, and within one bf16 rounding of the fp32 result; the
    tensor-core design, whose SASS must hold HGMMA and UTMALDG
    instructions), and on layouts that take the designs' other paths
@@ -155,6 +157,38 @@ only, never JAX or the reference package.  Phases:
     run; two runs with snapshots every 2 updates and a run resumed from
     its second snapshot bitwise equal; a small tree on the card against
     the CPU (phase 4's bound).
+21. MoE serving: ``launch/serve.py`` at granite-moe-3b-a800m's published
+    widths and depth (``MOE_SERVE_ARGV``: 8 requests over 8 slots,
+    prompts of up to 256 tokens in a 256-wide prefill, so each row is one
+    routing group with capacity; 8 new tokens each), then
+    deepseek-moe-16b at published widths cut to ``DEEPSEEK_LAYERS``
+    layers, counts from 0 per run: one flash launch per layer per wave
+    and no other kernel, no token dropped by a dropless decode routing;
+    tok/s, wave and step seconds, the dropped share of each layer's
+    assignments in the wave, peak memory; then one more granite wave
+    timed warm and with its MoE FFNs and attention synchronised, and a
+    profiled wave and decode step (busy share, GEMM and B2 time).  The moe smoke configs on the card and the CPU:
+    routing of the same inputs bitwise (combine within ``ROUTE_ATOL``),
+    the same engine tokens from a 256-wide prefill, prefill logits within
+    a relative L2 of 1e-4.
+22. vlm serving: paligemma-3b at published widths and depth
+    (``VLM_WAVE``: 4 slots of 256 patch embeddings + 64 tokens through
+    ``lm.serve_prefill``, then 8 greedy ``lm.serve_step`` calls), counts
+    from 0: no launch at all (the prefix-LM mask takes the blocked path,
+    the reference's rule); wave and step seconds.  paligemma-smoke on the
+    card and the CPU: prefill logits within 1e-4, the same tokens.
+23. Training the three families (``FAMILY_TRAIN``): ``launch/train.py``
+    (``train.run`` with ``--ckpt-every 0``) at published widths cut to ``FAMILY_TRAIN_LAYERS`` layers and a global
+    batch of 8 x 4096 (microbatch 8, remat, fp32 AdamW; two steps, no
+    checkpoint), counts from 0 per arch: a flash forward per layer per
+    microbatch twice (remat) and a backward, for granite and hubert (its
+    non-causal); none for paligemma; aux_loss above 0 for moe only.  The
+    smoke configs' loss and gradient probe (embed; frontend_proj for
+    audio) on the card against the CPU, the card run launching the flash
+    kernels both ways for granite and hubert.  B2 forward and backward at
+    hubert's shape (``HUBERT_ATTN``, non-causal hd 80, fp32): the output,
+    lse and gradients held to the plain versions, then timed beside them,
+    SDPA and the bound.
 
 Any failed check exits non-zero.  The last three lines of standard output
 are the kernel report (JSON), the card's ``name, power.limit`` and
@@ -795,6 +829,24 @@ ATTN_SHAPES = {
     "qwen2-7b prefill": dict(B=8, S=1024, H=28, KV=4, hd=128),
     "zamba2-2.7b shared block": dict(B=8, S=1024, H=32, KV=32, hd=80),
 }
+#: the shapes the moe and audio paths give the kernel (phases 21 and 23),
+#: checked against the plain version here beside ATTN_CASES: a granite
+#: and a deepseek prefill wave (8 slots x 256 tokens; GQA 24/8 at hd 64,
+#: MHA at hd 128) and one 4096-token training microbatch of granite and
+#: of hubert (bidirectional at hd 80)
+PATH_ATTN_SHAPES = {
+    "granite-moe-3b prefill wave": dict(B=8, S=256, H=24, KV=8, hd=64,
+                                        causal=True),
+    "deepseek-moe-16b prefill wave": dict(B=8, S=256, H=16, KV=16, hd=128,
+                                          causal=True),
+    "granite-moe-3b training": dict(B=1, S=4096, H=24, KV=8, hd=64,
+                                    causal=True),
+    "hubert-xlarge training": dict(B=1, S=4096, H=16, KV=16, hd=80,
+                                   causal=False),
+}
+#: the forward's lse against the plain blocked version's (absolute): the
+#: phase-13 cases measured at most 1.43e-6 on an H100
+LSE_ATOL = 2e-5
 #: SASS instructions counted in the built kernels: the wgmma products
 #: (HGMMA) and TMA tile loads (UTMALDG) the bf16 flash design must
 #: contain, and the mma.sync products (HMMA) of the chunk scans
@@ -883,7 +935,9 @@ def check_flash(torch, fa, ref, lib_path):
     g = torch.Generator(device="cuda").manual_seed(6)
     cases = [(c, 2) for c in ATTN_CASES] + \
         [((P["S"], P["S"], P["H"], P["KV"], P["hd"], True, None), P["B"])
-         for P in ATTN_SHAPES.values()]
+         for P in ATTN_SHAPES.values()] + \
+        [((P["S"], P["S"], P["H"], P["KV"], P["hd"], P["causal"], None),
+          P["B"]) for P in PATH_ATTN_SHAPES.values()]
     out = {"sass": sass}
     for dtype in ("float32", "bfloat16"):
         worst, worst_round = 0.0, 0.0
@@ -1009,18 +1063,26 @@ def check_flash_layouts(torch, fa, ref, g):
     return worst
 
 
-def time_flash(torch, fa, ref, g, P, dtype):
-    """Kernel, plain version and SDPA (the yardstick, never called by the
-    port) at one shape, beside the bound."""
+def time_flash(torch, fa, ref, g, P, dtype, causal=True):
+    """Kernel (first held to the plain version within ATTN_TOL), plain
+    version and SDPA (the yardstick, never called by the port) at one
+    shape, beside the bound."""
     q, k, v = attn_inputs(torch, g, P["B"], P["S"], P["S"], P["H"], P["KV"],
                           P["hd"], dtype)
-    kern = lambda: fa.flash_attention(q, k, v, causal=True)  # noqa: E731
-    plain = lambda: ref.attention_gqa(q, k, v, causal=True)  # noqa: E731
+    kern = lambda: fa.flash_attention(q, k, v, causal=causal)  # noqa: E731
+    plain = lambda: ref.attention_gqa(q, k, v, causal=causal)  # noqa: E731
+    got, want = kern(), plain()
+    torch.cuda.synchronize()
+    err = float((got.float() - want.float()).abs().max())
+    check(bool(torch.isfinite(got).all()) and err < ATTN_TOL[dtype],
+          f"flash kernel vs plain at {P} causal={causal} {dtype}: max abs "
+          f"err {err}")
+    del got, want
 
     def library():
         return torch.nn.functional.scaled_dot_product_attention(
             q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-            is_causal=True, enable_gqa=True)
+            is_causal=causal, enable_gqa=True)
     note = None
     try:
         lib = library()
@@ -1036,9 +1098,9 @@ def time_flash(torch, fa, ref, g, P, dtype):
     k2 = event_time_ms(torch, kern)
     p2 = event_time_ms(torch, plain, 3)
     b = attention_bound(P["B"], P["S"], P["S"], P["H"], P["KV"], P["hd"],
-                        True, None, dtype)
+                        causal, None, dtype)
     return dict(b, ms=min(k1, k2), ms_runs=[k1, k2], plain_ms=min(p1, p2),
-                plain_ms_runs=[p1, p2], library_ms=l1,
+                plain_ms_runs=[p1, p2], library_ms=l1, max_abs_err=err,
                 library_vs_kernel_max_abs=lib_err, library_note=note)
 
 
@@ -1141,10 +1203,11 @@ def _leaves(tree):
         yield tree
 
 
-def profile_serving(torch, engine, info):
+def profile_serving(torch, engine, info, tag="7"):
     """One more prefill wave and one decode step of the full-width engine
     under torch.profiler (outside the counted run): kernel time by kernel
-    and the device busy share against the unprofiled medians."""
+    (flash and GEMM summed) and the device busy share against the
+    unprofiled medians."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     B, P = engine.spec.slots, engine.spec.prefill_len
@@ -1171,22 +1234,26 @@ def profile_serving(torch, engine, info):
                 e.self_device_time_total / 1e3
         dev_ms = sum(per_kernel.values())
         if dev_ms == 0:
-            log(f"phase 7: profiler saw no kernel time in {name}: busy "
+            log(f"phase {tag}: profiler saw no kernel time in {name}: busy "
                 f"share not measured")
             out[name] = {"device_ms": None}
             continue
         top = sorted(per_kernel.items(), key=lambda kv: -kv[1])[:6]
         flash_ms = sum(t for k, t in per_kernel.items() if "flash" in k)
+        gemm_ms = sum(t for k, t in per_kernel.items()
+                      if "gemm" in k.lower())
         out[name] = {"device_ms": dev_ms, "call_ms": 1e3 * base_s,
                      "busy_share": dev_ms / (1e3 * base_s),
-                     "flash_ms": flash_ms, "n_kernels": len(per_kernel),
+                     "flash_ms": flash_ms, "gemm_ms": gemm_ms,
+                     "n_kernels": len(per_kernel),
                      "top_kernels_ms": {k[:100]: t for k, t in top}}
         o = out[name]
-        log(f"phase 7: profiled {name}: kernels {dev_ms:.2f} ms against a "
-            f"{o['call_ms']:.2f} ms unprofiled call (busy "
+        log(f"phase {tag}: profiled {name}: kernels {dev_ms:.2f} ms against "
+            f"a {o['call_ms']:.2f} ms unprofiled call (busy "
             f"{100 * o['busy_share']:.1f}%, idle "
             f"{100 * (1 - o['busy_share']):.1f}%); flash {flash_ms:.3f} ms "
-            f"({100 * flash_ms / dev_ms:.2f}% of kernel time)")
+            f"({100 * flash_ms / dev_ms:.2f}%), GEMM {gemm_ms:.3f} ms "
+            f"({100 * gemm_ms / dev_ms:.1f}% of kernel time)")
         for k, t in top:
             log(f"  {t:10.3f} ms  {k[:100]}")
     return out
@@ -2159,7 +2226,7 @@ def check_flash_bwd(torch, fa, ref, lib_path, build_log):
     return out
 
 
-def time_flash_bwd(torch, fa, ref, g, P, dtype):
+def time_flash_bwd(torch, fa, ref, g, P, dtype, causal=True):
     """Backward kernels (the whole call, twice with equal bits; then in a
     CUDA graph, and each of its three kernels alone in one), plain version
     and SDPA's backward (the yardstick, timed here only and never called
@@ -2168,11 +2235,22 @@ def time_flash_bwd(torch, fa, ref, g, P, dtype):
     q, k, v = attn_inputs(torch, g, B, S, S, H, KV, hd, dtype)
     do = torch.randn(B, S, H, hd, device="cuda",
                      generator=g).to(getattr(torch, dtype))
-    o, lse = fa.flash_attention(q, k, v, causal=True, return_lse=True)
+    o, lse = fa.flash_attention(q, k, v, causal=causal, return_lse=True)
+    # both sides of the backward below read this o and lse: hold them to
+    # the plain forward first, so a wrong forward cannot pass unseen
+    _, lse_p = ref.blocked_attention(q, k, v, causal=causal,
+                                     return_lse=True)
+    o_err = float((o.float() - ref.attention_gqa(q, k, v, causal=causal)
+                   .float()).abs().max())
+    lse_err = float((lse - lse_p).abs().max())
+    check(o_err < ATTN_TOL[dtype] and lse_err < LSE_ATOL,
+          f"bwd {dtype} {P} causal={causal}: the forward's o (max abs err "
+          f"{o_err}) or lse ({lse_err}) disagrees with the plain version")
+    del lse_p
     kern = lambda: fa.flash_attention_backward(  # noqa: E731
-        q, k, v, o, lse, do, causal=True)
+        q, k, v, o, lse, do, causal=causal)
     plain = lambda: ref.blocked_attention_backward(  # noqa: E731
-        q, k, v, o, lse, do, causal=True)
+        q, k, v, o, lse, do, causal=causal)
     first, second = kern(), kern()
     torch.cuda.synchronize()
     check(all(torch.equal(a, b) for a, b in zip(first, second)),
@@ -2187,7 +2265,7 @@ def time_flash_bwd(torch, fa, ref, g, P, dtype):
         qs, ks, vs = (x.transpose(1, 2).detach().requires_grad_(True)
                       for x in (q, k, v))
         so = torch.nn.functional.scaled_dot_product_attention(
-            qs, ks, vs, is_causal=True, enable_gqa=True)
+            qs, ks, vs, is_causal=causal, enable_gqa=True)
         dos = do.transpose(1, 2)
 
         def library():
@@ -2206,15 +2284,16 @@ def time_flash_bwd(torch, fa, ref, g, P, dtype):
     graph = graph_time_ms(torch, kern, iters)
     parts = {part: graph_time_ms(torch, lambda part=part:
                                  fa.flash_attention_backward(
-                                     q, k, v, o, lse, do, causal=True,
+                                     q, k, v, o, lse, do, causal=causal,
                                      only=part), iters)
              for part in fa.BWD_KERNELS}
     k2 = event_time_ms(torch, kern, iters)
     p2 = event_time_ms(torch, plain, 1 if S >= 4096 else 3)
-    b = attention_bwd_bound(B, S, S, H, KV, hd, True, None, dtype)
+    b = attention_bwd_bound(B, S, S, H, KV, hd, causal, None, dtype)
     return dict(b, ms=min(k1, k2), ms_runs=[k1, k2], graph_ms=graph,
                 parts_ms=parts, plain_ms=min(p1, p2), plain_ms_runs=[p1, p2],
-                library_ms=l1, library_note=note, rel_errs=errs)
+                library_ms=l1, library_note=note, rel_errs=errs,
+                fwd_max_abs_err=o_err, lse_max_abs_err=lse_err)
 
 
 # ---------------------------------------------------------------------------
@@ -3394,6 +3473,515 @@ def run_topology(torch, api, kernels, SimEnv, dev):
     return info
 
 
+# ---------------------------------------------------------------------------
+# phases 21-23: the moe, vlm and audio families
+# ---------------------------------------------------------------------------
+
+#: phase 21: granite-moe-3b-a800m at published widths and depth (32
+#: layers, 40 experts top-8, about 13 GB of fp32 params) through
+#: launch/serve.py: 8 requests over 8 slots, prompts of up to 256 tokens in
+#: one prefill wave 256 positions wide (so each row is one 256-token
+#: routing group with capacity 64: the reference's capacity path, pad
+#: tokens included), 8 new tokens each
+MOE_SERVE_ARGV = ["--requests", "8", "--slots", "8", "--prompt-len", "256",
+                  "--max-new", "8", "--seed", "0", "--device", "cuda"]
+#: deepseek-moe-16b at published widths, cut to 4 of its 28 layers (all
+#: 28 take about 67 GB in fp32; 4 hold the shared experts at hd 128)
+DEEPSEEK_LAYERS = 4
+#: routing on the card against the CPU: combine weights (router
+#: probabilities) within this absolute error; dispatch bitwise
+ROUTE_ATOL = 1e-6
+#: phase 22: paligemma-3b at published widths and depth (18 layers, about
+#: 11.7 GB of fp32 params): 4 slots of 256 patch embeddings + 64 text
+#: tokens through lm.serve_prefill, then 8 greedy lm.serve_step calls
+VLM_WAVE = dict(slots=4, patches=256, text=64, steps=8)
+#: phase 23: each family trained at published widths, cut to 2 layers and
+#: a global batch of 8 x 4096 tokens (microbatch 8 as published: one
+#: sequence a microbatch), two steps, no checkpoint
+FAMILY_TRAIN = ("granite-moe-3b-a800m", "paligemma-3b", "hubert-xlarge")
+FAMILY_TRAIN_LAYERS = 2
+FAMILY_TRAIN_BATCH = 8
+#: phase 23 card against CPU at smoke size: the loss within this relative
+#: error, the gradient probe within this relative L2
+FAMILY_LOSS_RTOL = 1e-5
+FAMILY_GRAD_RTOL = 1e-4
+#: B2 at hubert-xlarge's training shape: one 4096-frame sequence a
+#: microbatch, 16 heads of 80, bidirectional (the model path's first
+#: non-causal hd-80 launch)
+HUBERT_ATTN = PATH_ATTN_SHAPES["hubert-xlarge training"]
+
+
+class route_stats:
+    """Wraps ``models/moe.py``'s ``_route`` for a ``with`` block: each
+    call's group shape, whether it was dropless, and the assignments it
+    kept (a device tensor, read after the block)."""
+
+    def __init__(self, moe_mod):
+        self.moe, self.calls = moe_mod, []
+
+    def __enter__(self):
+        self.orig = self.moe._route
+
+        def counted(cfg, router_w, xg, dropless=False):
+            out = self.orig(cfg, router_w, xg, dropless)
+            self.calls.append((tuple(xg.shape[:-1]), dropless,
+                               out[1].sum()))
+            return out
+        self.moe._route = counted
+        return self
+
+    def __exit__(self, *exc):
+        self.moe._route = self.orig
+
+    def dropped_shares(self, top_k: int, dropless: bool):
+        """1 - kept / (tokens x top_k) of each call of the given kind."""
+        return [1.0 - float(kept) / (math.prod(shape) * top_k)
+                for shape, dl, kept in self.calls if dl == dropless]
+
+
+def moe_wave_split(torch, lm, moe_mod, attn_mod, engine, decode_step_s):
+    """One more prefill wave at the engine's shape, outside the counted
+    run: its warm time and the share of it in the MoE FFNs (the dense
+    dispatch and expert products) and in attention, each call
+    synchronised; then a profiled wave and decode step
+    (:func:`profile_serving`) against the warm wave and the counted run's
+    median step."""
+    cfg, B, P = engine.cfg, engine.spec.slots, engine.spec.prefill_len
+    toks = torch.randint(0, cfg.vocab_size, (B, P),
+                         generator=torch.Generator().manual_seed(5)).to(
+        "cuda", torch.int32)
+
+    def wave():
+        with torch.no_grad():
+            lm.serve_prefill(cfg, engine.params, {"tokens": toks}, 1,
+                             engine.cache)
+        torch.cuda.synchronize()
+
+    wave()
+    t0 = time.perf_counter()
+    wave()
+    wave_s = time.perf_counter() - t0
+    with timed_calls(torch, moe_mod, "moe_ffn") as tm, \
+            timed_calls(torch, attn_mod, "prefill_attention") as ta:
+        t0 = time.perf_counter()
+        wave()
+        synced_s = time.perf_counter() - t0
+    moe_s, attn_s = sum(tm.seconds["moe_ffn"]), sum(
+        ta.seconds["prefill_attention"])
+    return {"wave_s": wave_s, "synced_wave_s": synced_s, "moe_ffn_s": moe_s,
+            "moe_ffn_share": moe_s / synced_s,
+            "prefill_attention_s": attn_s,
+            "prefill_attention_share": attn_s / synced_s,
+            "profile": profile_serving(
+                torch, engine, {"prefill_wave_s": [wave_s],
+                                "decode_step_s_median": decode_step_s},
+                tag="21")}
+
+
+def run_moe_serving(torch, kernels, serve_launch, lm, moe_mod, attn_mod,
+                    arch, layers=None):
+    """An moe arch through launch/serve.py at published widths (depth cut
+    to ``layers`` where given), counts from 0: one flash launch per layer
+    per prefill wave and no other kernel; the dropped-token share of each
+    routed layer of the wave."""
+    from repro_torch.configs.registry import get_config
+    cfg = get_config(arch)
+    if layers:
+        cfg = cfg.replace(n_layers=layers)
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    with route_stats(moe_mod) as rs:
+        t0 = time.perf_counter()
+        engine, done, rep = serve_launch.run(
+            ["--arch", arch] + MOE_SERVE_ARGV, cfg=cfg)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    n_params = sum(t.numel() for t in _leaves(engine.params))
+    waves = len(engine.call_seconds["prefill"])
+    steps = len(engine.call_seconds["decode"])
+    check(waves == 1, f"{arch}: {waves} prefill waves, expected 1")
+    check(counts["flash_attention"] == waves * cfg.n_layers
+          and all(n == 0 for k, n in counts.items()
+                  if k != "flash_attention"),
+          f"{arch}: launches {counts}, expected {waves} x {cfg.n_layers} "
+          f"flash and no other kernel")
+    check(len(done) == 8 and all(len(r.out) == 8 and not r.truncated
+                                 for r in done),
+          f"{arch}: requests {[(r.rid, len(r.out)) for r in done]}")
+    check(all(0 <= t < cfg.vocab_size for r in done for t in r.out),
+          f"{arch}: token ids out of range")
+    check(all(len(v) == 1 for v in engine.call_shapes.values()),
+          f"{arch}: more than one input shape per call: "
+          f"{engine.call_shapes}")
+    check(bool(torch.isfinite(engine.cache.k).all()),
+          f"{arch}: non-finite KV cache")
+    m = cfg.moe
+    wave_drop = rs.dropped_shares(m.top_k, dropless=False)
+    decode_drop = rs.dropped_shares(m.top_k, dropless=True)
+    check(len(wave_drop) == waves * cfg.n_layers,
+          f"{arch}: {len(wave_drop)} grouped routings in the wave")
+    check(all(d == 0.0 for d in decode_drop),
+          f"{arch}: a dropless decode routing dropped tokens")
+    info = {"arch": arch, "layers": cfg.n_layers, "n_params": n_params,
+            "wall_s": wall, "report": rep, "peak_mem_bytes": peak,
+            "launches": counts, "prefill_waves": waves,
+            "decode_steps": steps,
+            "prefill_wave_s": list(engine.call_seconds["prefill"]),
+            "decode_step_s_median": float(np.median(
+                engine.call_seconds["decode"])),
+            "capacity": moe_mod.capacity(cfg, moe_mod.GROUP),
+            "wave_dropped_share": wave_drop,
+            "wave_dropped_share_mean": float(np.mean(wave_drop)),
+            "prompt_lens": sorted(len(r.prompt) for r in done)}
+    log(f"phase 21: {arch} ({cfg.n_layers} layers, {n_params} params, fp32; "
+        f"{m.n_experts} experts top-{m.top_k}, capacity {info['capacity']} "
+        f"a 256-token group) served 8 requests x 8 tokens in {wall:.3f} s: "
+        f"{rep['tok_per_s']:.2f} tok/s, TTFT p50 {rep['ttft_p50_s']:.3f} "
+        f"s; prefill wave {info['prefill_wave_s'][0]:.4f} s, decode step "
+        f"median {1e3 * info['decode_step_s_median']:.2f} ms over {steps} "
+        f"steps; flash launches {counts['flash_attention']}; dropped share "
+        f"of the wave's assignments {info['wave_dropped_share_mean']:.4f} "
+        f"(layers {min(wave_drop):.4f}-{max(wave_drop):.4f}, pad tokens "
+        f"included); peak {peak / 2**30:.2f} GiB")
+    return info, engine
+
+
+def moe_card_vs_cpu(torch, kernels, lm, convert, serve, moe_mod):
+    """The moe smoke configs on the card and the CPU from the same params:
+    layer 0's routing of the same inputs (grouped and dropless) bitwise
+    in its dispatch, engine tokens equal with a 256-wide prefill (the
+    grouped path), prefill logits within SERVE_LOGITS_RTOL."""
+    from repro_torch.configs.registry import get_smoke_config
+    out = {}
+    for arch in ("granite-moe-3b-a800m", "deepseek-moe-16b"):
+        cfg = get_smoke_config(arch)
+        p_cpu = lm.init_params(cfg, seed=1, device="cpu")
+        p_card = convert.params_from_numpy(convert.params_to_numpy(p_cpu),
+                                           device="cuda")
+        rng = np.random.default_rng(4)
+        cmb_err = 0.0
+        for shape in ((2, 256), (3, 40)):
+            x = rng.standard_normal(shape + (cfg.d_model,)).astype(
+                np.float32)
+            got = {}
+            for dev, p in (("card", p_card), ("cpu", p_cpu)):
+                xg, dropless = moe_mod.group_tokens(
+                    torch.as_tensor(x, device="cuda" if dev == "card"
+                                    else "cpu"))
+                with torch.no_grad():
+                    cmb, dis, _ = moe_mod._route(
+                        cfg, p["layers"]["moe"]["router"][0], xg, dropless)
+                got[dev] = (cmb.float().cpu(), dis.cpu())
+            check(torch.equal(got["card"][1], got["cpu"][1]),
+                  f"{arch} {shape}: routing on the card differs from the CPU")
+            cmb_err = max(cmb_err, float((got["card"][0]
+                                          - got["cpu"][0]).abs().max()))
+        check(cmb_err <= ROUTE_ATOL, f"{arch}: combine |card - cpu| "
+              f"{cmb_err} > {ROUTE_ATOL}")
+        plen, max_new = 256, 6
+        spec = serve.ServeSpec(slots=2, max_len=plen + 4 * max_new,
+                               prefill_len=plen, max_new=max_new)
+        toks = {}
+        kernels.reset_launch_counts()
+        for dev, p in (("card", p_card), ("cpu", p_cpu)):
+            reqs = serve.make_requests(4, 0.0, plen, max_new,
+                                       cfg.vocab_size, seed=2)
+            done = serve.ServeEngine(cfg, p, spec).run(reqs)
+            toks[dev] = {r.rid: (r.out, r.truncated) for r in done}
+        launches = kernels.launch_counts()["flash_attention"]
+        check(launches > 0, f"{arch}: the card run did not use the kernel")
+        check(toks["card"] == toks["cpu"],
+              f"{arch}: card and CPU generated different tokens")
+        batch = np.random.default_rng(3).integers(
+            0, cfg.vocab_size, (2, plen)).astype(np.int32)
+        logits = {}
+        for dev, p in (("card", p_card), ("cpu", p_cpu)):
+            d = "cuda" if dev == "card" else "cpu"
+            cache = lm.init_cache(cfg, 2, plen, 1, torch.float32, device=d)
+            with torch.no_grad():
+                lg, _ = lm.serve_prefill(
+                    cfg, p, {"tokens": torch.as_tensor(batch, device=d)}, 1,
+                    cache)
+            logits[dev] = lg.float().cpu()
+        rel = float((logits["card"] - logits["cpu"]).norm()
+                    / logits["cpu"].norm())
+        check(rel <= SERVE_LOGITS_RTOL,
+              f"{arch}: prefill logits card vs CPU rel L2 {rel}")
+        n_tok = sum(len(o) for o, _ in toks["card"].values())
+        out[arch] = {"tokens": n_tok, "combine_max_abs_err": cmb_err,
+                     "rel_l2_prefill_logits": rel,
+                     "flash_launches": launches}
+        log(f"phase 21: {arch} smoke: routing bitwise on the card and the "
+            f"CPU (combine |card - cpu| {cmb_err:.3g}), the same {n_tok} "
+            f"tokens (4 requests, 256-wide prefill), prefill logits rel L2 "
+            f"{rel:.3g} (tolerance {SERVE_LOGITS_RTOL})")
+    return out
+
+
+def _vlm_batch(torch, cfg, slots, patches, text, device, seed=0):
+    rng = np.random.default_rng(seed)
+    return {"patch_embeds": torch.as_tensor(rng.standard_normal(
+                (slots, patches, cfg.d_model)).astype(np.float32),
+                device=device),
+            "tokens": torch.as_tensor(rng.integers(
+                0, cfg.vocab_size, (slots, text)).astype(np.int32),
+                device=device)}
+
+
+def _vlm_generate(torch, lm, cfg, params, batch, steps, device,
+                  last_pos=None, timed=False):
+    """Prefill the patches and text, then ``steps`` greedy decode steps;
+    returns (prefill logits, tokens (B, steps + 1), prefill s, step s)."""
+    B, S = batch["tokens"].shape[0], batch["patch_embeds"].shape[1] + \
+        batch["tokens"].shape[1]
+    cache = lm.init_cache(cfg, B, S + steps, 1, torch.float32, device=device)
+    sync = torch.cuda.synchronize if timed else (lambda: None)
+    with torch.no_grad():
+        sync()
+        t0 = time.perf_counter()
+        logits, cache = lm.serve_prefill(cfg, params, batch, 1, cache,
+                                         last_pos=last_pos)
+        nxt = torch.argmax(logits[:, :cfg.vocab_size], -1).to(torch.int32)
+        sync()
+        wave_s = time.perf_counter() - t0
+        pos = (torch.full((B,), S, dtype=torch.int32, device=device)
+               if last_pos is None else last_pos + 1)
+        toks, step_s = [nxt], []
+        for _ in range(steps):
+            t0 = time.perf_counter()
+            lg, cache = lm.serve_step(cfg, params, nxt, pos, 1, cache)
+            nxt = torch.argmax(lg[:, :cfg.vocab_size], -1).to(torch.int32)
+            sync()
+            step_s.append(time.perf_counter() - t0)
+            toks.append(nxt)
+            pos = pos + 1
+    return logits, torch.stack(toks, 1).cpu(), wave_s, step_s
+
+
+def run_vlm_serving(torch, kernels, lm):
+    """paligemma-3b at published widths and depth: one prefill of
+    VLM_WAVE's patches and text and its greedy decode steps, counts from
+    0: no kernel launch (a prefix-LM mask takes the blocked path, the
+    reference's rule; decode attends through the cache)."""
+    from repro_torch.configs.registry import get_config
+    cfg = get_config("paligemma-3b")
+    W = VLM_WAVE
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    params = lm.init_params(cfg, 0, device="cuda")
+    n_params = sum(t.numel() for t in _leaves(params))
+    batch = _vlm_batch(torch, cfg, W["slots"], W["patches"], W["text"],
+                       "cuda")
+    kernels.reset_launch_counts()
+    logits, toks, wave_s, step_s = _vlm_generate(
+        torch, lm, cfg, params, batch, W["steps"], "cuda", timed=True)
+    counts = kernels.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    check(all(n == 0 for n in counts.values()),
+          f"paligemma-3b: launches {counts}, expected none (flash 0: the "
+          f"prefix-LM mask takes the blocked path)")
+    check(bool(torch.isfinite(logits).all()), "paligemma-3b: non-finite "
+          "prefill logits")
+    check(bool(((toks >= 0) & (toks < cfg.vocab_size)).all()),
+          "paligemma-3b: token ids out of range")
+    n_tok = toks.numel()
+    info = {"n_params": n_params, "slots": W["slots"],
+            "positions": W["patches"] + W["text"], "launches": counts,
+            "prefill_wave_s": wave_s, "decode_step_s": step_s,
+            "decode_step_s_median": float(np.median(step_s)),
+            "tok_per_s": n_tok / (wave_s + sum(step_s)),
+            "peak_mem_bytes": peak}
+    log(f"phase 22: paligemma-3b full width ({n_params} params, fp32): "
+        f"prefill of {W['slots']} x ({W['patches']} patches + {W['text']} "
+        f"tokens) {wave_s:.4f} s, {W['steps']} decode steps median "
+        f"{1e3 * info['decode_step_s_median']:.2f} ms, {n_tok} tokens at "
+        f"{info['tok_per_s']:.2f} tok/s; launches {counts} (B2 0: the "
+        f"prefix-LM mask runs blocked); peak {peak / 2**30:.2f} GiB")
+    del params
+    return info
+
+
+def vlm_card_vs_cpu(torch, kernels, lm, convert):
+    """paligemma-smoke on the card and the CPU from the same params and
+    batch, left-aligned prompts of three lengths: prefill logits within
+    SERVE_LOGITS_RTOL and the same greedy tokens."""
+    from repro_torch.configs.registry import get_smoke_config
+    cfg = get_smoke_config("paligemma-3b")
+    p_cpu = lm.init_params(cfg, seed=1, device="cpu")
+    p_card = convert.params_from_numpy(convert.params_to_numpy(p_cpu),
+                                       device="cuda")
+    res = {}
+    for dev, p in (("card", p_card), ("cpu", p_cpu)):
+        d = "cuda" if dev == "card" else "cpu"
+        batch = _vlm_batch(torch, cfg, 3, 16, 32, d, seed=6)
+        last = torch.tensor([47, 40, 30], dtype=torch.int32, device=d)
+        lg, toks, _, _ = _vlm_generate(torch, lm, cfg, p, batch, 6, d,
+                                       last_pos=last)
+        res[dev] = (lg.float().cpu(), toks)
+    rel = float((res["card"][0] - res["cpu"][0]).norm()
+                / res["cpu"][0].norm())
+    check(rel <= SERVE_LOGITS_RTOL,
+          f"paligemma smoke: prefill logits card vs CPU rel L2 {rel}")
+    check(torch.equal(res["card"][1], res["cpu"][1]),
+          "paligemma smoke: card and CPU generated different tokens")
+    log(f"phase 22: paligemma smoke: prefill logits |card - cpu| / |cpu| "
+        f"= {rel:.3g} (tolerance {SERVE_LOGITS_RTOL}), the same "
+        f"{res['card'][1].numel()} greedy tokens")
+    return {"rel_l2_prefill_logits": rel, "tokens": res["card"][1].numel()}
+
+
+def run_family_training(torch, kernels):
+    """launch/train.py (``train.run``: the guarded runner, its ce_loss and
+    aux_loss logging) for each of FAMILY_TRAIN at published widths, cut to
+    FAMILY_TRAIN_LAYERS layers and a global batch of FAMILY_TRAIN_BATCH x
+    4096: two steps each with ``--ckpt-every 0`` (no checkpoint written),
+    counts from 0 per arch."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.configs.shapes import ShapeConfig
+    import shutil
+    from repro_torch.launch import train
+    shape = ShapeConfig("train_4k", 4096, FAMILY_TRAIN_BATCH, "train")
+    ckdir = ROOT / "build" / "chip_smoke_family_train"
+    shutil.rmtree(ckdir, ignore_errors=True)
+    out = {}
+    for arch in FAMILY_TRAIN:
+        cfg = get_config(arch).replace(n_layers=FAMILY_TRAIN_LAYERS)
+        mb, L = cfg.microbatch, cfg.n_layers
+        check(mb == 8 and cfg.remat and cfg.scan_layers,
+              f"{arch} trains with microbatch {mb}, remat {cfg.remat}")
+        argv = ["--arch", arch, "--steps", "2", "--ckpt-dir", str(ckdir),
+                "--ckpt-every", "0", "--seed", "0", "--device", "cuda"]
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launch_counts()
+        res = train.run(train.parser().parse_args(argv), cfg=cfg,
+                        shape=shape)
+        torch.cuda.synchronize()
+        counts = kernels.launch_counts()
+        peak = torch.cuda.max_memory_allocated()
+        n_params = sum(t.numel() for t in _leaves(res.state["params"]))
+        res.state = None
+        rows, secs = res.metrics, res.step_seconds
+        batch_s = res.batch_seconds
+        check(res.end_step == 2 and len(rows) == 2
+              and res.runner_stats["failures"] == 0,
+              f"{arch}: steps {res.start_step}..{res.end_step}, runner "
+              f"{res.runner_stats}")
+        check(not any(ckdir.iterdir()),
+              f"{arch}: --ckpt-every 0 wrote {sorted(ckdir.iterdir())}")
+        # flash per step: a forward per layer per microbatch, twice under
+        # remat, and a backward; the vlm prefix runs blocked (none)
+        flash = 0 if cfg.family == "vlm" else mb * L
+        want = {"flash_attention": 2 * 2 * flash,
+                "flash_attention_bwd": 2 * flash}
+        check(all(counts[k] == v for k, v in want.items())
+              and all(n == 0 for k, n in counts.items() if k not in want),
+              f"{arch}: launches {counts} over 2 steps, expected {want}")
+        check(all(math.isfinite(r["loss"]) and math.isfinite(r["grad_norm"])
+                  for r in rows), f"{arch}: losses {rows}")
+        check(all((r["aux_loss"] > 0) == (cfg.family == "moe")
+                  for r in rows),
+              f"{arch}: aux losses {[r['aux_loss'] for r in rows]}")
+        out[arch] = {"layers": L, "batch": FAMILY_TRAIN_BATCH, "seq": 4096,
+                     "microbatch": mb, "n_params": n_params,
+                     "step_s": secs, "batch_s": batch_s, "metrics": rows,
+                     "launches": counts,
+                     "launches_per_step": {k: v // 2 for k, v in
+                                           counts.items()},
+                     "peak_mem_bytes": peak,
+                     "tokens_per_s": FAMILY_TRAIN_BATCH * 4096 / secs[1]}
+        log(f"phase 23: {arch} trained through launch/train.py at published "
+            f"widths ({L} layers, {n_params} params, batch "
+            f"{FAMILY_TRAIN_BATCH} x 4096, microbatch {mb}, remat, fp32 "
+            f"AdamW, no checkpoint): steps {[round(s, 3) for s in secs]} s "
+            f"(making the host batch {[round(s, 3) for s in batch_s]} s "
+            f"more), "
+            f"losses {[r['loss'] for r in rows]}, ce_loss "
+            f"{[r['ce_loss'] for r in rows]}, aux_loss "
+            f"{[r['aux_loss'] for r in rows]}; flash launches a step "
+            f"{counts['flash_attention'] // 2} forward, "
+            f"{counts['flash_attention_bwd'] // 2} backward"
+            f"{' (non-causal)' if not cfg.causal else ''}; peak "
+            f"{peak / 2**30:.2f} GiB")
+        torch.cuda.empty_cache()
+    return out
+
+
+def family_training_card_vs_cpu(torch, kernels, lm, convert):
+    """One loss and gradient probe of each FAMILY_TRAIN smoke config on
+    the card (through the flash kernels, forward and backward, for moe
+    and audio; counted) and the CPU, from the same params and pipeline
+    batch (256 positions: the moe grouped path).  The probe is the token
+    embedding, or frontend_proj for audio (tests/test_models_smoke.py's)."""
+    from repro_torch.configs.registry import get_smoke_config
+    from repro_torch.configs.shapes import ShapeConfig
+    from repro_torch.data.pipeline import TokenPipeline
+    from repro_torch.models.common import flatten_tree, unflatten_tree
+    out = {}
+    for arch in FAMILY_TRAIN:
+        cfg = get_smoke_config(arch)
+        p_cpu = lm.init_params(cfg, seed=2, device="cpu")
+        batch = TokenPipeline(cfg, ShapeConfig("s", 256, 2, "train"),
+                              seed=3).batch(0)
+        probe = "frontend_proj" if cfg.family == "audio" else "embed"
+        res = {}
+        for dev in ("cuda", "cpu"):
+            kernels.reset_launch_counts()
+            flat = flatten_tree(convert.params_from_numpy(
+                convert.params_to_numpy(p_cpu), device=dev))
+            flat[probe].requires_grad_(True)
+            b = {k: torch.as_tensor(np.asarray(v), device=dev)
+                 for k, v in batch.items()}
+            loss, metrics = lm.loss_fn(cfg, unflatten_tree(flat), b, 1)
+            (g,) = torch.autograd.grad(loss, [flat[probe]])
+            res[dev] = (float(loss.detach()),
+                        float(metrics["aux_loss"].detach()), g.float().cpu())
+            if dev == "cuda":
+                launches = kernels.launch_counts()
+        fl = {k: launches[k] for k in ("flash_attention",
+                                       "flash_attention_bwd")}
+        check(all((n > 0) == (cfg.family != "vlm") for n in fl.values()),
+              f"{arch} smoke: the card run launched {fl} (the flash "
+              f"kernels both ways for moe and audio, none for the vlm "
+              f"prefix)")
+        dl = abs(res["cuda"][0] - res["cpu"][0]) / abs(res["cpu"][0])
+        dg = float((res["cuda"][2] - res["cpu"][2]).norm()
+                   / res["cpu"][2].norm())
+        check(dl <= FAMILY_LOSS_RTOL,
+              f"{arch} smoke: loss card {res['cuda'][0]} vs CPU "
+              f"{res['cpu'][0]}")
+        check(dg <= FAMILY_GRAD_RTOL,
+              f"{arch} smoke: grad of {probe} card vs CPU rel L2 {dg}")
+        out[arch] = {"loss_rel_err": dl, "grad_rel_l2": dg, "probe": probe,
+                     "loss": res["cuda"][0], "aux_loss": res["cuda"][1],
+                     "flash_launches": fl}
+        log(f"phase 23: {arch} smoke: loss card vs CPU rel {dl:.3g} "
+            f"(tolerance {FAMILY_LOSS_RTOL}), grad of {probe} rel L2 "
+            f"{dg:.3g} (tolerance {FAMILY_GRAD_RTOL}); card launches {fl}")
+    return out
+
+
+def time_hubert_attention(torch, fa, ref):
+    """B2 forward and backward at HUBERT_ATTN (non-causal, hd 80), fp32
+    as the path runs it: kernel, plain version, SDPA and the bound."""
+    g = torch.Generator(device="cuda").manual_seed(21)
+    fwd = time_flash(torch, fa, ref, g, HUBERT_ATTN, "float32",
+                     causal=HUBERT_ATTN["causal"])
+    bwd = time_flash_bwd(torch, fa, ref, g, HUBERT_ATTN, "float32",
+                         causal=HUBERT_ATTN["causal"])
+    for name, t in (("forward", fwd), ("backward", bwd)):
+        log(f"phase 23: flash {name} at hubert's shape "
+            f"{HUBERT_ATTN} non-causal fp32: kernel {t['ms']:.4f} ms, plain "
+            f"{t['plain_ms']:.4f} ms, SDPA "
+            f"{'not measured' if t['library_ms'] is None else '%.4f ms' % t['library_ms']}, "
+            f"bound {t['bound_ms']:.4f} ms ({t['bound_by']})")
+    return {"forward": fwd, "backward": bwd}
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="also write every number as JSON here")
@@ -3415,7 +4003,9 @@ def main() -> None:
     from repro_torch.kernels import polyline_codec as pc, ref
     from repro_torch.kernels import rwkv6_scan, ssd as ssd_scan
     from repro_torch.launch import serve as serve_launch
+    from repro_torch.models import attention as attn_mod
     from repro_torch.models import convert, lm
+    from repro_torch.models import moe as moe_mod
     check("jax" not in sys.modules and "repro" not in sys.modules,
           "the port imported jax or the reference package")
 
@@ -3509,6 +4099,34 @@ def main() -> None:
     torch.cuda.empty_cache()
     # phase 20: the topology plane at full width, counts from 0
     topology = run_topology(torch, api, kernels, SimEnv, dev)
+    torch.cuda.empty_cache()
+    # phase 21: moe serving at published widths, counts from 0 per run
+    moe_serving = {}
+    for arch, layers in (("granite-moe-3b-a800m", None),
+                         ("deepseek-moe-16b", DEEPSEEK_LAYERS)):
+        moe_serving[arch], engine = run_moe_serving(
+            torch, kernels, serve_launch, lm, moe_mod, attn_mod, arch,
+            layers)
+        if layers is None:
+            moe_serving[arch]["wave_split"] = split = moe_wave_split(
+                torch, lm, moe_mod, attn_mod, engine,
+                moe_serving[arch]["decode_step_s_median"])
+            log(f"phase 21: {arch} warm wave {split['wave_s']:.4f} s; with "
+                f"each call synchronised: MoE FFNs "
+                f"{100 * split['moe_ffn_share']:.1f}%, attention "
+                f"{100 * split['prefill_attention_share']:.1f}% of "
+                f"{split['synced_wave_s']:.4f} s")
+        del engine
+    moe_agree = moe_card_vs_cpu(torch, kernels, lm, convert, serve, moe_mod)
+    torch.cuda.empty_cache()
+    # phase 22: vlm serving at published widths, counts from 0
+    vlm_serving = run_vlm_serving(torch, kernels, lm)
+    vlm_agree = vlm_card_vs_cpu(torch, kernels, lm, convert)
+    torch.cuda.empty_cache()
+    # phase 23: the three families trained, counts from 0 per arch
+    family_train = run_family_training(torch, kernels)
+    family_agree = family_training_card_vs_cpu(torch, kernels, lm, convert)
+    hubert_attn = time_hubert_attention(torch, fa, ref)
 
     src = "src/repro_torch/kernels/csrc/polyline_codec.cu"
     # the main path's lossy step: B1a and B1b fused, per stacked uplink
@@ -3570,7 +4188,19 @@ def main() -> None:
         "fedlm_faults_launches":
             fedlm_ckpt["train_launches"]["flash_attention"],
         "serve_ckpt_launches":
-            fedlm_ckpt["serve_launches"]["flash_attention"]})
+            fedlm_ckpt["serve_launches"]["flash_attention"],
+        "moe_serve_launches": {a: r["launches"]["flash_attention"]
+                               for a, r in moe_serving.items()},
+        "vlm_serve_launches": vlm_serving["launches"]["flash_attention"],
+        "family_train_launches_per_step": {
+            a: r["launches_per_step"]["flash_attention"]
+            for a, r in family_train.items()},
+        "hubert_noncausal_ms": hubert_attn["forward"]["ms"],
+        "hubert_noncausal_plain_ms": hubert_attn["forward"]["plain_ms"],
+        "hubert_noncausal_bound_ms": hubert_attn["forward"]["bound_ms"],
+        "hubert_noncausal_bound_by": hubert_attn["forward"]["bound_by"],
+        "hubert_noncausal_library_ms":
+            hubert_attn["forward"]["library_ms"]})
     # B2's backward: fp32 at the trainer's shape is the trainer's path
     tb = flash_bwd["shapes"]
     t32 = tb["trainer (qwen2-7b widths) float32"]
@@ -3601,7 +4231,19 @@ def main() -> None:
         "fedlm_library_ms": fl["library_ms"],
         "fedlm_graph_ms": fl["graph_ms"], "fedlm_parts_ms": fl["parts_ms"],
         "fedlm_faults_launches":
-            fedlm_ckpt["train_launches"]["flash_attention_bwd"]})
+            fedlm_ckpt["train_launches"]["flash_attention_bwd"],
+        "family_train_launches_per_step": {
+            a: r["launches_per_step"]["flash_attention_bwd"]
+            for a, r in family_train.items()},
+        "hubert_noncausal_ms": hubert_attn["backward"]["ms"],
+        "hubert_noncausal_plain_ms": hubert_attn["backward"]["plain_ms"],
+        "hubert_noncausal_bound_ms": hubert_attn["backward"]["bound_ms"],
+        "hubert_noncausal_tc_bound_ms":
+            hubert_attn["backward"]["tc_bound_ms"],
+        "hubert_noncausal_bound_by": hubert_attn["backward"]["bound_by"],
+        "hubert_noncausal_library_ms":
+            hubert_attn["backward"]["library_ms"],
+        "hubert_noncausal_graph_ms": hubert_attn["backward"]["graph_ms"]})
     for name, src, line, arch, res in (
             ("wkv6", "wkv6.cu", "rwkv6_scan.py:68", "rwkv6-3b", wkv),
             ("ssd", "ssd.cu", "ssd.py:64", "zamba2-2.7b", ssd)):
@@ -3635,7 +4277,11 @@ def main() -> None:
             "federated_lm_card_vs_cpu": fedlm_agree,
             "trainer": trainer, "faults": faults,
             "fedlm_checkpoint": fedlm_ckpt, "population": population,
-            "topology": topology}, indent=2))
+            "topology": topology, "moe_serving": moe_serving,
+            "moe_card_vs_cpu": moe_agree, "vlm_serving": vlm_serving,
+            "vlm_card_vs_cpu": vlm_agree, "family_training": family_train,
+            "family_training_card_vs_cpu": family_agree,
+            "hubert_attention": hubert_attn}, indent=2))
     print(json.dumps({"kernels": report}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

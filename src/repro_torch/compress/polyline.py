@@ -90,6 +90,47 @@ def decode_values(encoded: str, precision: int = 4) -> np.ndarray:
     return (np.cumsum(delta) / factor).astype(np.float32)
 
 
+def encode_values_ref(values: np.ndarray, precision: int = 4) -> str:
+    """Scalar reference of :func:`encode_values`: one value at a time, as
+    the algorithm is written down (the equivalence oracle)."""
+    factor = 10 ** precision
+    ints = np.round(np.asarray(values, np.float64) * factor).astype(np.int64)
+    deltas = np.diff(ints, prepend=np.int64(0))
+    out: List[str] = []
+    for d in deltas:
+        v = int(d) << 1
+        if d < 0:
+            v = ~v
+        while v >= 0x20:
+            out.append(chr((0x20 | (v & 0x1F)) + 63))
+            v >>= 5
+        out.append(chr(v + 63))
+    return "".join(out)
+
+
+def decode_values_ref(encoded: str, precision: int = 4) -> np.ndarray:
+    """Scalar reference of :func:`decode_values`."""
+    factor = 10 ** precision
+    vals: List[float] = []
+    acc = 0
+    idx = 0
+    n = len(encoded)
+    while idx < n:
+        shift = 0
+        result = 0
+        while True:
+            b = ord(encoded[idx]) - 63
+            idx += 1
+            result |= (b & 0x1F) << shift
+            shift += 5
+            if b < 0x20:
+                break
+        delta = ~(result >> 1) if (result & 1) else (result >> 1)
+        acc += delta
+        vals.append(acc / factor)
+    return np.asarray(vals, np.float32)
+
+
 def marshal(params: Any, precision: int = 4) -> Dict[str, Any]:
     """Tree -> {payloads: [str], shapes, dtypes, treedef}. Lossy."""
     leaves, treedef = tree_flatten(params)
@@ -125,3 +166,10 @@ def _nbytes(leaf: Any) -> int:
 
 def raw_bytes(params: Any) -> int:
     return sum(_nbytes(l) for l in tree_leaves(params))
+
+
+def roundtrip_error(params: Any, precision: int = 4) -> float:
+    """Max absolute error of a marshal/unmarshal roundtrip over all leaves."""
+    rt = unmarshal(marshal(params, precision))
+    return max(float(np.max(np.abs(to_numpy(a) - to_numpy(b))))
+               for a, b in zip(tree_leaves(params), tree_leaves(rt)))

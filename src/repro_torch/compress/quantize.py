@@ -71,3 +71,20 @@ def decompress_tree(msg) -> Any:
 
 def tree_wire_bytes(msg) -> int:
     return sum(wire_bytes(c) for c in msg["comps"]) + 8 * len(msg["shapes"])
+
+
+def fake_quantize(x: torch.Tensor, bits: int = 8) -> torch.Tensor:
+    """Quantize-dequantize (the codec's lossy values, in ``x``'s shape
+    and dtype)."""
+    x = torch.as_tensor(x)
+    return decompress(compress(x, bits), tuple(x.shape), x.dtype)
+
+
+def error_bound(x: torch.Tensor, bits: int = 8) -> torch.Tensor:
+    """Per-block worst-case absolute error of the codec: max|block| /
+    qmax / 2."""
+    flat = torch.as_tensor(x).reshape(-1).to(torch.float32)
+    n = flat.shape[0]
+    nb = -(-n // BLOCK)
+    blocks = F.pad(flat, (0, nb * BLOCK - n)).reshape(nb, BLOCK)
+    return blocks.abs().amax(dim=1) / _qmax(bits) * 0.5

@@ -218,3 +218,16 @@ def get_codec(spec: Union[str, Codec, None]) -> Codec:
     except (TypeError, ValueError) as e:
         raise ValueError(f"bad argument in codec spec {spec!r} "
                          f"(expected e.g. 'polyline:4', 'quantize:16'): {e}")
+
+
+def cross_tier_bits(spec: Union[str, Codec]) -> int:
+    """Int width of the cross-tier collective of the multi-pod trainer (a
+    pure function of the codec spec; the collective itself is ROADMAP
+    A16).  Only the quantize family carries an int payload; polyline is a
+    host-side wire codec."""
+    codec = get_codec(spec)
+    if not isinstance(codec, QuantizeCodec):
+        raise ValueError(
+            f"codec {codec.name!r} cannot run inside the cross-tier "
+            "collective; use quantize8/quantize16")
+    return codec.bits

@@ -290,6 +290,23 @@ class SimEnv:
         k = min(k, len(pool))
         return rng.choice(pool, k, replace=False)
 
+    @property
+    def dropout_time(self) -> Dict[int, float]:
+        """Dict view of the dropout schedule (derived from ``dropout_at``)."""
+        return {int(c): float(self.dropout_at[c]) for c in self.dropout_ids}
+
+    def client_batch(self, ids: np.ndarray) -> Dict[str, torch.Tensor]:
+        """The train rows ``{x, y, mask}`` of clients ``ids`` on the
+        device, in :meth:`upload`'s layout (materialized on demand on the
+        streaming plane)."""
+        if self.train is None:
+            return self.upload(self.population.materialize(ids))
+        return self.upload({k: self.train[k][ids] for k in ("x", "y", "mask")})
+
+    def n_samples(self, ids: np.ndarray) -> torch.Tensor:
+        return torch.from_numpy(np.asarray(self.n_train_all[ids])).to(
+            self.device)
+
     def evaluate(self, params) -> Tuple[float, float]:
         """(weighted global accuracy, per-client accuracy variance)."""
         if self._test_dev is None:  # upload the test stack once

@@ -37,20 +37,27 @@ class StepFns:
 
 
 def _loss_and_grads(cfg: ModelConfig, params, batch, tp: int,
-                    microbatch: int) -> Tuple[torch.Tensor, Dict[str, Any]]:
-    """(mean loss, grads tree).  With ``microbatch`` k > 1 the batch is
-    split into k slices along its leading dim; their fp32 gradients are
-    summed and divided by k, and so are their losses."""
+                    microbatch: int
+                    ) -> Tuple[torch.Tensor, Dict[str, Any],
+                               Dict[str, torch.Tensor]]:
+    """(mean loss, grads tree, mean loss metrics: ``ce_loss`` and
+    ``aux_loss``).  With ``microbatch`` k > 1 the batch is split into k
+    slices along its leading dim; their fp32 gradients are summed and
+    divided by k, and so are their losses."""
     flat = common.flatten_tree(params)
     names = list(flat)
 
     def value_and_grad(b):
         leaves = [flat[n].detach().requires_grad_(True) for n in names]
         with torch.enable_grad():
-            loss, _ = lm.loss_fn(
+            loss, metrics = lm.loss_fn(
                 cfg, common.unflatten_tree(dict(zip(names, leaves))), b, tp)
-            grads = torch.autograd.grad(loss, leaves)
-        return loss.detach(), grads
+            # a leaf the loss does not read (the audio family's token
+            # embedding) gets a zero gradient, as jax.grad gives it
+            grads = [torch.zeros_like(x) if g is None else g for x, g in zip(
+                leaves, torch.autograd.grad(loss, leaves, allow_unused=True))]
+        return loss.detach(), grads, {k: v.detach()
+                                      for k, v in metrics.items()}
 
     if microbatch and microbatch > 1:
         k = microbatch
@@ -60,16 +67,21 @@ def _loss_and_grads(cfg: ModelConfig, params, batch, tp: int,
                             device=flat[n].device) for n in names]
         lsum = torch.zeros((), dtype=torch.float32,
                            device=flat[names[0]].device)
+        msum: Dict[str, torch.Tensor] = {}
         for i in range(k):
-            loss, grads = value_and_grad({key: x[i] for key, x in mb.items()})
+            loss, grads, metrics = value_and_grad(
+                {key: x[i] for key, x in mb.items()})
             for acc, g in zip(gsum, grads):
                 acc.add_(g.float())
             del grads
             lsum = lsum + loss
+            for key, v in metrics.items():
+                msum[key] = msum[key] + v if key in msum else v
         grads = [g.div_(k) for g in gsum]
-        return lsum / k, common.unflatten_tree(dict(zip(names, grads)))
-    loss, grads = value_and_grad(batch)
-    return loss, common.unflatten_tree(dict(zip(names, grads)))
+        return (lsum / k, common.unflatten_tree(dict(zip(names, grads))),
+                {key: v / k for key, v in msum.items()})
+    loss, grads, metrics = value_and_grad(batch)
+    return loss, common.unflatten_tree(dict(zip(names, grads))), metrics
 
 
 def _to_device(batch, device: torch.device) -> Dict[str, torch.Tensor]:
@@ -82,8 +94,9 @@ def make_single_pod_step(cfg: ModelConfig, tcfg: TrainConfig,
                          device: DeviceLike = None) -> StepFns:
     """``init_state(seed)`` draws the params on ``device`` (None = the
     card) from a generator seeded with ``seed``; ``train_step(state,
-    batch)`` -> (state, {"loss", "grad_norm", "lr_scale"}), the state
-    updated in place.  ``mesh`` must be None or a one-device mesh: the
+    batch)`` -> (state, {"loss", "grad_norm", "lr_scale", "ce_loss",
+    "aux_loss"}), the state updated in place (the reference's metrics,
+    plus the loss's two parts).  ``mesh`` must be None or a one-device mesh: the
     port has no mesh (ROADMAP A16)."""
     if mesh is not None and getattr(mesh, "size", 1) != 1:
         raise NotImplementedError(
@@ -103,13 +116,14 @@ def make_single_pod_step(cfg: ModelConfig, tcfg: TrainConfig,
     def train_step(state, batch):
         batch = _to_device(batch, dev)
         params = state["params"]
-        loss, grads = _loss_and_grads(cfg, params, batch, tp, cfg.microbatch)
+        loss, grads, parts = _loss_and_grads(cfg, params, batch, tp,
+                                             cfg.microbatch)
         lr_scale = sched(state["step"])
         grad_norm = global_norm(grads)
         new_params, new_opt = opt.step(params, grads, state["opt"],
                                        lr_scale)
         metrics = {"loss": loss, "grad_norm": grad_norm,
-                   "lr_scale": lr_scale}
+                   "lr_scale": lr_scale, **parts}
         return ({"params": new_params, "opt": new_opt,
                  "step": state["step"] + 1}, metrics)
 

@@ -1,2 +1,2 @@
 from repro_torch.data.federated import (  # noqa: F401
-    ClientData, FederatedDataset, make_federated, pad_stack)
+    ClientData, FederatedDataset, global_test_set, make_federated, pad_stack)

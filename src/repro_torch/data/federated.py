@@ -149,3 +149,10 @@ def pad_stack(ds: FederatedDataset, max_samples: int = 0
         mask[i, :k] = True
     return {"x": xs, "y": ys, "mask": mask,
             "n_samples": mask.sum(1).astype(np.int32)}
+
+
+def global_test_set(ds: FederatedDataset) -> Tuple[np.ndarray, np.ndarray]:
+    """Every client's test split, concatenated in client order."""
+    xs = np.concatenate([c.x_test for c in ds.clients])
+    ys = np.concatenate([c.y_test for c in ds.clients])
+    return xs, ys

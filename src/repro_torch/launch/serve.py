@@ -3,8 +3,9 @@
 The port of ``repro/launch/serve.py``.  :func:`main` drives
 :class:`repro_torch.serve.engine.ServeEngine` — fixed-slot continuous
 batching with per-slot positions, exact prompt handoff, and cache-row
-reset on slot recycle — over a decoder arch of the registry with random
-params drawn on the device from ``--seed``.  The flags are the
+reset on slot recycle — over a decoder arch of the registry (dense, moe,
+rwkv6, zamba2; the vlm and audio frontends take inputs the engine does
+not pass) with random params drawn on the device from ``--seed``.  The flags are the
 reference's, plus ``--device`` (default ``cuda``; ``cpu`` only when asked
 for).
 
@@ -144,14 +145,17 @@ def parse_args(argv=None) -> argparse.Namespace:
     return ap.parse_args(argv)
 
 
-def run(argv=None):
+def run(argv=None, cfg=None):
     """Build the engine from the flags and serve the burst; returns
-    ``(engine, done, report)``."""
+    ``(engine, done, report)``.  ``cfg`` overrides what ``--arch`` /
+    ``--smoke`` resolve to (a depth-cut config, say)."""
     from repro_torch.serve import ServeEngine, ServeRequest, ServeSpec, report
 
     args = parse_args(argv)
     dev = resolve_device(args.device)
-    cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
+    if cfg is None:
+        cfg = get_smoke_config(args.arch) if args.smoke else get_config(
+            args.arch)
     if not cfg.is_decoder:
         raise SystemExit(f"{args.arch} is encoder-only: nothing to decode")
     rng = np.random.default_rng(args.seed)

@@ -5,8 +5,11 @@ The port of ``repro/launch/train.py`` for one device: the single-pod step
 and the guarded runner that restores the last good checkpoint on a failed
 step.  It runs on the card unless ``--device cpu`` is given; the params
 are drawn on the device from a ``torch.Generator`` seeded with
-``--seed``.  ``--multi-pod`` and ``--codec`` (pods as FedAT tiers and the
-cross-tier link) raise naming ROADMAP A16.
+``--seed``.  Every transformer family trains (dense, moe, the vlm and
+audio frontends, with the pipeline's patch and frame batches; the MoE aux
+loss is logged beside the cross-entropy); the recurrent families raise
+naming ROADMAP A17.  ``--multi-pod`` and ``--codec`` (pods as FedAT tiers
+and the cross-tier link) raise naming ROADMAP A16.
 
 Example (CPU):
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-7b \\
@@ -39,6 +42,8 @@ class TrainResult:
     start_step: int
     end_step: int
     seconds: float
+    step_seconds: List[float]
+    batch_seconds: List[float]
     runner_stats: Dict[str, int]
     state: Any
 
@@ -53,7 +58,8 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--multi-pod", action="store_true",
                     help="not ported yet (ROADMAP A16)")
     ap.add_argument("--ckpt-dir", default="/tmp/repro_ckpt")
-    ap.add_argument("--ckpt-every", type=int, default=10)
+    ap.add_argument("--ckpt-every", type=int, default=10,
+                    help="steps between checkpoints; 0 writes none")
     ap.add_argument("--resume", action="store_true")
     ap.add_argument("--inject-failure-rate", type=float, default=0.0)
     ap.add_argument("--codec", default=None,
@@ -90,33 +96,44 @@ def run(args: argparse.Namespace, cfg=None, shape=None) -> TrainResult:
         state, start = ckpt.restore(state)
         log.info("resumed from step %d", start)
 
+    batch_s: List[float] = []
+
     def batches():
         step = start
         while True:
-            yield pipe.batch(step)
+            t = time.perf_counter()
+            batch = pipe.batch(step)
+            batch_s.append(time.perf_counter() - t)
+            yield batch
             step += 1
 
     losses: List[float] = []
     history: List[Dict[str, float]] = []
+    stamps: List[float] = []
 
     def on_metrics(step, metrics):
+        # float() waits for the step, so the stamps bound each step and
+        # the making of its batch
         row = {k: float(v) for k, v in metrics.items()}
+        stamps.append(time.perf_counter())
         losses.append(row["loss"])
         history.append(row)
         if step % 5 == 0 or step == args.steps:
-            log.info("step %d loss %.4f", step, losses[-1])
+            log.info("step %d loss %.4f (ce_loss %.4f aux_loss %.4f)", step,
+                     losses[-1], row["ce_loss"], row["aux_loss"])
 
     runner = GuardedRunner(fns.train_step, ckpt, ckpt_every=args.ckpt_every,
                            inject_failure_rate=args.inject_failure_rate,
                            seed=args.seed)
-    t0 = time.time()
+    t0 = time.perf_counter()
     state, end = runner.run(state, batches(), args.steps, start_step=start,
                             on_metrics=on_metrics)
-    dt = time.time() - t0
+    dt = time.perf_counter() - t0
     log.info("done: %d steps in %.1fs (%.3fs/step); runner stats %s",
              end - start, dt, dt / max(end - start, 1), runner.stats)
-    return TrainResult(losses, history, start, end, dt, dict(runner.stats),
-                       state)
+    steps = [b - a - d for a, b, d in zip([t0] + stamps, stamps, batch_s)]
+    return TrainResult(losses, history, start, end, dt, steps,
+                       batch_s[:len(steps)], dict(runner.stats), state)
 
 
 def main(argv: Optional[List[str]] = None) -> List[float]:

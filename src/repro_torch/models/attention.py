@@ -9,7 +9,10 @@ reference's TP padding and sharding annotations are identities there;
     kernel layer (:func:`repro_torch.kernels.ops.attention`: the CUDA flash
     kernel on the card, the blocked torch path on the CPU); ``reference``
     is the chunked softmax below, sliding-window configs slicing a
-    (W + C)-slab of K/V per query chunk.
+    (W + C)-slab of K/V per query chunk.  A prefix-LM mask (the vlm
+    family: bidirectional over the image prefix, causal after it) takes
+    the blocked path on every device, the reference's own rule: the flash
+    kernel knows causal and window masks only.
   * Decode writes each slot's new K/V row at ``pos % T`` (a ring for
     sliding-window configs) and attends over the rows whose stored absolute
     position is valid for that slot.
@@ -165,13 +168,13 @@ def _attend(q, k, v, mask, exact: bool = False):
 
 
 def _attention_core(cfg: ModelConfig, q, k, v, positions: torch.Tensor,
-                    tp: int) -> torch.Tensor:
+                    tp: int, prefix_len: int = 0) -> torch.Tensor:
     """Full-sequence attention of projected q (..., S, kv, G, hd) and k/v
     (..., S, kv, hd) -> (..., S, H*hd), before the output projection; the
     leading dims are folded into one batch dim (attention has no
-    weights).  No ported family has a prefix-LM frontend (the vlm family
-    is ROADMAP A17), so the mask is causal or bidirectional, with an
-    optional window."""
+    weights).  The mask is causal or bidirectional, with an optional
+    window; a causal mask with ``prefix_len > 0`` is a prefix-LM mask
+    (every query also sees the first ``prefix_len`` keys)."""
     lead = q.shape[:-4]
     q = q.reshape(-1, *q.shape[-4:])
     k = k.reshape(-1, *k.shape[-3:])
@@ -184,7 +187,11 @@ def _attention_core(cfg: ModelConfig, q, k, v, positions: torch.Tensor,
         # kernel-layer contract: q (B, S, H, hd), k/v (B, S, kv, hd); q's
         # (kv, G) grouping flattens kv-major, the kernels' GQA mapping
         qf = q.reshape(B, S, -1, cfg.head_dim)
-        out = kops.attention(qf, k, v, causal=cfg.causal, window=W, block=C)
+        # the flash kernel has no prefix-LM mask: a prefix goes to the
+        # blocked path on every device, as in the reference
+        impl = "blocked" if prefix_len else "auto"
+        out = kops.attention(qf, k, v, causal=cfg.causal, window=W,
+                             impl=impl, block=C, prefix_len=prefix_len)
         return out.reshape(*lead, S, -1)
 
     def block_mask(pos_q, pos_kv):
@@ -192,6 +199,8 @@ def _attention_core(cfg: ModelConfig, q, k, v, positions: torch.Tensor,
                        device=pos_q.device)
         if cfg.causal:
             m = pos_q[:, None] >= pos_kv[None, :]
+            if prefix_len:  # prefix-LM: bidirectional over the prefix
+                m = m | (pos_kv[None, :] < prefix_len)
         if W is not None:
             m = m & (pos_q[:, None] - pos_kv[None, :] < W)
         return m
@@ -221,22 +230,24 @@ def _attention_core(cfg: ModelConfig, q, k, v, positions: torch.Tensor,
 
 
 def full_attention(cfg: ModelConfig, p, x: torch.Tensor,
-                   positions: torch.Tensor, tp: int) -> torch.Tensor:
+                   positions: torch.Tensor, tp: int, prefix_len: int = 0
+                   ) -> torch.Tensor:
     """Full-sequence attention (train / prefill). x: (B, S, d)."""
     q, k, v = _project_qkv(cfg, p, x, positions, tp)
-    out = _attention_core(cfg, q, k, v, positions, tp)
+    out = _attention_core(cfg, q, k, v, positions, tp, prefix_len)
     return torch.matmul(out, p["wo"])
 
 
 def prefill_attention(cfg: ModelConfig, p, x, positions, tp: int,
-                      cache: KVCache) -> Tuple[torch.Tensor, KVCache]:
+                      cache: KVCache, prefix_len: int = 0
+                      ) -> Tuple[torch.Tensor, KVCache]:
     """Full attention + write this segment's K/V into the (per-layer)
     cache, in place: positions 0..S-1, the last min(S, T) of them kept,
     placed at slot ``pos % T`` (the reference's pad-then-roll)."""
     B, S, _ = x.shape
     q, k, v = _project_qkv(cfg, p, x, positions, tp)
     out = torch.matmul(
-        _attention_core(cfg, q, k, v, positions, tp), p["wo"])
+        _attention_core(cfg, q, k, v, positions, tp, prefix_len), p["wo"])
     T = cache.k.shape[1]
     keep = min(S, T)
     k, v = k[:, -keep:], v[:, -keep:]

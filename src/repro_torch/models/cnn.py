@@ -100,3 +100,32 @@ def logreg_apply_clients(p: Params, x: torch.Tensor) -> torch.Tensor:
     """x (K, B, F) -> logits (K, B, n_classes)."""
     return torch.matmul(x, p["w"]) + p["b"][:, None, :]
 
+
+
+def logreg_apply(p: Params, x: torch.Tensor) -> torch.Tensor:
+    """x (B, F) -> logits (B, n_classes), unbatched params.  Convex
+    objective."""
+    return torch.matmul(x, p["w"]) + p["b"]
+
+
+def make_model(kind: str, generator: torch.Generator, **kw):
+    """Returns (params, apply_fn) for ``cnn`` or ``logreg``."""
+    if kind == "cnn":
+        return cnn_init(generator, **kw), cnn_apply
+    if kind == "logreg":
+        return logreg_init(generator, **kw), logreg_apply
+    raise ValueError(kind)
+
+
+def ce_loss(apply_fn, params: Params, batch) -> torch.Tensor:
+    """Mean cross-entropy of ``apply_fn(params, batch["x"])`` against
+    ``batch["y"]`` (one-hot times log-softmax, as the reference sums)."""
+    logits = apply_fn(params, batch["x"])
+    labels = F.one_hot(batch["y"].long(), logits.shape[-1]).to(logits.dtype)
+    logp = torch.log_softmax(logits, dim=-1)
+    return -(labels * logp).sum(dim=-1).mean()
+
+
+def accuracy(apply_fn, params: Params, x: torch.Tensor, y: torch.Tensor
+             ) -> torch.Tensor:
+    return (torch.argmax(apply_fn(params, x), dim=-1) == y).float().mean()

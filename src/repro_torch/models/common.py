@@ -80,6 +80,12 @@ def init_from_specs(specs: Dict[str, Any], generator: torch.Generator,
     return out
 
 
+def param_bytes(specs: Dict[str, Any], bytes_per_el: int = 2) -> int:
+    """Bytes of a spec tree's params at ``bytes_per_el`` bytes each."""
+    return sum(math.prod(s.shape) for _, s in iter_specs(specs)) * \
+        bytes_per_el
+
+
 def flatten_tree(tree: Dict[str, Any], sep: str = "/",
                  prefix: str = "") -> Dict[str, Any]:
     """Nested dicts -> one flat dict keyed by the paths joined with
@@ -155,9 +161,33 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float
 
 
 def swiglu(x: torch.Tensor, w_gate: torch.Tensor, w_in: torch.Tensor,
-           w_out: torch.Tensor) -> torch.Tensor:
-    """silu(x @ w_gate) * (x @ w_in) @ w_out (the reference's gelu variant
-    belongs to the vlm family, not ported yet)."""
+           w_out: torch.Tensor, act: str = "silu") -> torch.Tensor:
+    """act(x @ w_gate) * (x @ w_in) @ w_out.  ``act="gelu"`` (the vlm
+    family's FFN) is the tanh approximation, ``jax.nn.gelu``'s default,
+    which the reference uses; the erf form differs by about 1e-3."""
     g = torch.matmul(x, w_gate)
     h = torch.matmul(x, w_in)
-    return torch.matmul(F.silu(g) * h, w_out)
+    g = F.silu(g) if act == "silu" else F.gelu(g, approximate="tanh")
+    return torch.matmul(g * h, w_out)
+
+
+def softmax_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                          mask: Optional[torch.Tensor] = None,
+                          vocab_size: Optional[int] = None) -> torch.Tensor:
+    """Mean CE over masked positions; padded vocab entries (past
+    ``vocab_size``) are excluded by a large-negative bias.
+
+    logits: (..., V_padded); labels int (...,)."""
+    logits = logits.float()
+    if vocab_size is not None and vocab_size < logits.shape[-1]:
+        bias = torch.zeros(logits.shape[-1], dtype=torch.float32,
+                           device=logits.device)
+        bias[vocab_size:] = -1e9
+        logits = logits + bias
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = logits.gather(-1, labels.long()[..., None])[..., 0]
+    nll = lse - gold
+    if mask is not None:
+        mask = mask.float()
+        return (nll * mask).sum() / mask.sum().clamp_min(1.0)
+    return nll.mean()

@@ -9,12 +9,11 @@ The port of ``repro/models/lm.py``:
   * ``serve_step(cfg, params, tokens, pos, tp, cache)``
   * ``init_cache / cache_axes_tree``
 
-Families: dense -> transformer.py; ssm -> rwkv6.py; hybrid -> zamba2.py,
-dispatched here as in the reference.  transformer.py raises naming ROADMAP
-A17 for moe, vlm and audio.  The recurrent families serve forward only:
-``forward_train`` and ``loss_fn`` raise for them naming A17 (their
-training needs backward kernels of the scans).  Caches and states are
-written in place and returned.
+Families: dense/moe/vlm/audio -> transformer.py; ssm -> rwkv6.py;
+hybrid -> zamba2.py, dispatched here as in the reference.  The recurrent
+families serve forward only: ``forward_train`` and ``loss_fn`` raise for
+them naming ROADMAP A17 (their training needs backward kernels of the
+scans).  Caches and states are written in place and returned.
 """
 from __future__ import annotations
 
@@ -154,7 +153,6 @@ def cache_axes_tree(cfg: ModelConfig, tp: int):
     kv_tree = attn.KVCache(k=kv_axes, v=kv_axes,
                            positions=(None, "cache_batch", kv_axes[2]))
     if cfg.family in TRANSFORMER_FAMILIES:
-        transformer.check_family(cfg)
         return kv_tree
     if cfg.family == "hybrid":
         return zamba2.ZambaCache(

@@ -74,7 +74,8 @@ class GuardedRunner:
                  clock: Callable[[], float] = time.perf_counter):
         """``sleep``/``clock`` are injectable so tests can drive the
         backoff and straggler timing deterministically without real
-        wall-clock waits."""
+        wall-clock waits.  ``ckpt_every <= 0`` writes no checkpoint, the
+        final one included (a failed step still restores one that exists)."""
         self.step_fn = step_fn
         self.ckpt = ckpt
         self.ckpt_every = ckpt_every
@@ -124,7 +125,8 @@ class GuardedRunner:
             self.stats["steps"] += 1
             if on_metrics:
                 on_metrics(step, metrics)
-            if step % self.ckpt_every == 0:
+            if self.ckpt_every > 0 and step % self.ckpt_every == 0:
                 self.ckpt.save(step, state)
-        self.ckpt.save(step, state, blocking=True)
+        if self.ckpt_every > 0:
+            self.ckpt.save(step, state, blocking=True)
         return state, step

@@ -22,9 +22,13 @@ cache-row reset, over the port's LM facade (models/lm.py).
     prefill is only exact for attention-only families — recurrent state
     (ssm/hybrid) integrates padding, so those families always force-feed.
 
-One deliberate difference: a prefilled request's first-token time is
-taken when the prefill wave has returned its tokens.  The reference stamps
-it with the time the wave started, which leaves the prefill out of TTFT.
+Two deliberate differences: a prefilled request's first-token time is
+taken when the prefill wave has returned its tokens (the reference stamps
+it with the time the wave started, which leaves the prefill out of TTFT);
+and a config with a modality frontend (vlm, audio), whose prefill needs
+more than the tokens the engine passes, fails at its first prefill with
+a ``ValueError`` naming the input (models/transformer.py
+``embed_inputs``) where the reference's fails with a ``KeyError``.
 """
 from __future__ import annotations
 

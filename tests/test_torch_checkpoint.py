@@ -149,6 +149,37 @@ def test_guarded_runner_reraises_past_max_retries(tmp_path):
     assert runner.stats["failures"] == 2
 
 
+def test_guarded_runner_with_ckpt_every_0_writes_no_checkpoint(tmp_path):
+    """ckpt_every=0 saves neither a periodic nor the final checkpoint; a
+    failed step is still retried (from the current state: none exists)."""
+    calls = {"n": 0}
+
+    def step_fn(state, batch):
+        calls["n"] += 1
+        if calls["n"] == 2:
+            raise RuntimeError("simulated kernel fault")
+        return {"w": state["w"] + batch}, {"loss": float(state["w"].sum())}
+
+    mgr = TCkpt(str(tmp_path), keep=3)
+    runner = GuardedRunner(step_fn, mgr, ckpt_every=0, max_retries=1,
+                           sleep=lambda s: None, clock=_Clock())
+    state, end = runner.run({"w": torch.zeros(2)}, iter(lambda: 1.0, None), 3)
+    assert end == 3 and torch.equal(state["w"], torch.full((2,), 3.0))
+    assert runner.stats["failures"] == 1 and runner.stats["restores"] == 0
+    assert mgr.latest_step() is None and os.listdir(tmp_path) == []
+
+
+def test_trainer_with_ckpt_every_0_times_each_step(tmp_path):
+    ck = tmp_path / "ck"
+    res = ttrain.run(ttrain.parser().parse_args(
+        ["--smoke", "--device", "cpu", "--steps", "2", "--ckpt-dir",
+         str(ck), "--ckpt-every", "0"]))
+    assert res.end_step == 2 and list(ck.iterdir()) == []
+    assert len(res.step_seconds) == len(res.batch_seconds) == 2
+    assert all(t > 0 for t in res.step_seconds + res.batch_seconds)
+    assert sum(res.step_seconds) + sum(res.batch_seconds) <= res.seconds
+
+
 def test_straggler_stats_flag_slow_steps():
     st = StragglerStats(window=16, threshold=2.0)
     flags = [st.observe(1.0) for _ in range(10)] + [st.observe(5.0)]
