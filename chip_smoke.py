@@ -36,9 +36,10 @@ only, never JAX or the reference package.  Phases:
 6. Hold the flash attention kernel against its plain version (the
    materialised oracle) on the card: the reference's seven ATTN_CASES,
    head dims 16 and 120, the qwen2-7b prefill shape and zamba2's shared
-   block (32 heads of 80), and the moe and audio paths' shapes
-   (``PATH_ATTN_SHAPES``: granite and deepseek prefill waves, granite and
-   hubert training microbatches, hubert's non-causal at hd 80), in fp32 (max abs error 2e-5; the FFMA design)
+   block (32 heads of 80), and the moe, audio and hybrid paths' shapes
+   (``PATH_ATTN_SHAPES``: granite and deepseek prefill waves, granite,
+   hubert and zamba2 training microbatches, hubert's non-causal at hd
+   80), in fp32 (max abs error 2e-5; the FFMA design)
    and bf16 (2e-2, and within one bf16 rounding of the fp32 result; the
    tensor-core design, whose SASS must hold HGMMA and UTMALDG
    instructions), and on layouts that take the designs' other paths
@@ -111,8 +112,9 @@ only, never JAX or the reference package.  Phases:
     to 3 layers (the machine's disk-write cap: see TRAIN_LAYERS) and a
     global batch of 8 x 4096 tokens, microbatch 8, remat, fp32 AdamW: 2
     steps ending in a checkpoint, step 3 timed and step 4 profiled in the
-    same process, then a restart with ``--resume`` that repeats step 3
-    with the same loss; flash backward launches = 3 layers x 8
+    same process, then a restart with ``--resume --ckpt-every 0`` that
+    repeats step 3 with the same loss and writes no second checkpoint
+    (only step 2's is left); flash backward launches = 3 layers x 8
     microbatches a step, forward twice that (remat); no failure caught by
     the guarded runner.
 17. FedAT under the fault plane at phase 3's width (``FAULTS``: churn,
@@ -189,6 +191,23 @@ only, never JAX or the reference package.  Phases:
     hubert's shape (``HUBERT_ATTN``, non-causal hd 80, fp32): the output,
     lse and gradients held to the plain versions, then timed beside them,
     SDPA and the bound.
+24. Training the recurrent families (``RECURRENT_TRAIN``):
+    ``launch/train.py`` (``train.run`` with ``--ckpt-every 0``) at
+    published widths, rwkv6-3b cut to 2 layers and zamba2-2.7b to 6 (one
+    shared-attention application), a global batch of 8 x 4096
+    (microbatch 8, remat, fp32 AdamW; two steps, no checkpoint), counts
+    from 0 per arch and exact: a step launches wkv6 32 times (8
+    microbatches x 2 layers x 2 under remat) and its backward 16, or ssd
+    96 and its backward 48 and the flash kernel 8 each way (the shared
+    block, not under remat), nothing else; step seconds, tokens/s, peak
+    memory.  The smoke configs' loss and every parameter's gradient on
+    the card against the CPU (``RECURRENT_LOSS_RTOL``,
+    ``RECURRENT_GRAD_RTOL``).  The B3 and B4 backward kernels
+    (``csrc/wkv6_bwd.cu``, ``csrc/ssd_bwd.cu``, no Pallas counterpart)
+    against their plain versions at the training microbatch and a ragged
+    S (``SCAN_BWD_RTOL``) and under strong decays (against float64:
+    ``SCAN_BWD_F32_FACTOR``), then timed beside the plain version and the
+    bound.
 
 Any failed check exits non-zero.  The last three lines of standard output
 are the kernel report (JSON), the card's ``name, power.limit`` and
@@ -653,7 +672,8 @@ def run_main_path(torch, api, pc, dev):
     check(rounds == 10, f"{rounds} FedAT rounds ran, expected 10")
     check(counts == {"compress": 0, "decompress": 0, "roundtrip": expect,
                      "flash_attention": 0, "flash_attention_bwd": 0,
-                     "wkv6": 0, "ssd": 0},
+                     "wkv6": 0, "wkv6_bwd": 0, "ssd": 0,
+                     "ssd_bwd": 0},
           f"launch counts {counts}, expected {expect} roundtrip launches "
           f"(2 links x {rounds} rounds, {n_leaves} leaves a launch) and no "
           f"other")
@@ -829,11 +849,12 @@ ATTN_SHAPES = {
     "qwen2-7b prefill": dict(B=8, S=1024, H=28, KV=4, hd=128),
     "zamba2-2.7b shared block": dict(B=8, S=1024, H=32, KV=32, hd=80),
 }
-#: the shapes the moe and audio paths give the kernel (phases 21 and 23),
-#: checked against the plain version here beside ATTN_CASES: a granite
-#: and a deepseek prefill wave (8 slots x 256 tokens; GQA 24/8 at hd 64,
-#: MHA at hd 128) and one 4096-token training microbatch of granite and
-#: of hubert (bidirectional at hd 80)
+#: the shapes the moe, audio and hybrid paths give the kernel (phases 21,
+#: 23 and 24), checked against the plain version here beside ATTN_CASES:
+#: a granite and a deepseek prefill wave (8 slots x 256 tokens; GQA 24/8
+#: at hd 64, MHA at hd 128) and one 4096-token training microbatch of
+#: granite, of hubert (bidirectional at hd 80) and of zamba2's shared
+#: block (32 heads of 80)
 PATH_ATTN_SHAPES = {
     "granite-moe-3b prefill wave": dict(B=8, S=256, H=24, KV=8, hd=64,
                                         causal=True),
@@ -843,6 +864,8 @@ PATH_ATTN_SHAPES = {
                                     causal=True),
     "hubert-xlarge training": dict(B=1, S=4096, H=16, KV=16, hd=80,
                                    causal=False),
+    "zamba2-2.7b training": dict(B=1, S=4096, H=32, KV=32, hd=80,
+                                 causal=True),
 }
 #: the forward's lse against the plain blocked version's (absolute): the
 #: phase-13 cases measured at most 1.43e-6 on an H100
@@ -2447,8 +2470,8 @@ def federated_lm_card_vs_cpu(torch, api, SimEnv):
 #: 4096 tokens.  Depth: AdamW in fp32 for all 28 layers would need about
 #: 122 GB; 4 layers would fit the card (about 40 GB with grads, moments
 #: and the accumulator), but the card's machine takes at most 45 GiB of
-#: disk writes a run, and the phase writes two checkpoints of params, m
-#: and v: 2 x 24.3 GB at 4 layers, 2 x 21.5 GB at 3
+#: disk writes a run: the phase writes one checkpoint of params, m and v
+#: (21.5 GB at 3 layers; the resumed run writes none)
 TRAIN_LAYERS = 3
 TRAIN_BATCH = 8
 #: the resumed run repeats step 3 from the step-2 checkpoint: its loss
@@ -2461,7 +2484,9 @@ def run_trainer(torch, kernels):
     """launch/train.py's code path at qwen2-7b widths: 2 steps ending in
     a checkpoint, then step 3 in the same process (timed) and step 4
     (profiled); then a restart with --resume from the step-2 checkpoint
-    that repeats step 3, whose loss must equal the uninterrupted one."""
+    that repeats step 3, whose loss must equal the uninterrupted one, with
+    --ckpt-every 0: the restore still runs (train.run, before the runner),
+    and no checkpoint is written, so step 2's is the only one left."""
     import shutil
     from repro_torch.configs.base import TrainConfig
     from repro_torch.configs.registry import get_config
@@ -2521,11 +2546,15 @@ def run_trainer(torch, kernels):
         kernels.reset_launch_counts()
         t0 = time.perf_counter()
         b = train.run(train.parser().parse_args(
-            argv + ["--steps", "3", "--resume"]), cfg=cfg, shape=shape)
+            argv + ["--steps", "3", "--resume", "--ckpt-every", "0"]),
+            cfg=cfg, shape=shape)
         torch.cuda.synchronize()
         wall_b = time.perf_counter() - t0
         counts_b = kernels.launch_counts()
         b.state = None
+        on_disk = sorted(p.name for p in ckdir.iterdir())
+        check(on_disk == [f"step_{2:010d}"],
+              f"the resumed run with --ckpt-every 0 left {on_disk}")
         check(b.start_step == 2 and b.end_step == 3 and len(b.losses) == 1,
               f"resumed run: steps {b.start_step}..{b.end_step}")
         check(b.runner_stats["failures"] == 0,
@@ -2560,7 +2589,7 @@ def run_trainer(torch, kernels):
             f"steps 1-2 and a checkpoint in {wall_a:.1f} s; step 3 "
             f"{step3['step_s']:.3f} s; resumed from step 2: step 3 loss "
             f"{b.losses[0]} (|diff| {d:.3g}) in {wall_b:.1f} s with its "
-            f"restore and checkpoint; peak {peak / 2**30:.2f} GiB; launches "
+            f"restore (no checkpoint written); peak {peak / 2**30:.2f} GiB; launches "
             f"{counts_a} (resume {counts_b}); runner {a.runner_stats}")
     finally:
         shutil.rmtree(ckdir, ignore_errors=True)
@@ -2800,7 +2829,8 @@ def run_faults(torch, api, kernels, SimEnv, dev, phase3_events_per_s):
         committed = fired["gated_rounds"]
         check(counts == {"compress": 0, "decompress": 0,
                          "roundtrip": 2 * committed, "flash_attention": 0,
-                         "flash_attention_bwd": 0, "wkv6": 0, "ssd": 0}
+                         "flash_attention_bwd": 0, "wkv6": 0, "wkv6_bwd": 0,
+                         "ssd": 0, "ssd_bwd": 0}
               and committed == 8,
               f"phase 17: launch counts {counts} for {committed} gated "
               f"rounds, expected 2 roundtrip launches a round")
@@ -3150,7 +3180,8 @@ def run_population(torch, api, kernels, SimEnv, dev):
           "phase 19: non-finite global model")
     check(counts == {"compress": 0, "decompress": 0, "roundtrip": 2 * rounds,
                      "flash_attention": 0, "flash_attention_bwd": 0,
-                     "wkv6": 0, "ssd": 0},
+                     "wkv6": 0, "wkv6_bwd": 0, "ssd": 0,
+                     "ssd_bwd": 0},
           f"phase 19: launch counts {counts}, expected {2 * rounds} "
           f"roundtrip launches and no other")
     check(len(mat_s) == len(data_s) == rounds,
@@ -3413,7 +3444,8 @@ def run_topology(torch, api, kernels, SimEnv, dev):
     check(counts == {"compress": 0, "decompress": 0,
                      "roundtrip": TOPOLOGY_LAUNCHES * rounds,
                      "flash_attention": 0, "flash_attention_bwd": 0,
-                     "wkv6": 0, "ssd": 0},
+                     "wkv6": 0, "wkv6_bwd": 0, "ssd": 0,
+                     "ssd_bwd": 0},
           f"phase 20: launch counts {counts}, expected "
           f"{TOPOLOGY_LAUNCHES} roundtrip launches x {rounds} silo rounds "
           f"and no other")
@@ -3982,6 +4014,307 @@ def time_hubert_attention(torch, fa, ref):
     return {"forward": fwd, "backward": bwd}
 
 
+# ---------------------------------------------------------------------------
+# phase 24: the recurrent families trained, and the scans' backward
+# ---------------------------------------------------------------------------
+
+#: phase 24: each recurrent family trained at published widths, cut in
+#: depth (rwkv6-3b to 2 of 32 layers, as phase 23 cuts; zamba2-2.7b to 6
+#: of 54, one shared-attention application: n_layers must be a multiple
+#: of attn_every = 6), a global batch of 8 x 4096 tokens (microbatch 8:
+#: one sequence a microbatch), two steps, no checkpoint
+RECURRENT_TRAIN = {"rwkv6-3b": 2, "zamba2-2.7b": 6}
+RECURRENT_TRAIN_BATCH = 8
+#: the backward kernels' shapes on that path: one 4096-token microbatch
+#: of rwkv6-3b (40 heads of 64) and of zamba2-2.7b (80 SSD heads, P = N =
+#: 64), a ragged S (not a multiple of the kernels' chunk of 32) at full
+#: width, and strong decays: logw = -8 (WKV6), da from -U(0, 8) (SSD: a
+#: 32-token chunk sums to about 128, past the 88 where the reference's
+#: gradient overflows)
+WKV_TRAIN = dict(B=1, S=4096, H=40, N=64)
+SSD_TRAIN = dict(B=1, S=4096, H=80, P=64, N=64)
+WKV_BWD_RAGGED = dict(B=2, S=1000, H=40, N=64)
+SSD_BWD_RAGGED = dict(B=2, S=1000, H=80, P=64, N=64)
+#: each gradient of a backward kernel against its plain version on the
+#: same inputs, as max |err| / max |plain| (fp32; measured on an H100 at
+#: the training shape and a ragged S: at most 3.0e-6 for WKV6, 2.8e-6 for
+#: SSD)
+SCAN_BWD_RTOL = 1e-4
+#: under strong decays a gradient can be a small sum of large terms that
+#: cancel (dlogw at logw = -8: its max is 0.054 against terms of order
+#: 10), where fp32 itself is off by more than SCAN_BWD_RTOL (the fp32
+#: plain version by 3.8e-4 of it on the CPU).  There both the kernel and
+#: the fp32 plain version are held to the plain version in float64, and
+#: the kernel's error must be within SCAN_BWD_RTOL or this factor of the
+#: fp32 plain version's own
+SCAN_BWD_F32_FACTOR = 4.0
+#: phase 24's card against CPU at smoke size: the loss within this
+#: relative error, every parameter's gradient within this relative L2
+RECURRENT_LOSS_RTOL = 1e-5
+RECURRENT_GRAD_RTOL = 1e-4
+
+
+def scan_bwd_bound(kind, B, S, H, N, P=None):
+    """Least time for one backward launch, fp32: the function's inputs
+    (the forward's, the state in and dy) read once and its gradients
+    written once; operations of the chunked form at BOUND_CHUNK (a
+    multiply-add counts 2, an exp 1).  WKV6, per chunk and head: the four
+    (C, N) x (N, N) products (v dS^T, dy S^T, kd dS, rd^T dy), the lower
+    triangle of dy v^T and of A^T dy ((C(C-1)/2 + C) N each), and for the
+    strictly-lower pairs A and the two pairwise sums of dr and dk (3 of
+    C(C-1)/2 N multiply-adds, C(C-1)/2 N exps).  SSD, per chunk and head:
+    the four (C, P) x (P, N)-sized products (B dh^T, dye h, xd dh, dye^T
+    C), the lower triangles of dy x^T and M^T dy (P) and of dG^T C and
+    dG B (N), and C B^T once per batch row."""
+    C = BOUND_CHUNK
+    pairs, vis = C * (C - 1) // 2, C * (C + 1) // 2
+    chunks = -(-S // C)
+    if kind == "wkv6":
+        nbytes = 4 * (9 * B * S * H * N + 2 * B * H * N * N + 2 * H * N)
+        fma = 4 * C * N * N + 2 * vis * N + 3 * pairs * N
+        flops = B * H * chunks * (2 * fma + pairs * N)
+    else:
+        nbytes = 4 * (4 * B * S * H * P + 4 * B * S * N + 2 * B * S * H
+                      + 2 * B * H * P * N)
+        fma = 4 * C * P * N + 2 * vis * P + 2 * vis * N
+        flops = B * chunks * (H * (2 * fma + vis + 2 * C) + 2 * vis * N)
+    return _bound(nbytes, flops, "float32")
+
+
+def _bwd_case(torch, g, kind, case, strong):
+    """Two callables over one case's inputs and cotangents: the kernel's
+    backward (reading the chunk states its forward wrote), and the plain
+    version's in a given dtype (fp32 by default, float64 as the oracle of
+    the strong-decay case)."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import rwkv6_scan, ssd
+    if kind == "wkv6":
+        r, k, v, logw, u, s0 = wkv_inputs(torch, g, dtype="float32",
+                                          strong=strong, **case)
+        ins = (r, k, v, logw, u, s0)
+        dy, dst = torch.randn_like(r), torch.randn_like(s0)
+        B, S, H, N = r.shape
+        cs = torch.empty((B, H, rwkv6_scan.n_chunks(S), N, N),
+                         device="cuda")
+        rwkv6_scan.wkv6(*ins[:5], s0.clone(), chunk_states=cs)
+        kern = lambda: rwkv6_scan.wkv6_backward(  # noqa: E731
+            *ins, dy, dst, chunk_states=cs)
+        plain = lambda dt=torch.float32: ref.wkv6_chunked_backward(  # noqa
+            *(t.to(dt) for t in ins + (dy, dst)), chunk=SCAN_CHUNK)
+    else:
+        x, Bm, Cm, da, h0 = ssd_inputs(torch, g, dtype="float32", **case)
+        if strong:
+            da = -8.0 * torch.rand(da.shape, device="cuda", generator=g)
+        ins = (x, Bm, Cm, da, h0)
+        dy, dst = torch.randn_like(x), torch.randn_like(h0)
+        B, S, H, P = x.shape
+        cs = torch.empty((B, H, ssd.n_chunks(S), P, Bm.shape[-1]),
+                         device="cuda")
+        ssd.ssd_scan(*ins[:4], h0.clone(), chunk_states=cs)
+        kern = lambda: ssd.ssd_backward(  # noqa: E731
+            *ins, dy, dst, chunk_states=cs)
+        plain = lambda dt=torch.float32: ref.ssd_chunked_backward(  # noqa
+            *(t.to(dt) for t in ins + (dy, dst)), chunk=SCAN_CHUNK)
+    return kern, plain
+
+
+def check_scan_bwd(torch, kind):
+    """B3's or B4's backward against its plain version on the card at the
+    training microbatch, a ragged S and strong decays (SCAN_BWD_RTOL, or
+    SCAN_BWD_F32_FACTOR against float64 where fp32 is ill-conditioned);
+    then timed at the training shape beside the plain version and the
+    bound."""
+    g = torch.Generator(device="cuda").manual_seed(
+        24 if kind == "wkv6" else 25)
+    names = (("r", "k", "v", "logw", "u", "state0") if kind == "wkv6" else
+             ("x", "B", "C", "da", "h0"))
+    full, ragged = ((WKV_TRAIN, WKV_BWD_RAGGED) if kind == "wkv6" else
+                    (SSD_TRAIN, SSD_BWD_RAGGED))
+    errs, strong_errs = {}, {}
+    for label, case, strong in (("training shape", full, False),
+                                ("ragged S", ragged, False),
+                                ("strong decay", ragged, True)):
+        kern, plain = _bwd_case(torch, g, kind, case, strong)
+        got, want = kern(), plain()
+        torch.cuda.synchronize()
+        check(all(bool(torch.isfinite(t).all()) for t in got),
+              f"{kind}_bwd {label} {case}: non-finite gradients")
+        e = {n: _rel(a, b) for n, a, b in zip(names, got, want)}
+        if not strong:
+            check(max(e.values()) <= SCAN_BWD_RTOL,
+                  f"{kind}_bwd {label} {case}: errors {e} > "
+                  f"{SCAN_BWD_RTOL}")
+            errs[label] = e
+        else:
+            exact = plain(torch.float64)
+            ek = {n: _rel(a, b) for n, a, b in zip(names, got, exact)}
+            ep = {n: _rel(a, b) for n, a, b in zip(names, want, exact)}
+            bad = {n: (ek[n], ep[n]) for n in names if ek[n] > max(
+                SCAN_BWD_RTOL, SCAN_BWD_F32_FACTOR * ep[n])}
+            check(not bad, f"{kind}_bwd {label} {case}: (kernel, fp32 "
+                  f"plain) errors against float64 {bad}")
+            strong_errs = {"vs_plain": e, "kernel_vs_f64": ek,
+                           "plain_vs_f64": ep}
+        log(f"phase 24: {kind}_bwd {label} {case}: max |err| / max |plain| "
+            + ", ".join(f"{n} {x:.3g}" for n, x in e.items())
+            + ("" if not strong else "; against float64: kernel "
+               + ", ".join(f"{n} {x:.3g}" for n, x in ek.items())
+               + "; fp32 plain "
+               + ", ".join(f"{n} {x:.3g}" for n, x in ep.items())))
+        del kern, plain, got, want
+        torch.cuda.empty_cache()
+    kern, plain = _bwd_case(torch, g, kind, full, False)
+    times = _time_pair(torch, kern, plain)
+    o = dict(scan_bwd_bound(kind, **full), **times, shape=full,
+             max_abs_err=max(max(e.values()) for e in errs.values()),
+             errors=errs, strong=strong_errs, library_ms=None)
+    log(f"phase 24: {kind}_bwd at the training shape {full}: kernel "
+        f"{o['ms']:.4f} ms (runs {o['ms_runs'][0]:.4f}/{o['ms_runs'][1]:.4f})"
+        f", plain {o['plain_ms']:.4f} ms, bound {o['bound_ms']:.4f} ms "
+        f"({o['bound_by']}: {o['flops'] / 1e9:.2f} GFLOP at C = "
+        f"{BOUND_CHUNK}, {o['bytes'] / 1e6:.1f} MB), on the tensor cores "
+        f"{o['tc_bound_ms']:.4f} ms; no library call computes it")
+    del kern, plain
+    torch.cuda.empty_cache()
+    return o
+
+
+def run_recurrent_training(torch, kernels):
+    """launch/train.py (``train.run``) for each of RECURRENT_TRAIN at
+    published widths cut in depth, a global batch of
+    RECURRENT_TRAIN_BATCH x 4096: two steps each with ``--ckpt-every 0``,
+    counts from 0 per arch, each checked exactly against the count the
+    port's code gives."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.configs.shapes import ShapeConfig
+    import shutil
+    from repro_torch.launch import train
+    shape = ShapeConfig("train_4k", 4096, RECURRENT_TRAIN_BATCH, "train")
+    ckdir = ROOT / "build" / "chip_smoke_recurrent_train"
+    shutil.rmtree(ckdir, ignore_errors=True)
+    out = {}
+    for arch, layers in RECURRENT_TRAIN.items():
+        cfg = get_config(arch).replace(n_layers=layers)
+        mb, L = cfg.microbatch, cfg.n_layers
+        check(mb == 8 and cfg.remat,
+              f"{arch} trains with microbatch {mb}, remat {cfg.remat}")
+        if cfg.family == "ssm":
+            # per step: each layer's WKV6 forward per microbatch twice
+            # (once more in the checkpointed recompute), its backward once
+            want = {"wkv6": 2 * 2 * mb * L, "wkv6_bwd": 2 * mb * L}
+        else:
+            # per step: each mamba2 layer's SSD forward per microbatch
+            # twice (remat) and its backward once; the shared block, not
+            # under remat, a flash forward and backward per application
+            apps = L // cfg.attn_every
+            check(apps * cfg.attn_every == L, f"{arch}: {L} layers")
+            want = {"ssd": 2 * 2 * mb * L, "ssd_bwd": 2 * mb * L,
+                    "flash_attention": 2 * mb * apps,
+                    "flash_attention_bwd": 2 * mb * apps}
+        argv = ["--arch", arch, "--steps", "2", "--ckpt-dir", str(ckdir),
+                "--ckpt-every", "0", "--seed", "0", "--device", "cuda"]
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launch_counts()
+        res = train.run(train.parser().parse_args(argv), cfg=cfg,
+                        shape=shape)
+        torch.cuda.synchronize()
+        counts = kernels.launch_counts()
+        peak = torch.cuda.max_memory_allocated()
+        n_params = sum(t.numel() for t in _leaves(res.state["params"]))
+        res.state = None
+        rows, secs = res.metrics, res.step_seconds
+        check(res.end_step == 2 and len(rows) == 2
+              and res.runner_stats["failures"] == 0,
+              f"{arch}: steps {res.start_step}..{res.end_step}, runner "
+              f"{res.runner_stats}")
+        check(not ckdir.exists() or not any(ckdir.iterdir()),
+              f"{arch}: --ckpt-every 0 wrote {sorted(ckdir.iterdir())}")
+        check(all(counts[k] == v for k, v in want.items())
+              and all(n == 0 for k, n in counts.items() if k not in want),
+              f"{arch}: launches {counts} over 2 steps, expected {want}")
+        check(all(math.isfinite(r["loss"]) and math.isfinite(r["grad_norm"])
+                  for r in rows), f"{arch}: losses {rows}")
+        out[arch] = {"layers": L, "batch": RECURRENT_TRAIN_BATCH,
+                     "seq": 4096, "microbatch": mb, "n_params": n_params,
+                     "step_s": secs, "batch_s": res.batch_seconds,
+                     "metrics": rows, "launches": counts,
+                     "expected_launches": want,
+                     "launches_per_step": {k: v // 2 for k, v in
+                                           counts.items()},
+                     "peak_mem_bytes": peak,
+                     "tokens_per_s": RECURRENT_TRAIN_BATCH * 4096 / secs[1]}
+        log(f"phase 24: {arch} trained through launch/train.py at published "
+            f"widths ({L} of {get_config(arch).n_layers} layers, {n_params} "
+            f"params, batch {RECURRENT_TRAIN_BATCH} x 4096, microbatch {mb}, "
+            f"remat, fp32 AdamW, no checkpoint): steps "
+            f"{[round(s, 3) for s in secs]} s, "
+            f"{out[arch]['tokens_per_s']:.0f} tokens/s at step 2, losses "
+            f"{[r['loss'] for r in rows]}, grad_norms "
+            f"{[r['grad_norm'] for r in rows]}; launches a step "
+            f"{out[arch]['launches_per_step']}; peak {peak / 2**30:.2f} GiB")
+        torch.cuda.empty_cache()
+    return out
+
+
+def recurrent_training_card_vs_cpu(torch, kernels, lm, convert):
+    """One loss and the gradient of every parameter of rwkv6-smoke and
+    zamba2-smoke on the card (through the scan kernels both ways and, for
+    zamba2, the flash kernels; counted) and the CPU, from the same params
+    and a pipeline batch of 2 x 200 tokens (200: the scans' last chunk is
+    ragged)."""
+    from repro_torch.configs.registry import get_smoke_config
+    from repro_torch.configs.shapes import ShapeConfig
+    from repro_torch.data.pipeline import TokenPipeline
+    from repro_torch.models.common import flatten_tree, unflatten_tree
+    out = {}
+    for arch in RECURRENT_TRAIN:
+        cfg = get_smoke_config(arch)
+        p_cpu = lm.init_params(cfg, seed=2, device="cpu")
+        batch = TokenPipeline(cfg, ShapeConfig("s", 200, 2, "train"),
+                              seed=3).batch(0)
+        res = {}
+        for dev in ("cuda", "cpu"):
+            kernels.reset_launch_counts()
+            flat = flatten_tree(convert.params_from_numpy(
+                convert.params_to_numpy(p_cpu), device=dev))
+            for t in flat.values():
+                t.requires_grad_(True)
+            b = {k: torch.as_tensor(np.asarray(v), device=dev)
+                 for k, v in batch.items()}
+            loss, _ = lm.loss_fn(cfg, unflatten_tree(flat), b, 1)
+            grads = torch.autograd.grad(loss, list(flat.values()))
+            res[dev] = (float(loss.detach()),
+                        {n: g.float().cpu() for n, g in zip(flat, grads)})
+            if dev == "cuda":
+                launches = {k: n for k, n in kernels.launch_counts().items()
+                            if n}
+        scans = (("wkv6", "wkv6_bwd") if cfg.family == "ssm" else
+                 ("ssd", "ssd_bwd", "flash_attention", "flash_attention_bwd"))
+        check(all(launches.get(k, 0) > 0 for k in scans),
+              f"{arch} smoke: the card run launched {launches}")
+        dl = abs(res["cuda"][0] - res["cpu"][0]) / abs(res["cpu"][0])
+        dg = {n: float((g - res["cpu"][1][n]).norm()
+                       / res["cpu"][1][n].norm().clamp_min(1e-30))
+              for n, g in res["cuda"][1].items()}
+        worst = max(dg, key=dg.get)
+        check(dl <= RECURRENT_LOSS_RTOL,
+              f"{arch} smoke: loss card {res['cuda'][0]} vs CPU "
+              f"{res['cpu'][0]}")
+        check(dg[worst] <= RECURRENT_GRAD_RTOL,
+              f"{arch} smoke: grad of {worst} card vs CPU rel L2 "
+              f"{dg[worst]}")
+        out[arch] = {"loss_rel_err": dl, "grad_rel_l2": dg,
+                     "worst_leaf": worst, "loss": res["cuda"][0],
+                     "launches": launches}
+        log(f"phase 24: {arch} smoke: loss card vs CPU rel {dl:.3g} "
+            f"(tolerance {RECURRENT_LOSS_RTOL}); every one of {len(dg)} "
+            f"gradient leaves within rel L2 {dg[worst]:.3g} (worst: "
+            f"{worst}; tolerance {RECURRENT_GRAD_RTOL}); card launches "
+            f"{launches}")
+    return out
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="also write every number as JSON here")
@@ -4127,6 +4460,13 @@ def main() -> None:
     family_train = run_family_training(torch, kernels)
     family_agree = family_training_card_vs_cpu(torch, kernels, lm, convert)
     hubert_attn = time_hubert_attention(torch, fa, ref)
+    torch.cuda.empty_cache()
+    # phase 24: the recurrent families trained, counts from 0 per arch
+    recurrent_train = run_recurrent_training(torch, kernels)
+    recurrent_train_agree = recurrent_training_card_vs_cpu(
+        torch, kernels, lm, convert)
+    scan_bwd = {kind: check_scan_bwd(torch, kind) for kind in ("wkv6",
+                                                                "ssd")}
 
     src = "src/repro_torch/kernels/csrc/polyline_codec.cu"
     # the main path's lossy step: B1a and B1b fused, per stacked uplink
@@ -4260,7 +4600,29 @@ def main() -> None:
             "waves": t["waves"], "bf16_ms": t16["ms"],
             "bf16_plain_ms": t16["plain_ms"],
             "bf16_bound_ms": t16["bound_ms"],
-            "bf16_max_abs_err": t16["max_abs_err"]})
+            "bf16_max_abs_err": t16["max_abs_err"],
+            "train_launches_per_step":
+                recurrent_train[arch]["launches_per_step"][name]})
+    # the scans' backward: no Pallas version, the reference differentiates
+    # its jnp chunk scans; times at the training microbatch
+    for name, src, line, arch in (
+            ("wkv6_bwd", "wkv6_bwd.cu", "models/rwkv6.py:119", "rwkv6-3b"),
+            ("ssd_bwd", "ssd_bwd.cu", "models/mamba2.py:78", "zamba2-2.7b")):
+        t = scan_bwd[name[:-4]]
+        report.append({
+            "name": name, "route": "cuda",
+            "source": f"src/repro_torch/kernels/csrc/{src}",
+            "replaces": f"src/repro/{line}",
+            "replaces_note": "no Pallas backward: the reference trains "
+                             "through jax autodiff of its jnp chunk scan",
+            "launches": recurrent_train[arch]["launches"][name],
+            "max_abs_err": t["max_abs_err"], "ms": t["ms"],
+            "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"], "library_ms": None,
+            "tc_bound_ms": t["tc_bound_ms"],
+            "launches_per_step":
+                recurrent_train[arch]["launches_per_step"][name],
+            "strong_decay_errors": t["strong"]})
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps({
@@ -4281,7 +4643,10 @@ def main() -> None:
             "moe_card_vs_cpu": moe_agree, "vlm_serving": vlm_serving,
             "vlm_card_vs_cpu": vlm_agree, "family_training": family_train,
             "family_training_card_vs_cpu": family_agree,
-            "hubert_attention": hubert_attn}, indent=2))
+            "hubert_attention": hubert_attn,
+            "recurrent_training": recurrent_train,
+            "recurrent_training_card_vs_cpu": recurrent_train_agree,
+            "scan_bwd": scan_bwd}, indent=2))
     print(json.dumps({"kernels": report}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -138,11 +138,12 @@ def main() -> None:
         x, Bm, Cm, da, h0 = cs.ssd_inputs(torch, g, dtype=dtype, **D)
         wy, sy = torch.empty_like(r), torch.empty_like(x)
         ws, hs = s0.clone(), h0.clone()   # the states, written in place
-        wkv_args = [*map(ptr, (r, k, v, logw, u, wy, ws)), dt,
+        # no chunk-state output (the backward's): serving's launch
+        wkv_args = [*map(ptr, (r, k, v, logw, u, wy, ws)), None, dt,
                     W["B"], W["S"], W["H"], W["N"],
                     *[ll(z) for t in (r, k, v, logw) for z in t.stride()[:3]],
                     stream]
-        ssd_args = [*map(ptr, (x, Bm, Cm, da, sy, hs)), dt, D["B"],
+        ssd_args = [*map(ptr, (x, Bm, Cm, da, sy, hs)), None, dt, D["B"],
                     D["S"], D["H"], D["P"], D["N"],
                     *[ll(z) for z in (*x.stride()[:3], *Bm.stride()[:2],
                                       *Cm.stride()[:2], *da.stride())],

@@ -4,7 +4,9 @@ The port's counterpart of the reference's jitted single-pod step, on one
 device (tensor parallelism 1, so the state and batch shardings are
 ``None``): a forward and backward of ``lm.loss_fn`` per microbatch with
 the gradients summed in fp32 and divided by the microbatch count, the
-cosine schedule, and AdamW with global-norm clipping.  The trainer's
+cosine schedule, and AdamW with global-norm clipping.  It is the same for
+every family: ``lm.loss_fn`` dispatches (the recurrent families' scans
+carry their own backward).  The trainer's
 state is updated in place (``optim.adamw``), so a model of billions of
 parameters keeps one copy of its params and moments on the card.
 

@@ -16,8 +16,11 @@
     both names above, and the prefix-LM mask.
   * ``ops.wkv6`` and :mod:`rwkv6_scan` — the RWKV-6 WKV chunk scan (CUDA
     C++, ``csrc/wkv6.cu``); rwkv6's prefill rides it (models/rwkv6.py).
+    Its gradient is ``rwkv6_scan.WKV6``, whose backward is a kernel of
+    its own (``csrc/wkv6_bwd.cu``); rwkv6's training rides it.
   * ``ops.ssd`` and :mod:`ssd` — the Mamba2 SSD chunk scan (CUDA C++,
     ``csrc/ssd.cu``); zamba2's mamba2 layers ride it (models/mamba2.py).
+    Its gradient is ``ssd.SSDScan`` (backward ``csrc/ssd_bwd.cu``).
     Neither scan function is re-exported here: ``ssd`` names the module.
   * :mod:`ref` — the plain PyTorch versions each kernel is held against.
 

@@ -10,7 +10,9 @@
 //   h[p][n] = exp(da_t) * h[p][n] + x_t[p] * B_t[n]
 //   y_t[p]  = sum_n C_t[n] * h[p][n]
 // (x has dt folded in; da <= 0 is one log decay per head and token) and
-// the final h is written back to `state` in place.  It is evaluated
+// the final h is written back to `state` in place; when `states` is
+// given, the state at the start of each 32-token chunk is written there
+// too, for the backward (ssd_bwd.cu).  It is evaluated
 // chunkwise, as the reference does: with cum = cumsum(da) down a chunk,
 //   y  = exp(cum_t) * (C_t . h) + sum_{s <= t} (C_t . B_s) exp(cum_t - cum_s) x_s
 //   h' = exp(cum_last) * h + sum_s x_s (x) (exp(cum_last - cum_s) * B_s)
@@ -80,6 +82,8 @@ struct Params {
   const float* da;
   void* y;         // contiguous (B, S, H, P), x's type
   float* state;    // contiguous (B, H, P, N), read and written in place
+  float* states;   // contiguous (B, H, nchunks, P, N) chunk-start states,
+                   // or null (not written)
   int B, S, H, P, N;
   long long sx_b, sx_s, sx_h;
   long long sb_b, sb_s;
@@ -129,7 +133,9 @@ __device__ __forceinline__ void build_m(float* M, const T* cs, const T* bs,
   if (LOW) store_m(M, d0, cum, g, nt, q);
 }
 
-template <typename T>
+// STATES: the chunk-start states are written (training's forward only;
+// serving runs the instantiation without that code)
+template <typename T, bool STATES>
 __global__ void __launch_bounds__(kThreads, 4) ssd_kernel(const Params p) {
   constexpr bool LO = sizeof(T) == 4;  // bf16 inputs are exact in TF32
   extern __shared__ __align__(16) float smem[];
@@ -177,6 +183,17 @@ __global__ void __launch_bounds__(kThreads, 4) ssd_kernel(const Params p) {
   float dnext = lane < S ? dg[lane * p.sd_s] : 0.f;
   for (int c = 0; c < nchunks; ++c) {
     const int t0 = c * C;
+    if (STATES) {
+      float* o = p.states +
+                 ((static_cast<long long>(b) * p.H + h) * nchunks + c) * P * N;
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int pp = p0 + g + 8 * (e >> 1), n = 8 * nt + 2 * q + (e & 1);
+          if (pp < P && n < N) o[pp * N + n] = hs[nt][e];
+        }
+    }
     const T* xs = tiles(c);
     const T* bs = xs + kTile;
     const T* cs = bs + kTile;
@@ -286,27 +303,33 @@ __global__ void __launch_bounds__(kThreads, 4) ssd_kernel(const Params p) {
     }
 }
 
-template <typename T>
-cudaError_t launch(const Params& p, cudaStream_t stream) {
+template <typename T, bool STATES>
+cudaError_t launch_as(const Params& p, cudaStream_t stream) {
   constexpr size_t bytes = sizeof(float) * smem_floats<T>();
   // set on every launch: the attribute is per device, and it is cheap
   const cudaError_t err = cudaFuncSetAttribute(
-      ssd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      ssd_kernel<T, STATES>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(bytes));
   if (err != cudaSuccess) return err;
-  ssd_kernel<T><<<p.B * p.H, kThreads, bytes, stream>>>(p);
+  ssd_kernel<T, STATES><<<p.B * p.H, kThreads, bytes, stream>>>(p);
   return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch(const Params& p, cudaStream_t stream) {
+  return p.states ? launch_as<T, true>(p, stream)
+                  : launch_as<T, false>(p, stream);
 }
 
 template <typename T>
 cudaError_t occupancy(int* ctas) {
   constexpr size_t bytes = sizeof(float) * smem_floats<T>();
   const cudaError_t err = cudaFuncSetAttribute(
-      ssd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      ssd_kernel<T, false>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(bytes));
   if (err != cudaSuccess) return err;
-  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(ctas, ssd_kernel<T>,
-                                                       kThreads, bytes);
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      ctas, ssd_kernel<T, false>, kThreads, bytes);
 }
 
 }  // namespace
@@ -315,13 +338,15 @@ extern "C" {
 
 // dtype (of x, Bm, Cm and y): 0 = float32, 1 = bfloat16; da is float32.
 // Strides are in elements, the last dim of x, Bm and Cm has stride 1, y is
-// contiguous (B, S, H, P) and state contiguous (B, H, P, N).  Returns the
-// CUDA error of the launch (0 on success).
+// contiguous (B, S, H, P), state contiguous (B, H, P, N) and states null
+// or contiguous (B, H, ceil(S / 32), P, N).  Returns the CUDA error of the
+// launch (0 on success).
 int ssd_fwd(const void* x, const void* Bm, const void* Cm, const float* da,
-            void* y, float* state, int dtype, int B, int S, int H, int P,
-            int N, long long sx_b, long long sx_s, long long sx_h,
-            long long sb_b, long long sb_s, long long sc_b, long long sc_s,
-            long long sd_b, long long sd_s, long long sd_h, void* stream) {
+            void* y, float* state, float* states, int dtype, int B, int S,
+            int H, int P, int N, long long sx_b, long long sx_s,
+            long long sx_h, long long sb_b, long long sb_s, long long sc_b,
+            long long sc_s, long long sd_b, long long sd_s, long long sd_h,
+            void* stream) {
   if (P < 1 || P > kDim || N < 1 || N > kDim || B < 1 || S < 1 || H < 1 ||
       static_cast<long long>(B) * H > 2147483647LL ||
       (dtype != 0 && dtype != 1))
@@ -336,9 +361,9 @@ int ssd_fwd(const void* x, const void* Bm, const void* Cm, const float* da,
     mode_bc = std::max(load_mode<__nv_bfloat16>(Bm, N, {sb_b, sb_s}),
                        load_mode<__nv_bfloat16>(Cm, N, {sc_b, sc_s}));
   }
-  const Params p{x,    Bm,   Cm,   da,   y,    state, B,    S,
-                 H,    P,    N,    sx_b, sx_s, sx_h,  sb_b, sb_s,
-                 sc_b, sc_s, sd_b, sd_s, sd_h, mode_x, mode_bc};
+  const Params p{x,    Bm,   Cm,   da,   y,    state, states, B,
+                 S,    H,    P,    N,    sx_b, sx_s,  sx_h,   sb_b,
+                 sb_s, sc_b, sc_s, sd_b, sd_s, sd_h,  mode_x, mode_bc};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const cudaError_t err = dtype == 0 ? launch<float>(p, st)
                                      : launch<__nv_bfloat16>(p, st);

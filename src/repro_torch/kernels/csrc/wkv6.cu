@@ -10,7 +10,9 @@
 // order, from the state S (N x N, f32) given in `state`:
 //   y_t[j] = sum_i r_t[i] * (S[i][j] + u[i] * k_t[i] * v_t[j])
 //   S[i][j] = exp(logw_t[i]) * S[i][j] + k_t[i] * v_t[j]
-// and the final S is written back to `state` in place.  It is evaluated
+// and the final S is written back to `state` in place; when `states` is
+// given, the state at the start of each 32-token chunk is written there
+// too, for the backward (wkv6_bwd.cu).  It is evaluated
 // chunkwise, as the reference does: within a chunk of C tokens, with
 // cum = inclusive cumsum of logw down the chunk and cum_prev = cum - logw,
 //   y   = (r * exp(cum_prev)) @ S                          (cross-chunk)
@@ -96,6 +98,8 @@ struct Params {
   const float* u;  // contiguous (H, N)
   void* y;         // contiguous (B, S, H, N), r's type
   float* state;    // contiguous (B, H, N, N), read and written in place
+  float* states;   // contiguous (B, H, nchunks, N, N) chunk-start states,
+                   // or null (not written)
   int B, S, H, N;
   long long sr_b, sr_s, sr_h;
   long long sk_b, sk_s, sk_h;
@@ -150,7 +154,9 @@ __device__ __forceinline__ void factored_tile(float* A, const T* rs,
   }
 }
 
-template <typename T>
+// STATES: the chunk-start states are written (training's forward only;
+// serving runs the instantiation without that code)
+template <typename T, bool STATES>
 __global__ void __launch_bounds__(kThreads, 3) wkv6_kernel(const Params p) {
   constexpr bool LO = sizeof(T) == 4;  // bf16 inputs are exact in TF32
   extern __shared__ __align__(16) float smem[];
@@ -217,6 +223,17 @@ __global__ void __launch_bounds__(kThreads, 3) wkv6_kernel(const Params p) {
   issue_logw(0);
   for (int c = 0; c < nchunks; ++c) {
     const int t0 = c * C;
+    if (STATES) {
+      float* o = p.states +
+                 ((static_cast<long long>(b) * p.H + h) * nchunks + c) * N * N;
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int j = j0 + g + 8 * (e >> 1), i = 8 * nt + 2 * q + (e & 1);
+          if (i < N && j < N) o[i * N + j] = ss[nt][e];
+        }
+    }
     const T* rs = tiles(c);
     const T* ks = rs + kTile;
     const T* vs = ks + kTile;
@@ -377,27 +394,33 @@ __global__ void __launch_bounds__(kThreads, 3) wkv6_kernel(const Params p) {
     }
 }
 
-template <typename T>
-cudaError_t launch(const Params& p, cudaStream_t stream) {
+template <typename T, bool STATES>
+cudaError_t launch_as(const Params& p, cudaStream_t stream) {
   constexpr size_t bytes = sizeof(float) * smem_floats<T>();
   // set on every launch: the attribute is per device, and it is cheap
   const cudaError_t err = cudaFuncSetAttribute(
-      wkv6_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      wkv6_kernel<T, STATES>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(bytes));
   if (err != cudaSuccess) return err;
-  wkv6_kernel<T><<<p.B * p.H, kThreads, bytes, stream>>>(p);
+  wkv6_kernel<T, STATES><<<p.B * p.H, kThreads, bytes, stream>>>(p);
   return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch(const Params& p, cudaStream_t stream) {
+  return p.states ? launch_as<T, true>(p, stream)
+                  : launch_as<T, false>(p, stream);
 }
 
 template <typename T>
 cudaError_t occupancy(int* ctas) {
   constexpr size_t bytes = sizeof(float) * smem_floats<T>();
   const cudaError_t err = cudaFuncSetAttribute(
-      wkv6_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      wkv6_kernel<T, false>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(bytes));
   if (err != cudaSuccess) return err;
-  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(ctas, wkv6_kernel<T>,
-                                                       kThreads, bytes);
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      ctas, wkv6_kernel<T, false>, kThreads, bytes);
 }
 
 }  // namespace
@@ -406,15 +429,16 @@ extern "C" {
 
 // dtype (of r, k, v and y): 0 = float32, 1 = bfloat16.  logw and u are
 // float32.  Strides are in elements, the last dim of every input has
-// stride 1, u is contiguous (H, N), y contiguous (B, S, H, N) and state
-// contiguous (B, H, N, N).
+// stride 1, u is contiguous (H, N), y contiguous (B, S, H, N), state
+// contiguous (B, H, N, N) and states null or contiguous (B, H, ceil(S /
+// 32), N, N).
 // Returns the CUDA error of the launch (0 on success).
 int wkv6_fwd(const void* r, const void* k, const void* v, const float* logw,
-             const float* u, void* y, float* state, int dtype, int B, int S,
-             int H, int N, long long sr_b, long long sr_s, long long sr_h,
-             long long sk_b, long long sk_s, long long sk_h, long long sv_b,
-             long long sv_s, long long sv_h, long long sw_b, long long sw_s,
-             long long sw_h, void* stream) {
+             const float* u, void* y, float* state, float* states, int dtype,
+             int B, int S, int H, int N, long long sr_b, long long sr_s,
+             long long sr_h, long long sk_b, long long sk_s, long long sk_h,
+             long long sv_b, long long sv_s, long long sv_h, long long sw_b,
+             long long sw_s, long long sw_h, void* stream) {
   if (N < 1 || N > kDim || B < 1 || S < 1 || H < 1 ||
       static_cast<long long>(B) * H > 2147483647LL ||
       (dtype != 0 && dtype != 1))
@@ -429,9 +453,9 @@ int wkv6_fwd(const void* r, const void* k, const void* v, const float* logw,
     mode = std::max({load_mode<__nv_bfloat16>(r, N, {sr_b, sr_s, sr_h}),
                      load_mode<__nv_bfloat16>(k, N, {sk_b, sk_s, sk_h}),
                      load_mode<__nv_bfloat16>(v, N, {sv_b, sv_s, sv_h})});
-  const Params p{r,    k,    v,    logw, u,    y,    state, B,    S,
-                 H,    N,    sr_b, sr_s, sr_h, sk_b, sk_s,  sk_h, sv_b,
-                 sv_s, sv_h, sw_b, sw_s, sw_h, mode};
+  const Params p{r,    k,    v,    logw, u,    y,    state, states, B,
+                 S,    H,    N,    sr_b, sr_s, sr_h, sk_b,  sk_s,   sk_h,
+                 sv_b, sv_s, sv_h, sw_b, sw_s, sw_h, mode};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const cudaError_t err = dtype == 0 ? launch<float>(p, st)
                                      : launch<__nv_bfloat16>(p, st);

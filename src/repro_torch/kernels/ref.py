@@ -328,7 +328,10 @@ def ssd_chunked(x: torch.Tensor, Bm: torch.Tensor, Cm: torch.Tensor,
     x: (B, S, H, P) with dt folded in; Bm/Cm: (B, S, N), shared by the
     heads; da: (B, S, H) log decay <= 0; h: (B, H, P, N) f32.  Returns
     (y (B, S, H, P) f32, final state).  The ragged tail is zero-padded
-    (x = 0 adds nothing, da = 0 keeps the decay at 1).
+    (x = 0 adds nothing, da = 0 keeps the decay at 1).  The intra-chunk
+    decay is masked in log space before the exp (the reference masks after
+    it: the same values, but its gradient is NaN once a chunk's decay sums
+    past about 88, where exp overflows above the diagonal).
     """
     B, S, H, P = x.shape
     C = min(chunk, S)
@@ -351,7 +354,9 @@ def ssd_chunked(x: torch.Tensor, Bm: torch.Tensor, Cm: torch.Tensor,
         y = torch.einsum("btn,bhpn,bht->bhtp", C_, h, torch.exp(cum))
         g = torch.einsum("btn,bsn->bts", C_, B_)                # (B,C,C)
         diff = cum[:, :, :, None] - cum[:, :, None, :]          # (B,H,t,s)
-        ldec = torch.where(mask[None, None], torch.exp(diff), 0.0)
+        # masked before the exp: above the diagonal diff >= 0 overflows
+        # for strong decays, and exp(inf) * 0 would make the gradient NaN
+        ldec = torch.exp(torch.where(mask[None, None], diff, -math.inf))
         y = y + torch.einsum("bts,bhts,bhsp->bhtp", g, ldec, x_)
         dtot = torch.exp(cum[:, :, -1])                         # (B,H)
         kdec = torch.exp(cum[:, :, -1:] - cum)                  # (B,H,C)
@@ -360,3 +365,181 @@ def ssd_chunked(x: torch.Tensor, Bm: torch.Tensor, Cm: torch.Tensor,
         ys.append(y)
     y = torch.stack(ys).permute(1, 0, 3, 2, 4).reshape(B, Sp, H, P)[:, :S]
     return y, h
+
+
+# --- the chunk scans' backward ------------------------------------------------
+
+def _wide(a: torch.Tensor) -> torch.Tensor:
+    """f32, or f64 for an f64 input (a float64 oracle of the same
+    arithmetic)."""
+    return a if a.dtype == torch.float64 else a.float()
+
+
+def _chunks(a: torch.Tensor, C: int, nc: int) -> torch.Tensor:
+    """(B, S, ...) zero-padded to nc C tokens -> (nc, B, C, ...) in
+    :func:`_wide`'s type."""
+    B, S = a.shape[:2]
+    if nc * C != S:
+        a = F.pad(a, (0,) * (2 * (a.dim() - 2)) + (0, nc * C - S))
+    return _wide(a.reshape(B, nc, C, *a.shape[2:]).transpose(0, 1))
+
+
+def _unchunk(a: torch.Tensor, S: int) -> torch.Tensor:
+    """(nc, B, C, ...) -> (B, S, ...), the padding dropped."""
+    nc, B, C = a.shape[:3]
+    return a.transpose(0, 1).reshape(B, nc * C, *a.shape[3:])[:, :S]
+
+
+def _rev_cumsum(a: torch.Tensor, dim: int) -> torch.Tensor:
+    """sum over the positions at or after each one, along ``dim``."""
+    return a.flip(dim).cumsum(dim).flip(dim)
+
+
+def wkv6_chunked_backward(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          logw: torch.Tensor, u: torch.Tensor,
+                          state0: torch.Tensor, dy: torch.Tensor,
+                          dstate: Optional[torch.Tensor] = None,
+                          chunk: int = 32):
+    """The gradient of :func:`wkv6_chunked` in the arithmetic of the
+    backward kernel (csrc/wkv6_bwd.cu): the chunk-start states from a
+    forward pass, then a reverse scan over the chunks carrying dS, the
+    gradient of the state after the chunk.  Per chunk, with rd = r
+    e^{cum_prev}, kd = k e^{cum_C - cum} and A the intra-chunk attention
+    (strictly lower, bonus on the diagonal):
+
+        dA = dy v^T,  dv = A^T dy + kd dS,  d(rd) = dy S^T,  d(kd) = v dS^T
+        dS <- e^{cum_C} dS + rd^T dy
+
+    and the pairwise terms of A, whose decays stay pairwise in log space
+    (every exponent <= 0), as the forward's do.  The gradients of cum and
+    cum_prev become dlogw by reverse cumulative sums down the chunk.
+
+    r/k/v/logw, dy: (B, S, H, N); u: (H, N); state0, dstate (None = 0):
+    (B, H, N, N).  Returns (dr, dk, dv, dlogw (B, S, H, N), du (H, N),
+    summed over the batch, dstate0 (B, H, N, N)), all f32 (f64 for f64
+    inputs)."""
+    B, S, H, N = r.shape
+    C = min(chunk, S)
+    nc = -(-S // C)
+    per = lambda a: _chunks(a, C, nc).transpose(2, 3)   # (nc,B,H,C,N) # noqa
+    r_, k_, v_, lw_, g_ = (per(a) for a in (r, k, v, logw, dy))
+    uu = _wide(u)[None, :, None, :]                        # (1,H,1,N)
+    strict = torch.tril(torch.ones((C, C), dtype=torch.bool,
+                                   device=r.device), diagonal=-1)
+    # the forward's chunk-start states (the kernel reads the forward's)
+    states = []
+    s = _wide(state0)
+    for c in range(nc):
+        states.append(s)
+        cum = torch.cumsum(lw_[c], dim=2)
+        last = cum[:, :, -1:]
+        s = torch.exp(last[:, :, 0])[..., None] * s + torch.einsum(
+            "bhsi,bhsj->bhij", k_[c] * torch.exp(last - cum), v_[c])
+    ds = torch.zeros_like(s) if dstate is None else _wide(dstate).clone()
+    dr, dk, dv, dlw = (torch.empty_like(r_) for _ in range(4))
+    du = torch.zeros((H, N), dtype=s.dtype, device=r.device)
+    for c in reversed(range(nc)):
+        S0, rc, kc, vc, lw, g = states[c], r_[c], k_[c], v_[c], lw_[c], g_[c]
+        cum = torch.cumsum(lw, dim=2)
+        cp = cum - lw
+        last = cum[:, :, -1:]                                  # (B,H,1,N)
+        rd, kd = rc * torch.exp(cp), kc * torch.exp(last - cum)
+        diff = cp[:, :, :, None, :] - cum[:, :, None, :, :]    # (B,H,t,s,N)
+        E = torch.exp(torch.where(strict[None, None, :, :, None], diff,
+                                  -math.inf))
+        A = torch.einsum("bhti,bhsi,bhtsi->bhts", rc, kc, E)
+        A = A + torch.diag_embed(torch.einsum("bhti,bhti->bht", rc,
+                                              kc * uu))
+        dA = torch.einsum("bhtj,bhsj->bhts", g, vc)
+        dd = dA.diagonal(dim1=-2, dim2=-1)                    # (B,H,C)
+        dA = torch.where(strict, dA, 0.0)
+        dv[c] = (torch.einsum("bhts,bhtj->bhsj", A, g)
+                 + torch.einsum("bhsi,bhij->bhsj", kd, ds))
+        drd = torch.einsum("bhtj,bhij->bhti", g, S0)
+        dkd = torch.einsum("bhsj,bhij->bhsi", vc, ds)
+        dlast = torch.exp(last[:, :, 0]) * (ds * S0).sum(-1)   # (B,H,N)
+        dr2 = torch.einsum("bhts,bhsi,bhtsi->bhti", dA, kc, E)
+        dk2 = torch.einsum("bhts,bhti,bhtsi->bhsi", dA, rc, E)
+        dr[c] = drd * torch.exp(cp) + dr2 + dd[..., None] * uu * kc
+        dk[c] = dkd * torch.exp(last - cum) + dk2 + dd[..., None] * uu * rc
+        du += torch.einsum("bht,bhti->hi", dd, rc * kc)
+        dcp = drd * rd + rc * dr2
+        dcum = -dkd * kd - kc * dk2
+        dcum[:, :, -1] += dlast + (dkd * kd).sum(2)
+        # cum_t sums logw up to t, cum_prev_t before t
+        dlw[c] = _rev_cumsum(dcum, 2) + _rev_cumsum(dcp, 2) - dcp
+        ds = torch.exp(last[:, :, 0])[..., None] * ds + torch.einsum(
+            "bhti,bhtj->bhij", rd, g)
+    out = (_unchunk(a.transpose(2, 3), S) for a in (dr, dk, dv, dlw))
+    return (*out, du, ds)
+
+
+def ssd_chunked_backward(x: torch.Tensor, Bm: torch.Tensor, Cm: torch.Tensor,
+                         da: torch.Tensor, h0: torch.Tensor, dy: torch.Tensor,
+                         dh: Optional[torch.Tensor] = None, chunk: int = 32):
+    """The gradient of :func:`ssd_chunked` in the arithmetic of the
+    backward kernel (csrc/ssd_bwd.cu): the chunk-start states from a
+    forward pass, then a reverse scan over the chunks carrying dh, the
+    gradient of the state after the chunk.  Per chunk and head, with L the
+    decay e^{cum_t - cum_s} (s <= t, taken pairwise with every exponent <=
+    0, as the repaired forward's), G = C B^T, M = G L, dye = dy e^{cum} and
+    xd = x e^{cum_last - cum}:
+
+        dM = dy x^T,  dx = M^T dy + e^{cum_last - cum} (B dh^T)
+        dC = dye h + (dM L) B,  dB = (dM L)^T C + xd dh
+        dh <- e^{cum_last} dh + dye^T C
+
+    and dcum from the row and column sums of dM G L and the two decays;
+    dda is its reverse cumulative sum down the chunk.  dB and dC are
+    summed over the heads (B and C have no head axis).
+
+    x, dy: (B, S, H, P); Bm/Cm: (B, S, N); da: (B, S, H); h0, dh (None =
+    0): (B, H, P, N).  Returns (dx (B, S, H, P), dBm, dCm (B, S, N), dda
+    (B, S, H), dh0 (B, H, P, N)), all f32 (f64 for f64 inputs)."""
+    B, S, H, P = x.shape
+    C = min(chunk, S)
+    nc = -(-S // C)
+    xc, gc = (_chunks(a, C, nc).transpose(2, 3) for a in (x, dy))
+    dac = _chunks(da, C, nc).transpose(2, 3)                  # (nc,B,H,C)
+    Bc, Cc = _chunks(Bm, C, nc), _chunks(Cm, C, nc)           # (nc,B,C,N)
+    mask = torch.tril(torch.ones((C, C), dtype=torch.bool, device=x.device))
+    states = []
+    h = _wide(h0)
+    for c in range(nc):
+        states.append(h)
+        cum = torch.cumsum(dac[c], dim=-1)
+        kdec = torch.exp(cum[:, :, -1:] - cum)
+        h = torch.exp(cum[:, :, -1])[..., None, None] * h + torch.einsum(
+            "bhs,bhsp,bsn->bhpn", kdec, xc[c], Bc[c])
+    dh_ = torch.zeros_like(h) if dh is None else _wide(dh).clone()
+    dx, ddac = torch.empty_like(xc), torch.empty_like(dac)
+    dBc, dCc = torch.empty_like(Bc), torch.empty_like(Cc)
+    for c in reversed(range(nc)):
+        h, x_, g, B_, C_ = states[c], xc[c], gc[c], Bc[c], Cc[c]
+        cum = torch.cumsum(dac[c], dim=-1)                      # (B,H,C)
+        elast = torch.exp(cum[:, :, -1])                        # (B,H)
+        kdec = torch.exp(cum[:, :, -1:] - cum)
+        L = torch.exp(torch.where(mask, cum[:, :, :, None]
+                                  - cum[:, :, None, :], -math.inf))
+        G = torch.einsum("btn,bsn->bts", C_, B_)[:, None]      # (B,1,t,s)
+        dye = g * torch.exp(cum)[..., None]
+        dC1 = torch.einsum("bhtp,bhpn->bhtn", dye, h)
+        dM = torch.einsum("bhtp,bhsp->bhts", g, x_)
+        dG = dM * L
+        W = dG * G
+        Bdh = torch.einsum("bsn,bhpn->bhsp", B_, dh_)
+        dkdec = (x_ * Bdh).sum(-1)                              # (B,H,C)
+        dcum = (torch.einsum("bhtn,btn->bht", dC1, C_) + W.sum(-1)
+                - W.sum(-2) - dkdec * kdec)
+        dcum[:, :, -1] += elast * (dh_ * h).sum((-1, -2)) + \
+            (dkdec * kdec).sum(-1)
+        ddac[c] = _rev_cumsum(dcum, -1)
+        dx[c] = (torch.einsum("bhts,bhtp->bhsp", G * L, g)
+                 + kdec[..., None] * Bdh)
+        dCc[c] = (dC1 + torch.einsum("bhts,bsn->bhtn", dG, B_)).sum(1)
+        dBc[c] = (torch.einsum("bhts,btn->bhsn", dG, C_) + torch.einsum(
+            "bhs,bhsp,bhpn->bhsn", kdec, x_, dh_)).sum(1)
+        dh_ = elast[..., None, None] * dh_ + torch.einsum(
+            "bhtp,btn->bhpn", dye, C_)
+    return (_unchunk(dx.transpose(2, 3), S), _unchunk(dBc, S),
+            _unchunk(dCc, S), _unchunk(ddac.transpose(2, 3), S), dh_)

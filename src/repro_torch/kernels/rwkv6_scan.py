@@ -1,7 +1,11 @@
-"""Wrapper of the WKV6 chunk-scan kernel (csrc/wkv6.cu).
+"""Wrappers of the WKV6 chunk-scan kernel (csrc/wkv6.cu) and of its
+backward (csrc/wkv6_bwd.cu).
 
     wkv6(r, k, v, logw (B, S, H, N), u (H, N), state (B, H, N, N) f32)
         -> y (B, S, H, N)
+    wkv6_backward(r, k, v, logw, u, state0, dy[, dstate])
+        -> (dr, dk, dv, dlogw, du, dstate0)
+    WKV6.apply(r, k, v, logw, u, state0[, chunk]) -> (y, final state)
 
 The port of ``repro/kernels/rwkv6_scan.py`` with a state in and out: the
 RWKV-6 WKV recurrence from ``state``, whose final value is written back
@@ -22,12 +26,20 @@ tensor cores in 3xTF32, so fp32 inputs keep fp32 accuracy
 (csrc/wkv6.cu says how).  CUDA launches are counted
 (:func:`launch_counts`); :func:`ctas_per_sm` reports the kernel's
 occupancy.
+
+Training goes through :class:`WKV6`, which writes no caller's buffer: its
+forward takes the state in as an input and returns the final state, and
+on the card it asks the forward kernel for the state at the start of
+each of its chunks, which the backward kernel reads (fp32 only, as
+training is).  On the CPU its backward is ``ref.wkv6_chunked_backward``.
 """
 from __future__ import annotations
 
 import ctypes
 
 import torch
+
+from typing import Optional
 
 from repro_torch.kernels import build as kbuild
 from repro_torch.kernels import ref
@@ -40,11 +52,26 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _vp, _ci, _ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _LIB = kbuild.Library(
     "wkv6", "wkv6_error_string",
-    {"wkv6_fwd": [_vp] * 7 + [_ci] * 5 + [_ll] * 12 + [_vp],
+    {"wkv6_fwd": [_vp] * 8 + [_ci] * 5 + [_ll] * 12 + [_vp],
      "wkv6_ctas_per_sm": [_ci]},
     kernels=("wkv6",))
-launch_counts = _LIB.launch_counts
-reset_launch_counts = _LIB.reset_launch_counts
+_BWD = kbuild.Library(
+    "wkv6_bwd", "wkv6_bwd_error_string",
+    {"wkv6_bwd": [_vp] * 14 + [_ci] * 4 + [_vp]}, kernels=("wkv6_bwd",))
+
+
+def launch_counts():
+    return {**_LIB.launch_counts(), **_BWD.launch_counts()}
+
+
+def reset_launch_counts() -> None:
+    _LIB.reset_launch_counts()
+    _BWD.reset_launch_counts()
+
+
+def n_chunks(S: int) -> int:
+    """The kernels' chunks over S tokens (the chunk-state count)."""
+    return -(-S // KERNEL_CHUNK)
 
 
 def ctas_per_sm(dtype: torch.dtype) -> int:
@@ -82,11 +109,26 @@ def _check_operands(r, k, v, logw, u, state) -> None:
 
 def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
          logw: torch.Tensor, u: torch.Tensor, state: torch.Tensor,
-         chunk: int = KERNEL_CHUNK) -> torch.Tensor:
+         chunk: int = KERNEL_CHUNK,
+         chunk_states: Optional[torch.Tensor] = None) -> torch.Tensor:
     """WKV6 over r/k/v/logw (B, S, H, N) from ``state`` (B, H, N, N) f32,
     which ends holding the final state; returns y (B, S, H, N) in r's
-    dtype; ``u`` is (H, N), the bonus of each head."""
+    dtype; ``u`` is (H, N), the bonus of each head.  ``chunk_states``, a
+    contiguous f32 (B, H, n_chunks(S), N, N) CUDA tensor, also receives
+    the state at the start of each of the kernel's chunks (for
+    :func:`wkv6_backward`)."""
     _check_operands(r, k, v, logw, u, state)
+    if chunk_states is not None:
+        B, S, H, N = r.shape
+        if (chunk_states.device != r.device or r.device.type != "cuda"
+                or tuple(chunk_states.shape) != (B, H, n_chunks(S), N, N)
+                or chunk_states.dtype != torch.float32
+                or not chunk_states.is_contiguous()):
+            raise ValueError(
+                f"wkv6: chunk_states must be a contiguous float32 CUDA "
+                f"tensor {(B, H, n_chunks(S), N, N)} beside CUDA operands, "
+                f"got {chunk_states.dtype} {tuple(chunk_states.shape)} on "
+                f"{chunk_states.device}")
     if r.device.type == "cpu":
         y, new = ref.wkv6_chunked(r, k, v, logw, u, state, chunk)
         state.copy_(new)
@@ -111,6 +153,7 @@ def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             "wkv6", "wkv6_fwd",
             r.data_ptr(), k.data_ptr(), v.data_ptr(), lw.data_ptr(),
             uu.data_ptr(), y.data_ptr(), state.data_ptr(),
+            None if chunk_states is None else chunk_states.data_ptr(),
             _DTYPES[r.dtype], B, S, H, N,
             r.stride(0), r.stride(1), r.stride(2),
             k.stride(0), k.stride(1), k.stride(2),
@@ -118,3 +161,94 @@ def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             lw.stride(0), lw.stride(1), lw.stride(2),
             torch.cuda.current_stream().cuda_stream)
     return y
+
+
+def wkv6_backward(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  logw: torch.Tensor, u: torch.Tensor, state0: torch.Tensor,
+                  dy: torch.Tensor, dstate: Optional[torch.Tensor] = None,
+                  chunk_states: Optional[torch.Tensor] = None,
+                  chunk: int = KERNEL_CHUNK):
+    """The gradient of :func:`wkv6` from ``state0``, given dy (B, S, H, N)
+    and the final state's ``dstate`` (None = 0): (dr, dk, dv, dlogw (B, S,
+    H, N), du (H, N), dstate0 (B, H, N, N)), f32.  A CPU tensor takes
+    ``ref.wkv6_chunked_backward`` at ``chunk``; a CUDA one launches the
+    backward kernel (fp32 only), which reads ``chunk_states``, the
+    forward's (:func:`wkv6`), in place of ``state0``."""
+    _check_operands(r, k, v, logw, u, state0)
+    B, S, H, N = r.shape
+    if tuple(dy.shape) != (B, S, H, N) or dy.device != r.device or (
+            dstate is not None and (tuple(dstate.shape) != (B, H, N, N)
+                                    or dstate.device != r.device)):
+        raise ValueError(f"wkv6_backward: dy must be {(B, S, H, N)} and "
+                         f"dstate {(B, H, N, N)} on {r.device}, got "
+                         f"{tuple(dy.shape)} and "
+                         f"{None if dstate is None else tuple(dstate.shape)}")
+    if r.device.type == "cpu":
+        return ref.wkv6_chunked_backward(r, k, v, logw, u, state0, dy,
+                                         dstate, chunk)
+    if any(t.dtype != torch.float32 for t in (r, k, v, logw, u, dy)):
+        raise ValueError(
+            f"wkv6_backward: the backward kernel is fp32 only (training is "
+            f"fp32), got r {r.dtype}, k {k.dtype}, v {v.dtype}, logw "
+            f"{logw.dtype}, u {u.dtype}, dy {dy.dtype}")
+    if N > MAX_HEAD_SIZE:
+        raise ValueError(f"wkv6_backward supports head size <= "
+                         f"{MAX_HEAD_SIZE}, got {N}")
+    want = (B, H, n_chunks(S), N, N)
+    if chunk_states is None or tuple(chunk_states.shape) != want or \
+            chunk_states.dtype != torch.float32 or \
+            chunk_states.device != r.device:
+        raise ValueError(
+            f"wkv6_backward on the card reads the forward's chunk states: "
+            f"pass chunk_states, the float32 {want} tensor that "
+            f"wkv6(..., chunk_states=) filled")
+    r, k, v, lw, dy = (t.contiguous() for t in (r, k, v, logw, dy))
+    uu, cs = u.contiguous(), chunk_states.contiguous()
+    ds = None if dstate is None else dstate.float().contiguous()
+    dr, dk, dv, dlw = (torch.empty((B, S, H, N), dtype=torch.float32,
+                                   device=r.device) for _ in range(4))
+    du = torch.empty((B, H, N), dtype=torch.float32, device=r.device)
+    ds0 = torch.empty((B, H, N, N), dtype=torch.float32, device=r.device)
+    with torch.cuda.device(r.device):
+        _BWD.launch(
+            "wkv6_bwd", "wkv6_bwd",
+            r.data_ptr(), k.data_ptr(), v.data_ptr(), lw.data_ptr(),
+            uu.data_ptr(), cs.data_ptr(), dy.data_ptr(),
+            None if ds is None else ds.data_ptr(), dr.data_ptr(),
+            dk.data_ptr(), dv.data_ptr(), dlw.data_ptr(), du.data_ptr(),
+            ds0.data_ptr(), B, S, H, N,
+            torch.cuda.current_stream().cuda_stream)
+    return dr, dk, dv, dlw, du.sum(0), ds0
+
+
+class WKV6(torch.autograd.Function):
+    """Differentiable :func:`wkv6`: ``WKV6.apply(r, k, v, logw, u, state0,
+    chunk=32)`` -> (y, final state), writing no buffer of the caller's
+    (``state0`` is read, the final state is a new tensor).  On the card
+    the forward kernel also writes its chunk states when a gradient is
+    needed, and the backward kernel reads them; on the CPU both are the
+    plain versions at ``chunk``."""
+
+    @staticmethod
+    def forward(ctx, r, k, v, logw, u, state0, chunk: int = KERNEL_CHUNK):
+        ctx.set_materialize_grads(False)
+        state = state0.detach().float().clone()
+        B, S, H, N = r.shape
+        states = None
+        if r.device.type == "cuda" and any(ctx.needs_input_grad[:6]):
+            states = torch.empty((B, H, n_chunks(S), N, N),
+                                 dtype=torch.float32, device=r.device)
+        y = wkv6(r, k, v, logw, u, state, chunk=chunk, chunk_states=states)
+        ctx.save_for_backward(r, k, v, logw, u, state0, states)
+        ctx.chunk = chunk
+        return y, state
+
+    @staticmethod
+    def backward(ctx, dy, dstate):
+        r, k, v, logw, u, state0, states = ctx.saved_tensors
+        if dy is None:
+            dy = torch.zeros(r.shape, dtype=torch.float32, device=r.device)
+        grads = wkv6_backward(r, k, v, logw, u, state0, dy.float(), dstate,
+                              chunk_states=states, chunk=ctx.chunk)
+        return (*(g.to(t.dtype) for g, t in zip(
+            grads, (r, k, v, logw, u, state0))), None)

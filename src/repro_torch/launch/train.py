@@ -5,15 +5,18 @@ The port of ``repro/launch/train.py`` for one device: the single-pod step
 and the guarded runner that restores the last good checkpoint on a failed
 step.  It runs on the card unless ``--device cpu`` is given; the params
 are drawn on the device from a ``torch.Generator`` seeded with
-``--seed``.  Every transformer family trains (dense, moe, the vlm and
-audio frontends, with the pipeline's patch and frame batches; the MoE aux
-loss is logged beside the cross-entropy); the recurrent families raise
-naming ROADMAP A17.  ``--multi-pod`` and ``--codec`` (pods as FedAT tiers
-and the cross-tier link) raise naming ROADMAP A16.
+``--seed``.  Every family of the zoo trains: dense, moe, the vlm and
+audio frontends (with the pipeline's patch and frame batches; the MoE aux
+loss is logged beside the cross-entropy), and the recurrent rwkv6 and
+zamba2 (their scans' backward a kernel on the card).  ``--multi-pod`` and
+``--codec`` (pods as FedAT tiers and the cross-tier link) raise naming
+ROADMAP A16.
 
-Example (CPU):
+Examples (CPU):
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-7b \\
       --smoke --steps 4 --ckpt-dir /tmp/ckpt --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.train --arch rwkv6-3b \\
+      --smoke --steps 2 --device cpu
 """
 from __future__ import annotations
 

@@ -11,15 +11,18 @@ The port of ``repro/models/lm.py``:
 
 Families: dense/moe/vlm/audio -> transformer.py; ssm -> rwkv6.py;
 hybrid -> zamba2.py, dispatched here as in the reference.  The recurrent
-families serve forward only: ``forward_train`` and ``loss_fn`` raise for
-them naming ROADMAP A17 (their training needs backward kernels of the
-scans).  Caches and states are written in place and returned.
+families train from the zero state through the scans' autograd functions
+(whose backward is a kernel on the card), rwkv6 with each layer under
+``torch.utils.checkpoint`` when ``cfg.remat``, as the reference remats its
+scanned layer body.  Caches and states are written in place and
+returned.
 """
 from __future__ import annotations
 
 from typing import Any, Dict
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import DeviceLike, resolve_device
@@ -56,38 +59,60 @@ def init_params(cfg: ModelConfig, seed: int, tp: int = 1,
     return common.init_from_specs(param_specs(cfg, tp), gen, dev, dtype)
 
 
-def _no_recurrent_training(cfg: ModelConfig):
-    return NotImplementedError(
-        f"training the {cfg.family} family ({cfg.name!r}) is not ported to "
-        f"the PyTorch package (ROADMAP A17: the recurrent families serve "
-        f"forward only; their training needs backward kernels of the "
-        f"wkv6/ssd scans)")
-
-
 def forward_train(cfg: ModelConfig, p, batch, tp: int):
+    """(features (B, S, d) after the final norm, aux loss, prefix_len); the
+    recurrent families have no aux loss and no prefix."""
     if cfg.family in TRANSFORMER_FAMILIES:
         return transformer.forward_train(cfg, p, batch, tp)
-    raise _no_recurrent_training(cfg)
+    tokens = batch["tokens"]
+    if cfg.family == "hybrid":
+        x = zamba2._run(cfg, p, p["embed"][tokens.long()], tp, "train")
+        x = rms_norm(x, p["final_norm"], cfg.rms_eps)
+    else:
+        x = _rwkv_forward(cfg, p, tokens, None, tp, False)
+    return x, torch.zeros((), dtype=torch.float32, device=x.device), 0
 
 
 def loss_fn(cfg: ModelConfig, p, batch, tp: int):
     if cfg.family in TRANSFORMER_FAMILIES:
         return transformer.loss_fn(cfg, p, batch, tp)
-    raise _no_recurrent_training(cfg)
+    if cfg.family == "hybrid":
+        return zamba2.loss_fn(cfg, p, batch, tp)
+    return _rwkv_loss(cfg, p, batch, tp)
 
 
 # ---------------------------------------------------------------------------
 # rwkv model-level glue (transformer/zamba have their own modules)
 # ---------------------------------------------------------------------------
 
+def _rwkv_train_layer(cfg, tp, x, lp):
+    return rwkv6.block(cfg, lp, x, None, tp, False)[0]
+
+
 def _rwkv_forward(cfg, p, tokens, state, tp, single_token):
-    """Runs every layer, writing ``state`` in place; returns the final
-    normed features."""
+    """Runs every layer, writing ``state`` in place, or, with ``state``
+    None, a training forward from the zero state (each layer checkpointed
+    under ``cfg.remat``); returns the final normed features."""
     x = p["embed"][tokens.long()]
+    remat = state is None and cfg.remat and torch.is_grad_enabled()
     for i in range(cfg.n_layers):
-        x, _ = rwkv6.block(cfg, index_tree(p["layers"], i), x,
-                           index_tree(state, i), tp, single_token)
+        lp = index_tree(p["layers"], i)
+        if state is not None:
+            x, _ = rwkv6.block(cfg, lp, x, index_tree(state, i), tp,
+                               single_token)
+        elif remat:
+            x = checkpoint(_rwkv_train_layer, cfg, tp, x, lp,
+                           use_reentrant=False)
+        else:
+            x = _rwkv_train_layer(cfg, tp, x, lp)
     return rms_norm(x, p["final_norm"], cfg.rms_eps)
+
+
+def _rwkv_loss(cfg, p, batch, tp):
+    """rwkv6's loss: the zamba2 module's seq-chunked cross-entropy (the
+    reference's sharing) over the training forward's features."""
+    x = _rwkv_forward(cfg, p, batch["tokens"], None, tp, False)
+    return zamba2._chunked_ce(cfg, x, p["lm_head"], batch["tokens"], tp)
 
 
 def _rwkv_prefill(cfg, p, batch, tp, state):

@@ -11,10 +11,15 @@ the card, the plain chunked version on the CPU); decode carries (conv
 window, h) only and updates them in plain torch, one token a call.  The
 state is written in place: :func:`block` updates the per-layer views of
 the stacked :class:`MambaState` it is given and returns the same object.
+
+Training calls :func:`block` with ``state=None``: the reference's zero
+state, no state written (so a checkpointed layer recomputes from what the
+first pass read), and the chunk scan through ``ssd.SSDScan``, whose
+backward is the kernel ``csrc/ssd_bwd.cu`` on the card.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, NamedTuple, Tuple
+from typing import Any, Dict, NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -89,17 +94,18 @@ def _ssd_chunked(xh, Bm, Cm, da, h, chunk):
     return y, h
 
 
-def block(cfg: ModelConfig, lp, x: torch.Tensor, state: MambaState, tp: int,
-          single_token: bool) -> Tuple[torch.Tensor, MambaState]:
+def block(cfg: ModelConfig, lp, x: torch.Tensor, state: Optional[MambaState],
+          tp: int, single_token: bool) -> Tuple[torch.Tensor, MambaState]:
     """One Mamba2 block with residual. x: (B,S,d); ``state`` holds this
-    layer's views and is updated in place."""
+    layer's views and is updated in place, or is None for a training
+    forward (the zero state, nothing written)."""
     s = cfg.ssm
     di = s.d_inner(cfg.d_model)
     nh = s.n_heads(cfg.d_model)
     P, N = s.head_dim, s.d_state
     B_, S_, _ = x.shape
     K = s.d_conv
-    if not single_token and S_ < K - 1:
+    if state is not None and not single_token and S_ < K - 1:
         raise ValueError(f"a mamba2 prompt needs at least d_conv - 1 = "
                          f"{K - 1} tokens to fill the conv state, got {S_}")
 
@@ -116,6 +122,10 @@ def block(cfg: ModelConfig, lp, x: torch.Tensor, state: MambaState, tp: int,
         window = torch.cat([state.conv.to(conv_in.dtype), conv_in], dim=1)
         conv_out = torch.einsum("bkc,kc->bc", window, conv_w)[:, None]
         state.conv.copy_(window[:, 1:])
+    elif state is None:
+        conv_out = _causal_conv(conv_in, conv_w, torch.zeros(
+            (B_, K - 1, conv_in.shape[-1]), dtype=torch.float32,
+            device=x.device))
     else:
         conv_out = _causal_conv(conv_in, conv_w, state.conv)
         state.conv.copy_(conv_in[:, -(K - 1):])
@@ -136,6 +146,10 @@ def block(cfg: ModelConfig, lp, x: torch.Tensor, state: MambaState, tp: int,
         h.mul_(torch.exp(da[:, 0])[..., None, None]).add_(
             torch.einsum("bhp,bn->bhpn", xdt[:, 0], Bm[:, 0].float()))
         y = torch.einsum("bn,bhpn->bhp", Cm[:, 0].float(), h)[:, None]
+    elif state is None:
+        h0 = torch.zeros((B_, nh, P, N), dtype=torch.float32, device=x.device)
+        y, _ = ssd_kernel.SSDScan.apply(xdt, Bm.float(), Cm.float(),
+                                        da.float(), h0, s.chunk)
     else:
         y, _ = _ssd_chunked(xdt, Bm, Cm, da, state.h, s.chunk)
 

@@ -14,12 +14,15 @@ plain chunked version on the CPU); decode carries (shift tokens, WKV
 state) only and runs :func:`_wkv_step` in plain torch, one token a call.
 The state is written in place: :func:`block` updates the per-layer views
 of the stacked :class:`RWKVState` it is given and returns the same object.
-Forward only: training waits for backward kernels of the scans (ROADMAP
-A17).
+
+Training calls :func:`block` with ``state=None``: the reference's zero
+state, no state written (so a checkpointed layer recomputes from what the
+first pass read), and the chunk scan through ``rwkv6_scan.WKV6``, whose
+backward is the kernel ``csrc/wkv6_bwd.cu`` on the card.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, NamedTuple, Tuple
+from typing import Any, Dict, NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -153,42 +156,61 @@ def _shifted(xn, shift, single_token: bool):
     return prev if single_token else torch.cat([prev, xn[:, :-1]], dim=1)
 
 
-def time_mix(cfg: ModelConfig, lp, x, state: RWKVState, tp: int,
+def _zero_shift(x: torch.Tensor) -> torch.Tensor:
+    return torch.zeros((x.shape[0], x.shape[-1]), dtype=torch.float32,
+                       device=x.device)
+
+
+def time_mix(cfg: ModelConfig, lp, x, state: Optional[RWKVState], tp: int,
              single_token: bool) -> Tuple[torch.Tensor, RWKVState]:
+    """``state`` None: a training forward from the zero state (none
+    written; the differentiable scan)."""
     n = cfg.rwkv.head_size
     hp = padded_rwkv_heads(cfg, tp)
     xn = rms_norm(x, lp["ln1"], cfg.rms_eps)
-    xprev = _shifted(xn, state.tshift, single_token)
+    shift = _zero_shift(xn) if state is None else state.tshift
+    xprev = _shifted(xn, shift, single_token)
     r, k, v, g, logw = _tmix_projections(cfg, lp, xn, xprev, tp)
     u = lp["u"].reshape(hp, n)
     if single_token:
         y, _ = _wkv_step(r[:, 0], k[:, 0], v[:, 0], logw[:, 0], u, state.wkv)
         y = y[:, None]
+    elif state is None:
+        B, _, H, N = r.shape
+        zero = torch.zeros((B, H, N, N), dtype=torch.float32,
+                           device=r.device)
+        y, _ = rwkv6_scan.WKV6.apply(r, k, v, logw, u, zero, CHUNK)
+        y = y.float()
     else:
         y, _ = _wkv_chunked(r, k, v, logw, u, state.wkv)
     y = _group_norm(y, lp["gn"].reshape(hp, n)).to(x.dtype)
     y = y.reshape(*y.shape[:-2], hp * n) * F.silu(g)
-    state.tshift.copy_(xn[:, -1])
+    if state is not None:
+        state.tshift.copy_(xn[:, -1])
     return torch.matmul(y, lp["wo"]), state
 
 
-def channel_mix(cfg: ModelConfig, lp, x, state: RWKVState, tp: int,
-                single_token: bool) -> Tuple[torch.Tensor, RWKVState]:
+def channel_mix(cfg: ModelConfig, lp, x, state: Optional[RWKVState],
+                tp: int, single_token: bool
+                ) -> Tuple[torch.Tensor, RWKVState]:
     xn = rms_norm(x, lp["ln2"], cfg.rms_eps)
-    delta = _shifted(xn, state.cshift, single_token) - xn
+    shift = _zero_shift(xn) if state is None else state.cshift
+    delta = _shifted(xn, shift, single_token) - xn
     xk = xn + delta * lp["c_mu_k"]
     xr = xn + delta * lp["c_mu_r"]
     kh = torch.square(torch.relu(torch.matmul(xk, lp["wck"])))
     kv = torch.matmul(kh, lp["wcv"])
     rr = torch.sigmoid(torch.matmul(xr, lp["wcr"]))
-    state.cshift.copy_(xn[:, -1])
+    if state is not None:
+        state.cshift.copy_(xn[:, -1])
     return rr * kv, state
 
 
-def block(cfg: ModelConfig, lp, x, state: RWKVState, tp: int,
+def block(cfg: ModelConfig, lp, x, state: Optional[RWKVState], tp: int,
           single_token: bool) -> Tuple[torch.Tensor, RWKVState]:
     """One layer with both residuals; ``state`` holds this layer's views
-    and is updated in place."""
+    and is updated in place, or is None for a training forward (the zero
+    state, nothing written)."""
     y, state = time_mix(cfg, lp, x, state, tp, single_token)
     x = x + y
     y, state = channel_mix(cfg, lp, x, state, tp, single_token)

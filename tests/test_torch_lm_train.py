@@ -107,10 +107,20 @@ def test_remat_recomputes_the_same_gradients():
 
 
 def test_recurrent_families_still_raise_for_training():
-    cfg = tsmoke("rwkv6-3b")
-    with pytest.raises(NotImplementedError, match="A17"):
-        tlm.loss_fn(cfg, {}, {"tokens": torch.zeros(1, 4, dtype=torch.int32)},
-                    1)
+    """They raised naming ROADMAP A17 until A17 was ported (the name is
+    kept); now lm.loss_fn trains them, with the dense families' metrics
+    (tests/test_torch_recurrent_train.py holds them to the reference)."""
+    for arch in ("rwkv6-3b", "zamba2-2.7b"):
+        cfg = tsmoke(arch)
+        params = tlm.init_params(cfg, 0, device="cpu")
+        leaves = {k: v.detach().clone().requires_grad_(True)
+                  for k, v in _leaves(params)}
+        loss, metrics = tlm.loss_fn(cfg, unflatten_tree(leaves), {
+            "tokens": torch.from_numpy(_tokens(cfg, 2, 32))}, 1)
+        grads = torch.autograd.grad(loss, list(leaves.values()))
+        assert bool(torch.isfinite(loss)) and sorted(metrics) == [
+            "aux_loss", "ce_loss"]
+        assert all(bool(torch.isfinite(g).all()) for g in grads)
 
 
 @pytest.mark.parametrize("arch", ["qwen2-7b", "rwkv6-3b"])

@@ -16,7 +16,7 @@ gap from regrowing unseen.
   * The coverage guard: every public top-level function, class and method
     of each reference module whose file the port has exists in the port,
     or is listed in ``NOT_PORTED`` with the ROADMAP item that will bring
-    it (A16: the mesh and sharding; A17: recurrent training).
+    it (A16: the mesh and sharding).
 """
 import ast
 import importlib
@@ -82,9 +82,6 @@ NOT_PORTED = {
     "models/lm.py:input_axes": "A16",
     "models/lm.py:input_specs": "A16",
     "models/lm.py:param_axes": "A16",
-    "models/zamba2.py:loss_fn": "A17",
-    "models/zamba2.py:_chunked_ce": "A17",
-    "models/lm.py:_rwkv_loss": "A17",
 }
 
 

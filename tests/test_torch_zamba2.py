@@ -18,7 +18,9 @@ import torch
 from repro.configs.registry import get_config as jget
 from repro.configs.registry import get_smoke_config as jsmoke
 from repro.models import lm as jlm
+from repro.models import common as jcommon
 from repro.models import mamba2 as jmamba2
+from repro.models import zamba2 as jzamba2
 from repro_torch.configs.registry import get_config as tget
 from repro_torch.configs.registry import get_smoke_config as tsmoke
 from repro_torch.models import lm as tlm
@@ -180,7 +182,17 @@ def test_full_config_widths_and_count():
 
 
 def test_forward_train_raises_naming_the_roadmap():
-    _, _, tc, tp = _bind()
-    with pytest.raises(NotImplementedError, match="A17"):
-        tlm.forward_train(tc, tp, {"tokens": torch.zeros(1, 8,
-                                                         dtype=torch.int32)}, 1)
+    """It raised naming ROADMAP A17 until zamba2 training was ported (the
+    name is kept): the training forward's features (no cache, the shared
+    block's train mode) against the reference's ``_run(mode="train")``
+    and final norm, at a ragged S."""
+    jc, jp, tc, tp = _bind()
+    toks = _tokens(jc, (2, 70), seed=3)
+    jx, _ = jzamba2._run(jc, jp, jnp.take(jp["embed"], jnp.asarray(toks),
+                                          axis=0), 1, "train")
+    jx = jcommon.rms_norm(jx, jp["final_norm"], jc.rms_eps)
+    with torch.no_grad():
+        tx, aux, prefix = tlm.forward_train(
+            tc, tp, {"tokens": torch.from_numpy(toks)}, 1)
+    assert prefix == 0 and float(aux) == 0.0
+    _close(tx, jx, "training features")
