@@ -197,17 +197,24 @@ only, never JAX or the reference package.  Phases:
     shared-attention application), a global batch of 8 x 4096
     (microbatch 8, remat, fp32 AdamW; two steps, no checkpoint), counts
     from 0 per arch and exact: a step launches wkv6 32 times (8
-    microbatches x 2 layers x 2 under remat) and its backward 16, or ssd
-    96 and its backward 48 and the flash kernel 8 each way (the shared
+    microbatches x 2 layers x 2 under remat) and each pass of its
+    backward (``wkv6_bwd_dstate``, ``wkv6_bwd``) 16, or ssd 96, each
+    pass of its backward 48 and the flash kernel 8 each way (the shared
     block, not under remat), nothing else; step seconds, tokens/s, peak
-    memory.  The smoke configs' loss and every parameter's gradient on
-    the card against the CPU (``RECURRENT_LOSS_RTOL``,
-    ``RECURRENT_GRAD_RTOL``).  The B3 and B4 backward kernels
-    (``csrc/wkv6_bwd.cu``, ``csrc/ssd_bwd.cu``, no Pallas counterpart)
-    against their plain versions at the training microbatch and a ragged
-    S (``SCAN_BWD_RTOL``) and under strong decays (against float64:
-    ``SCAN_BWD_F32_FACTOR``), then timed beside the plain version and the
-    bound.
+    memory; a third step under the profiler, split into the forward
+    scans, the backward scans, B2 each way, the GEMMs and the rest.  The
+    smoke configs' loss and every parameter's gradient on the card
+    against the CPU (``RECURRENT_LOSS_RTOL``, ``RECURRENT_GRAD_RTOL``).
+    The B3 and B4 backward kernels (``csrc/wkv6_bwd.cu``,
+    ``csrc/ssd_bwd.cu``, no Pallas counterpart; two passes each: the
+    state-gradient scan and the chunk-parallel gradients) against their
+    plain versions at the training microbatch and a ragged S
+    (``SCAN_BWD_RTOL``, pass 1's state gradients too) and under strong
+    decays (against float64: ``SCAN_BWD_F32_FACTOR``), every call twice
+    with equal bits; then timed beside the plain version and the bound,
+    each pass alone with its registers, shared memory, CTAs per SM and
+    waves, and the forward kernels' training and serving
+    instantiations at the same shape.
 
 Any failed check exits non-zero.  The last three lines of standard output
 are the kernel report (JSON), the card's ``name, power.limit`` and
@@ -217,6 +224,7 @@ sources beside it, the script exits non-zero and prints no result.
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import math
 import re
@@ -672,8 +680,8 @@ def run_main_path(torch, api, pc, dev):
     check(rounds == 10, f"{rounds} FedAT rounds ran, expected 10")
     check(counts == {"compress": 0, "decompress": 0, "roundtrip": expect,
                      "flash_attention": 0, "flash_attention_bwd": 0,
-                     "wkv6": 0, "wkv6_bwd": 0, "ssd": 0,
-                     "ssd_bwd": 0},
+                     "wkv6": 0, "wkv6_bwd_dstate": 0, "wkv6_bwd": 0,
+                     "ssd": 0, "ssd_bwd_dstate": 0, "ssd_bwd": 0},
           f"launch counts {counts}, expected {expect} roundtrip launches "
           f"(2 links x {rounds} rounds, {n_leaves} leaves a launch) and no "
           f"other")
@@ -2829,8 +2837,9 @@ def run_faults(torch, api, kernels, SimEnv, dev, phase3_events_per_s):
         committed = fired["gated_rounds"]
         check(counts == {"compress": 0, "decompress": 0,
                          "roundtrip": 2 * committed, "flash_attention": 0,
-                         "flash_attention_bwd": 0, "wkv6": 0, "wkv6_bwd": 0,
-                         "ssd": 0, "ssd_bwd": 0}
+                         "flash_attention_bwd": 0, "wkv6": 0,
+                         "wkv6_bwd_dstate": 0, "wkv6_bwd": 0, "ssd": 0,
+                         "ssd_bwd_dstate": 0, "ssd_bwd": 0}
               and committed == 8,
               f"phase 17: launch counts {counts} for {committed} gated "
               f"rounds, expected 2 roundtrip launches a round")
@@ -3180,8 +3189,8 @@ def run_population(torch, api, kernels, SimEnv, dev):
           "phase 19: non-finite global model")
     check(counts == {"compress": 0, "decompress": 0, "roundtrip": 2 * rounds,
                      "flash_attention": 0, "flash_attention_bwd": 0,
-                     "wkv6": 0, "wkv6_bwd": 0, "ssd": 0,
-                     "ssd_bwd": 0},
+                     "wkv6": 0, "wkv6_bwd_dstate": 0, "wkv6_bwd": 0,
+                     "ssd": 0, "ssd_bwd_dstate": 0, "ssd_bwd": 0},
           f"phase 19: launch counts {counts}, expected {2 * rounds} "
           f"roundtrip launches and no other")
     check(len(mat_s) == len(data_s) == rounds,
@@ -3444,8 +3453,8 @@ def run_topology(torch, api, kernels, SimEnv, dev):
     check(counts == {"compress": 0, "decompress": 0,
                      "roundtrip": TOPOLOGY_LAUNCHES * rounds,
                      "flash_attention": 0, "flash_attention_bwd": 0,
-                     "wkv6": 0, "wkv6_bwd": 0, "ssd": 0,
-                     "ssd_bwd": 0},
+                     "wkv6": 0, "wkv6_bwd_dstate": 0, "wkv6_bwd": 0,
+                     "ssd": 0, "ssd_bwd_dstate": 0, "ssd_bwd": 0},
           f"phase 20: launch counts {counts}, expected "
           f"{TOPOLOGY_LAUNCHES} roundtrip launches x {rounds} silo rounds "
           f"and no other")
@@ -4081,11 +4090,34 @@ def scan_bwd_bound(kind, B, S, H, N, P=None):
     return _bound(nbytes, flops, "float32")
 
 
+def scan_dstate_bound(kind, B, S, H, N, P=None):
+    """Least time for pass 1 of a backward alone (``*_bwd_dstate``): its
+    inputs (WKV6: r, logw, dy; SSD: C, da, dy) and the final state's
+    gradient read once, the state's gradient after every chunk and at the
+    start written once; the one product a chunk and head (rd^T dy, 2 C N
+    N, or dye^T C, 2 C P N) and its decays (an exp, a multiply and an add
+    per element: 3 C N, or 3 C for SSD's scalar decay and C P multiplies
+    for dye), at BOUND_CHUNK."""
+    C = BOUND_CHUNK
+    chunks = -(-S // C)
+    if kind == "wkv6":
+        nbytes = 4 * (3 * B * S * H * N + (chunks + 2) * B * H * N * N)
+        flops = B * H * chunks * (2 * C * N * N + 3 * C * N)
+    else:
+        nbytes = 4 * (B * S * H * P + B * S * N + B * S * H
+                      + (chunks + 2) * B * H * P * N)
+        flops = B * H * chunks * (2 * C * P * N + C * P + 3 * C)
+    return _bound(nbytes, flops, "float32")
+
+
 def _bwd_case(torch, g, kind, case, strong):
-    """Two callables over one case's inputs and cotangents: the kernel's
-    backward (reading the chunk states its forward wrote), and the plain
-    version's in a given dtype (fp32 by default, float64 as the oracle of
-    the strong-decay case)."""
+    """Callables over one case's inputs and cotangents: the kernel's
+    backward ("kern", reading the chunk states its forward wrote) and the
+    plain version's in a given dtype ("plain": fp32 by default, float64 as
+    the oracle of the strong-decay case); pass 1 alone and its plain
+    version ("pass1", "pass1_plain"); pass 2 alone given pass 1's output
+    ("pass2"); the forward kernel's training instantiation (writing the
+    chunk states) and its serving one ("fwd_train", "fwd_serve")."""
     from repro_torch.kernels import ref
     from repro_torch.kernels import rwkv6_scan, ssd
     if kind == "wkv6":
@@ -4096,57 +4128,124 @@ def _bwd_case(torch, g, kind, case, strong):
         B, S, H, N = r.shape
         cs = torch.empty((B, H, rwkv6_scan.n_chunks(S), N, N),
                          device="cuda")
-        rwkv6_scan.wkv6(*ins[:5], s0.clone(), chunk_states=cs)
-        kern = lambda: rwkv6_scan.wkv6_backward(  # noqa: E731
-            *ins, dy, dst, chunk_states=cs)
-        plain = lambda dt=torch.float32: ref.wkv6_chunked_backward(  # noqa
-            *(t.to(dt) for t in ins + (dy, dst)), chunk=SCAN_CHUNK)
-    else:
-        x, Bm, Cm, da, h0 = ssd_inputs(torch, g, dtype="float32", **case)
-        if strong:
-            da = -8.0 * torch.rand(da.shape, device="cuda", generator=g)
-        ins = (x, Bm, Cm, da, h0)
-        dy, dst = torch.randn_like(x), torch.randn_like(h0)
-        B, S, H, P = x.shape
-        cs = torch.empty((B, H, ssd.n_chunks(S), P, Bm.shape[-1]),
-                         device="cuda")
-        ssd.ssd_scan(*ins[:4], h0.clone(), chunk_states=cs)
-        kern = lambda: ssd.ssd_backward(  # noqa: E731
-            *ins, dy, dst, chunk_states=cs)
-        plain = lambda dt=torch.float32: ref.ssd_chunked_backward(  # noqa
-            *(t.to(dt) for t in ins + (dy, dst)), chunk=SCAN_CHUNK)
-    return kern, plain
+        st = s0.clone()
+        rwkv6_scan.wkv6(*ins[:5], st, chunk_states=cs)
+        return {
+            "kern": lambda: rwkv6_scan.wkv6_backward(
+                *ins, dy, dst, chunk_states=cs),
+            "plain": lambda dt=torch.float32: ref.wkv6_chunked_backward(
+                *(t.to(dt) for t in ins + (dy, dst)), chunk=SCAN_CHUNK),
+            "pass1": lambda: rwkv6_scan.wkv6_backward_dstates(
+                r, logw, dy, dst),
+            "pass1_plain": lambda: ref.wkv6_chunk_dstates(
+                r, logw, dy, dst, SCAN_CHUNK),
+            "pass2": lambda ds: rwkv6_scan.wkv6_backward_chunks(
+                r, k, v, logw, u, cs, ds, dy),
+            "fwd_train": lambda: rwkv6_scan.wkv6(*ins[:5], st,
+                                                 chunk_states=cs),
+            "fwd_serve": lambda: rwkv6_scan.wkv6(*ins[:5], st)}
+    x, Bm, Cm, da, h0 = ssd_inputs(torch, g, dtype="float32", **case)
+    if strong:
+        da = -8.0 * torch.rand(da.shape, device="cuda", generator=g)
+    ins = (x, Bm, Cm, da, h0)
+    dy, dst = torch.randn_like(x), torch.randn_like(h0)
+    B, S, H, P = x.shape
+    cs = torch.empty((B, H, ssd.n_chunks(S), P, Bm.shape[-1]),
+                     device="cuda")
+    st = h0.clone()
+    ssd.ssd_scan(*ins[:4], st, chunk_states=cs)
+    return {
+        "kern": lambda: ssd.ssd_backward(*ins, dy, dst, chunk_states=cs),
+        "plain": lambda dt=torch.float32: ref.ssd_chunked_backward(
+            *(t.to(dt) for t in ins + (dy, dst)), chunk=SCAN_CHUNK),
+        "pass1": lambda: ssd.ssd_backward_dstates(Cm, da, dy, dst),
+        "pass1_plain": lambda: ref.ssd_chunk_dstates(Cm, da, dy, dst,
+                                                     SCAN_CHUNK),
+        "pass2": lambda ds: ssd.ssd_backward_chunks(x, Bm, Cm, da, cs, ds,
+                                                    dy),
+        "fwd_train": lambda: ssd.ssd_scan(*ins[:4], st, chunk_states=cs),
+        "fwd_serve": lambda: ssd.ssd_scan(*ins[:4], st)}
+
+
+def scan_bwd_passes(torch, kind, case):
+    """Each pass's registers, shared memory, CTAs per SM, resident warps
+    per SM, grid and waves on the card at ``case``; spills from the build
+    log when this process built the library."""
+    from repro_torch.kernels import build as kbuild
+    from repro_torch.kernels import rwkv6_scan, ssd
+    mod = rwkv6_scan if kind == "wkv6" else ssd
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    rows = case["N"] if kind == "wkv6" else case["P"]
+    grids = {1: case["B"] * case["H"] * -(-rows // 16),
+             2: case["B"] * case["H"] * -(-case["S"] // SCAN_CHUNK)}
+    usage = ptxas_usage(str(kbuild.BUILD_INFO.get(f"{kind}_bwd", {})
+                            .get("log", "")))
+    out = {}
+    for which, name in ((1, f"{kind}_bwd_dstate"), (2, f"{kind}_bwd")):
+        a = mod.bwd_attrs(which)
+        check(a["ctas_per_sm"] > 0, f"{name}: no CTA fits on an SM ({a})")
+        spill = next((u for fn, u in usage.items()
+                      if f"{name}_kernel" in fn), {})
+        a.update(grid=grids[which],
+                 warps_per_sm=a["ctas_per_sm"] * a["threads"] // 32,
+                 waves=grids[which] / (a["ctas_per_sm"] * sms),
+                 spill_stores=spill.get("spill_stores"),
+                 spill_loads=spill.get("spill_loads"))
+        out[name] = a
+        log(f"phase 24: {name}: {a['registers']} registers, "
+            f"{a['smem_bytes'] / 1024:.1f} KiB shared memory a CTA, "
+            f"{a['ctas_per_sm']} CTAs ({a['warps_per_sm']} warps) an SM; "
+            f"grid {a['grid']} at {case}: {a['waves']:.2f} waves; spills "
+            f"{a['spill_stores']} / {a['spill_loads']} bytes")
+    return out
 
 
 def check_scan_bwd(torch, kind):
     """B3's or B4's backward against its plain version on the card at the
     training microbatch, a ragged S and strong decays (SCAN_BWD_RTOL, or
-    SCAN_BWD_F32_FACTOR against float64 where fp32 is ill-conditioned);
-    then timed at the training shape beside the plain version and the
-    bound."""
+    SCAN_BWD_F32_FACTOR against float64 where fp32 is ill-conditioned),
+    pass 1's state gradients against its plain version, two calls on the
+    same inputs bitwise equal; then timed at the training shape beside the
+    plain version and the bound, each pass alone, and the forward kernel's
+    training and serving instantiations at the same shape."""
     g = torch.Generator(device="cuda").manual_seed(
         24 if kind == "wkv6" else 25)
     names = (("r", "k", "v", "logw", "u", "state0") if kind == "wkv6" else
              ("x", "B", "C", "da", "h0"))
     full, ragged = ((WKV_TRAIN, WKV_BWD_RAGGED) if kind == "wkv6" else
                     (SSD_TRAIN, SSD_BWD_RAGGED))
-    errs, strong_errs = {}, {}
+    errs, strong_errs, pass1_errs = {}, {}, {}
     for label, case, strong in (("training shape", full, False),
                                 ("ragged S", ragged, False),
                                 ("strong decay", ragged, True)):
-        kern, plain = _bwd_case(torch, g, kind, case, strong)
-        got, want = kern(), plain()
+        fns = _bwd_case(torch, g, kind, case, strong)
+        got, want = fns["kern"](), fns["plain"]()
+        again = fns["kern"]()
         torch.cuda.synchronize()
         check(all(bool(torch.isfinite(t).all()) for t in got),
               f"{kind}_bwd {label} {case}: non-finite gradients")
+        check(all(torch.equal(a, b) for a, b in zip(got, again)),
+              f"{kind}_bwd {label} {case}: two calls on the same inputs "
+              f"differ")
         e = {n: _rel(a, b) for n, a, b in zip(names, got, want)}
         if not strong:
             check(max(e.values()) <= SCAN_BWD_RTOL,
                   f"{kind}_bwd {label} {case}: errors {e} > "
                   f"{SCAN_BWD_RTOL}")
             errs[label] = e
+            p_got, p_want = fns["pass1"](), fns["pass1_plain"]()
+            e1 = {n: _rel(a, b) for n, a, b in zip(
+                ("dstates", "dstate0"), p_got, p_want)}
+            check(max(e1.values()) <= SCAN_BWD_RTOL,
+                  f"{kind}_bwd_dstate {label} {case}: errors {e1} > "
+                  f"{SCAN_BWD_RTOL}")
+            pass1_errs[label] = e1
+            log(f"phase 24: {kind}_bwd_dstate {label} {case}: max |err| / "
+                f"max |plain| " + ", ".join(f"{n} {x:.3g}"
+                                            for n, x in e1.items()))
+            del p_got, p_want
         else:
-            exact = plain(torch.float64)
+            exact = fns["plain"](torch.float64)
             ek = {n: _rel(a, b) for n, a, b in zip(names, got, exact)}
             ep = {n: _rel(a, b) for n, a, b in zip(names, want, exact)}
             bad = {n: (ek[n], ep[n]) for n in names if ek[n] > max(
@@ -4157,24 +4256,56 @@ def check_scan_bwd(torch, kind):
                            "plain_vs_f64": ep}
         log(f"phase 24: {kind}_bwd {label} {case}: max |err| / max |plain| "
             + ", ".join(f"{n} {x:.3g}" for n, x in e.items())
+            + "; two calls bitwise equal"
             + ("" if not strong else "; against float64: kernel "
                + ", ".join(f"{n} {x:.3g}" for n, x in ek.items())
                + "; fp32 plain "
                + ", ".join(f"{n} {x:.3g}" for n, x in ep.items())))
-        del kern, plain, got, want
+        del fns, got, again, want
         torch.cuda.empty_cache()
-    kern, plain = _bwd_case(torch, g, kind, full, False)
-    times = _time_pair(torch, kern, plain)
+    fns = _bwd_case(torch, g, kind, full, False)
+    times = _time_pair(torch, fns["kern"], fns["plain"])
+    ds, _ = fns["pass1"]()
+    p1 = [event_time_ms(torch, fns["pass1"]) for _ in range(2)]
+    p2 = [event_time_ms(torch, lambda: fns["pass2"](ds)) for _ in range(2)]
+    p1_plain = event_time_ms(torch, fns["pass1_plain"], 3)
+    fwd = {k: min(event_time_ms(torch, fns[k]) for _ in range(2))
+           for k in ("fwd_train", "fwd_serve")}
+    del ds
+    fb = (wkv_bound(dtype="float32", **full) if kind == "wkv6" else
+          ssd_bound(dtype="float32", **full))
+    rows = full["N"] if kind == "wkv6" else full["P"]
+    # the training instantiation also writes the chunk-start states
+    fwd_bound = _bound(fb["bytes"] + 4 * full["B"] * full["H"] * -(
+        -full["S"] // SCAN_CHUNK) * rows * full["N"], fb["flops"], "float32")
+    b1 = scan_dstate_bound(kind, **full)
     o = dict(scan_bwd_bound(kind, **full), **times, shape=full,
              max_abs_err=max(max(e.values()) for e in errs.values()),
-             errors=errs, strong=strong_errs, library_ms=None)
+             errors=errs, strong=strong_errs, library_ms=None, bitwise=True,
+             pass1_ms=min(p1), pass1_ms_runs=p1, pass2_ms=min(p2),
+             pass2_ms_runs=p2, pass1_plain_ms=p1_plain,
+             pass1_bound_ms=b1["bound_ms"], pass1_bound_by=b1["bound_by"],
+             pass1_errors=pass1_errs,
+             pass1_max_abs_err=max(max(e.values())
+                                   for e in pass1_errs.values()),
+             passes=scan_bwd_passes(torch, kind, full),
+             fwd_train_ms=fwd["fwd_train"], fwd_serve_ms=fwd["fwd_serve"],
+             fwd_train_bound_ms=fwd_bound["bound_ms"],
+             fwd_train_bound_by=fwd_bound["bound_by"])
     log(f"phase 24: {kind}_bwd at the training shape {full}: kernel "
-        f"{o['ms']:.4f} ms (runs {o['ms_runs'][0]:.4f}/{o['ms_runs'][1]:.4f})"
-        f", plain {o['plain_ms']:.4f} ms, bound {o['bound_ms']:.4f} ms "
-        f"({o['bound_by']}: {o['flops'] / 1e9:.2f} GFLOP at C = "
-        f"{BOUND_CHUNK}, {o['bytes'] / 1e6:.1f} MB), on the tensor cores "
-        f"{o['tc_bound_ms']:.4f} ms; no library call computes it")
-    del kern, plain
+        f"{o['ms']:.4f} ms a call (runs {o['ms_runs'][0]:.4f}/"
+        f"{o['ms_runs'][1]:.4f}; pass 1 {o['pass1_ms']:.4f}, pass 2 "
+        f"{o['pass2_ms']:.4f} alone), plain {o['plain_ms']:.4f} ms, bound "
+        f"{o['bound_ms']:.4f} ms ({o['bound_by']}: {o['flops'] / 1e9:.2f} "
+        f"GFLOP at C = {BOUND_CHUNK}, {o['bytes'] / 1e6:.1f} MB), on the "
+        f"tensor cores {o['tc_bound_ms']:.4f} ms; no library call computes "
+        f"it.  Pass 1: plain {p1_plain:.4f} ms, bound {b1['bound_ms']:.4f} "
+        f"ms ({b1['bound_by']})")
+    log(f"phase 24: {kind} forward at the training shape {full}: training "
+        f"instantiation (chunk states written) {fwd['fwd_train']:.4f} ms, "
+        f"bound {fwd_bound['bound_ms']:.4f} ms ({fwd_bound['bound_by']}); "
+        f"serving instantiation {fwd['fwd_serve']:.4f} ms")
+    del fns
     torch.cuda.empty_cache()
     return o
 
@@ -4201,14 +4332,16 @@ def run_recurrent_training(torch, kernels):
         if cfg.family == "ssm":
             # per step: each layer's WKV6 forward per microbatch twice
             # (once more in the checkpointed recompute), its backward once
-            want = {"wkv6": 2 * 2 * mb * L, "wkv6_bwd": 2 * mb * L}
+            want = {"wkv6": 2 * 2 * mb * L, "wkv6_bwd_dstate": 2 * mb * L,
+                    "wkv6_bwd": 2 * mb * L}
         else:
             # per step: each mamba2 layer's SSD forward per microbatch
             # twice (remat) and its backward once; the shared block, not
             # under remat, a flash forward and backward per application
             apps = L // cfg.attn_every
             check(apps * cfg.attn_every == L, f"{arch}: {L} layers")
-            want = {"ssd": 2 * 2 * mb * L, "ssd_bwd": 2 * mb * L,
+            want = {"ssd": 2 * 2 * mb * L, "ssd_bwd_dstate": 2 * mb * L,
+                    "ssd_bwd": 2 * mb * L,
                     "flash_attention": 2 * mb * apps,
                     "flash_attention_bwd": 2 * mb * apps}
         argv = ["--arch", arch, "--steps", "2", "--ckpt-dir", str(ckdir),
@@ -4222,6 +4355,7 @@ def run_recurrent_training(torch, kernels):
         counts = kernels.launch_counts()
         peak = torch.cuda.max_memory_allocated()
         n_params = sum(t.numel() for t in _leaves(res.state["params"]))
+        prof = profile_recurrent_step(torch, cfg, res.state, shape, arch)
         res.state = None
         rows, secs = res.metrics, res.step_seconds
         check(res.end_step == 2 and len(rows) == 2
@@ -4243,7 +4377,8 @@ def run_recurrent_training(torch, kernels):
                      "launches_per_step": {k: v // 2 for k, v in
                                            counts.items()},
                      "peak_mem_bytes": peak,
-                     "tokens_per_s": RECURRENT_TRAIN_BATCH * 4096 / secs[1]}
+                     "tokens_per_s": RECURRENT_TRAIN_BATCH * 4096 / secs[1],
+                     "profile": prof}
         log(f"phase 24: {arch} trained through launch/train.py at published "
             f"widths ({L} of {get_config(arch).n_layers} layers, {n_params} "
             f"params, batch {RECURRENT_TRAIN_BATCH} x 4096, microbatch {mb}, "
@@ -4254,6 +4389,67 @@ def run_recurrent_training(torch, kernels):
             f"{[r['grad_norm'] for r in rows]}; launches a step "
             f"{out[arch]['launches_per_step']}; peak {peak / 2**30:.2f} GiB")
         torch.cuda.empty_cache()
+    return out
+
+
+#: phase 24's profiled step: each kernel class by substrings of its name
+STEP_CLASSES = (("scan forward", ("wkv6_kernel", "ssd_kernel")),
+                ("scan backward", ("wkv6_bwd", "ssd_bwd")),
+                ("B2 forward", ("flash_fwd",)),
+                ("B2 backward", ("flash_bwd",)),
+                ("GEMM", ("gemm", "nvjet", "cutlass", "xmma")))
+
+
+def profile_recurrent_step(torch, cfg, state, shape, arch):
+    """Step 3 of a recurrent arch (after train.run's two) under
+    torch.profiler: its host seconds (synchronised), the device time of
+    each STEP_CLASSES class and the rest, and the busy share."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.core import steps as steps_mod
+    from repro_torch.data.pipeline import TokenPipeline
+    fns = steps_mod.make_single_pod_step(cfg, TrainConfig(total_steps=3),
+                                         device="cuda")
+    batch = TokenPipeline(cfg, shape, seed=0).batch(2)
+    torch.cuda.synchronize()
+    # the card's activity only: the kernels' names and device time are all
+    # the split needs
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        state, m = fns.train_step(state, batch)
+        torch.cuda.synchronize()
+        step_s = time.perf_counter() - t0
+    check(math.isfinite(float(m["loss"])), f"{arch}: profiled step 3 loss "
+          f"{float(m['loss'])}")
+    per_kernel = {}
+    for e in prof.key_averages():
+        if getattr(e, "device_type", None) == DeviceType.CUDA:
+            per_kernel[e.key] = per_kernel.get(e.key, 0.0) + \
+                e.self_device_time_total / 1e3
+    dev_ms = sum(per_kernel.values())
+    # the profile's records go now, not during a later timed step
+    del prof
+    gc.collect()
+    out = {"step_s": step_s, "device_ms": dev_ms}
+    if dev_ms == 0:
+        log(f"phase 24: {arch}: the profiler saw no kernel time: shares not "
+            f"measured")
+        return out
+    shares = dict.fromkeys([c for c, _ in STEP_CLASSES] + ["rest"], 0.0)
+    for k, t in per_kernel.items():
+        name = next((c for c, subs in STEP_CLASSES
+                     if any(x in k.lower() for x in subs)), "rest")
+        shares[name] += t
+    out.update({"busy_share": dev_ms / (1e3 * step_s), "class_ms": shares,
+                "top_kernels_ms": {k[:100]: t for k, t in sorted(
+                    per_kernel.items(), key=lambda kv: -kv[1])[:8]}})
+    log(f"phase 24: {arch} step 3 profiled: {step_s:.3f} s, kernels "
+        f"{dev_ms:.1f} ms (busy {100 * out['busy_share']:.1f}%): "
+        + ", ".join(f"{c} {t:.1f} ms ({100 * t / dev_ms:.1f}%)"
+                    for c, t in shares.items()))
+    for k, t in out["top_kernels_ms"].items():
+        log(f"  {t:10.2f} ms  {k}")
     return out
 
 
@@ -4289,8 +4485,10 @@ def recurrent_training_card_vs_cpu(torch, kernels, lm, convert):
             if dev == "cuda":
                 launches = {k: n for k, n in kernels.launch_counts().items()
                             if n}
-        scans = (("wkv6", "wkv6_bwd") if cfg.family == "ssm" else
-                 ("ssd", "ssd_bwd", "flash_attention", "flash_attention_bwd"))
+        scans = (("wkv6", "wkv6_bwd_dstate", "wkv6_bwd")
+                 if cfg.family == "ssm" else
+                 ("ssd", "ssd_bwd_dstate", "ssd_bwd", "flash_attention",
+                  "flash_attention_bwd"))
         check(all(launches.get(k, 0) > 0 for k in scans),
               f"{arch} smoke: the card run launched {launches}")
         dl = abs(res["cuda"][0] - res["cpu"][0]) / abs(res["cpu"][0])
@@ -4319,6 +4517,7 @@ def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="also write every number as JSON here")
     args = ap.parse_args()
+    t_start = time.perf_counter()
 
     import torch
     if not torch.cuda.is_available():
@@ -4462,11 +4661,16 @@ def main() -> None:
     hubert_attn = time_hubert_attention(torch, fa, ref)
     torch.cuda.empty_cache()
     # phase 24: the recurrent families trained, counts from 0 per arch
+    t24 = time.perf_counter()
     recurrent_train = run_recurrent_training(torch, kernels)
     recurrent_train_agree = recurrent_training_card_vs_cpu(
         torch, kernels, lm, convert)
     scan_bwd = {kind: check_scan_bwd(torch, kind) for kind in ("wkv6",
                                                                 "ssd")}
+    seconds = {"phase_24": time.perf_counter() - t24,
+               "script": time.perf_counter() - t_start}
+    log(f"phase 24 took {seconds['phase_24']:.1f} s; the script so far "
+        f"{seconds['script']:.1f} s")
 
     src = "src/repro_torch/kernels/csrc/polyline_codec.cu"
     # the main path's lossy step: B1a and B1b fused, per stacked uplink
@@ -4602,27 +4806,43 @@ def main() -> None:
             "bf16_bound_ms": t16["bound_ms"],
             "bf16_max_abs_err": t16["max_abs_err"],
             "train_launches_per_step":
-                recurrent_train[arch]["launches_per_step"][name]})
+                recurrent_train[arch]["launches_per_step"][name],
+            "train_ms": scan_bwd[name]["fwd_train_ms"],
+            "train_bound_ms": scan_bwd[name]["fwd_train_bound_ms"],
+            "train_serving_kernel_ms": scan_bwd[name]["fwd_serve_ms"]})
     # the scans' backward: no Pallas version, the reference differentiates
-    # its jnp chunk scans; times at the training microbatch
-    for name, src, line, arch in (
-            ("wkv6_bwd", "wkv6_bwd.cu", "models/rwkv6.py:119", "rwkv6-3b"),
-            ("ssd_bwd", "ssd_bwd.cu", "models/mamba2.py:78", "zamba2-2.7b")):
-        t = scan_bwd[name[:-4]]
-        report.append({
-            "name": name, "route": "cuda",
-            "source": f"src/repro_torch/kernels/csrc/{src}",
+    # its jnp chunk scans; times at the training microbatch.  *_bwd is the
+    # whole call (both passes and the wrapper's sums; pass 2 alone beside
+    # it), *_bwd_dstate pass 1 alone
+    for kind, src, line, arch in (
+            ("wkv6", "wkv6_bwd.cu", "models/rwkv6.py:119", "rwkv6-3b"),
+            ("ssd", "ssd_bwd.cu", "models/mamba2.py:78", "zamba2-2.7b")):
+        t = scan_bwd[kind]
+        common = {
+            "route": "cuda", "source": f"src/repro_torch/kernels/csrc/{src}",
             "replaces": f"src/repro/{line}",
             "replaces_note": "no Pallas backward: the reference trains "
                              "through jax autodiff of its jnp chunk scan",
-            "launches": recurrent_train[arch]["launches"][name],
-            "max_abs_err": t["max_abs_err"], "ms": t["ms"],
-            "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
-            "bound_by": t["bound_by"], "library_ms": None,
-            "tc_bound_ms": t["tc_bound_ms"],
-            "launches_per_step":
-                recurrent_train[arch]["launches_per_step"][name],
-            "strong_decay_errors": t["strong"]})
+            "library_ms": None}
+        for name, extra in (
+                (f"{kind}_bwd", {
+                    "max_abs_err": t["max_abs_err"], "ms": t["ms"],
+                    "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+                    "bound_by": t["bound_by"],
+                    "tc_bound_ms": t["tc_bound_ms"],
+                    "pass2_ms": t["pass2_ms"], "bitwise": t["bitwise"],
+                    "strong_decay_errors": t["strong"]}),
+                (f"{kind}_bwd_dstate", {
+                    "max_abs_err": t["pass1_max_abs_err"],
+                    "ms": t["pass1_ms"], "plain_ms": t["pass1_plain_ms"],
+                    "bound_ms": t["pass1_bound_ms"],
+                    "bound_by": t["pass1_bound_by"]})):
+            report.append(dict(
+                common, name=name,
+                launches=recurrent_train[arch]["launches"][name],
+                launches_per_step=recurrent_train[arch][
+                    "launches_per_step"][name],
+                **t["passes"][name], **extra))
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps({
@@ -4646,7 +4866,7 @@ def main() -> None:
             "hubert_attention": hubert_attn,
             "recurrent_training": recurrent_train,
             "recurrent_training_card_vs_cpu": recurrent_train_agree,
-            "scan_bwd": scan_bwd}, indent=2))
+            "scan_bwd": scan_bwd, "seconds": seconds}, indent=2))
     print(json.dumps({"kernels": report}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -22,6 +22,7 @@
     ``csrc/ssd.cu``); zamba2's mamba2 layers ride it (models/mamba2.py).
     Its gradient is ``ssd.SSDScan`` (backward ``csrc/ssd_bwd.cu``).
     Neither scan function is re-exported here: ``ssd`` names the module.
+    Both backwards check their operands through ``build``.
   * :mod:`ref` — the plain PyTorch versions each kernel is held against.
 
 Kernels are compiled at first launch (kernels/build.py), never at import.

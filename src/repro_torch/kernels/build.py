@@ -13,7 +13,10 @@ sources in parallel, one ``nvcc`` process each, all started together.
 :class:`Library` is what a kernel wrapper holds: the library's C
 functions bound at first call, the check of the CUDA error code each
 returns, and the launch count of each kernel, which
-:func:`launch_counts` gathers over every library.
+:func:`launch_counts` gathers over every library.  :func:`bwd_operands`
+and :func:`check_states` are the operand checks that the two chunk
+scans' backward wrappers (kernels/rwkv6_scan.py, kernels/ssd.py) share
+before they launch.
 """
 from __future__ import annotations
 
@@ -26,6 +29,8 @@ import threading
 import time
 from pathlib import Path
 from typing import Dict, List, Sequence
+
+import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
@@ -177,3 +182,28 @@ def reset_launch_counts() -> None:
     for counts in _COUNTS:
         for k in counts:
             counts[k] = 0
+
+
+def bwd_operands(name: str, ts, dims: Dict[str, int], limit: int):
+    """``ts`` made contiguous for the backward kernels; raises unless every
+    one is float32 and every size in ``dims`` ({what: size}) is at most
+    ``limit``."""
+    if any(t.dtype != torch.float32 for t in ts):
+        raise ValueError(f"{name}: the backward kernels are fp32 only "
+                         f"(training is fp32), got "
+                         f"{[str(t.dtype) for t in ts]}")
+    if max(dims.values()) > limit:
+        raise ValueError(f"{name} supports {' and '.join(dims)} <= {limit}, "
+                         f"got {' and '.join(map(str, dims.values()))}")
+    return [t.contiguous() for t in ts]
+
+
+def check_states(name: str, states, want, device, what: str) -> None:
+    """Raises unless ``states`` is a float32 tensor of shape ``want`` on
+    ``device``; ``what`` names the tensor the card reads there."""
+    if states is None or tuple(states.shape) != want or \
+            states.dtype != torch.float32 or states.device != device:
+        got = None if states is None else (states.dtype,
+                                             tuple(states.shape))
+        raise ValueError(f"{name} on the card reads {what}: pass the float32 "
+                         f"{want} tensor, got {got}")

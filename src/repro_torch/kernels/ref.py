@@ -368,6 +368,12 @@ def ssd_chunked(x: torch.Tensor, Bm: torch.Tensor, Cm: torch.Tensor,
 
 
 # --- the chunk scans' backward ------------------------------------------------
+#
+# In two passes, as the backward kernels run them (csrc/wkv6_bwd.cu,
+# csrc/ssd_bwd.cu): pass 1 scans the chunks in reverse carrying only the
+# gradient of the state, and writes it after each chunk; pass 2 takes every
+# chunk on its own, from its start state (the forward's) and that gradient.
+# The *_chunked_backward functions are their composition.
 
 def _wide(a: torch.Tensor) -> torch.Tensor:
     """f32, or f64 for an f64 input (a float64 oracle of the same
@@ -375,24 +381,136 @@ def _wide(a: torch.Tensor) -> torch.Tensor:
     return a if a.dtype == torch.float64 else a.float()
 
 
-def _chunks(a: torch.Tensor, C: int, nc: int) -> torch.Tensor:
-    """(B, S, ...) zero-padded to nc C tokens -> (nc, B, C, ...) in
-    :func:`_wide`'s type."""
+def _split(a: torch.Tensor, C: int, nc: int, heads: bool = True
+           ) -> torch.Tensor:
+    """(B, S, H, ...) zero-padded to nc C tokens -> (B, H, nc, C, ...), or
+    with ``heads=False`` (B, S, N) -> (B, nc, C, N), in :func:`_wide`'s
+    type."""
     B, S = a.shape[:2]
     if nc * C != S:
         a = F.pad(a, (0,) * (2 * (a.dim() - 2)) + (0, nc * C - S))
-    return _wide(a.reshape(B, nc, C, *a.shape[2:]).transpose(0, 1))
+    a = a.reshape(B, nc, C, *a.shape[2:])
+    return _wide(a.movedim(3, 1) if heads else a)
 
 
-def _unchunk(a: torch.Tensor, S: int) -> torch.Tensor:
-    """(nc, B, C, ...) -> (B, S, ...), the padding dropped."""
-    nc, B, C = a.shape[:3]
-    return a.transpose(0, 1).reshape(B, nc * C, *a.shape[3:])[:, :S]
+def _merge(a: torch.Tensor, S: int) -> torch.Tensor:
+    """(B, H, nc, C, ...) -> (B, S, H, ...), the padding dropped."""
+    B, H, nc, C = a.shape[:4]
+    return a.movedim(1, 3).reshape(B, nc * C, H, *a.shape[4:])[:, :S]
 
 
 def _rev_cumsum(a: torch.Tensor, dim: int) -> torch.Tensor:
     """sum over the positions at or after each one, along ``dim``."""
     return a.flip(dim).cumsum(dim).flip(dim)
+
+
+def _scan_states(dec: torch.Tensor, inc: torch.Tensor, s: torch.Tensor,
+                 reverse: bool) -> Tuple[torch.Tensor, torch.Tensor]:
+    """s <- dec[c] s + inc[c] over the chunks (axis 2 of inc, (B, H, nc,
+    X, Y); dec broadcasts against it), in order or in reverse: (the value
+    before each chunk's step, stacked on axis 2; the last value)."""
+    nc = inc.shape[2]
+    out = [None] * nc
+    for c in (reversed(range(nc)) if reverse else range(nc)):
+        out[c] = s
+        s = dec[:, :, c] * s + inc[:, :, c]
+    return torch.stack(out, 2), s
+
+
+def _dims(S: int, chunk: int) -> Tuple[int, int]:
+    C = min(chunk, S)
+    return C, -(-S // C)
+
+
+def wkv6_chunk_states(k: torch.Tensor, v: torch.Tensor, logw: torch.Tensor,
+                      state0: torch.Tensor, chunk: int = 32) -> torch.Tensor:
+    """The state at the start of each chunk of :func:`wkv6_chunked` (what
+    csrc/wkv6.cu writes when asked): (B, H, nc, N, N), f32 (f64 for f64
+    inputs)."""
+    C, nc = _dims(k.shape[1], chunk)
+    k_, v_, lw = (_split(a, C, nc) for a in (k, v, logw))    # (B,H,nc,C,N)
+    cum = lw.cumsum(3)
+    last = cum[:, :, :, -1:]
+    inc = torch.einsum("bhcsi,bhcsj->bhcij", k_ * torch.exp(last - cum), v_)
+    return _scan_states(torch.exp(last[:, :, :, 0])[..., None], inc,
+                        _wide(state0), reverse=False)[0]
+
+
+def wkv6_chunk_dstates(r: torch.Tensor, logw: torch.Tensor, dy: torch.Tensor,
+                       dstate: Optional[torch.Tensor] = None,
+                       chunk: int = 32):
+    """Pass 1 of :func:`wkv6_chunked_backward` (csrc/wkv6_bwd.cu
+    ``wkv6_bwd_dstate``): in reverse over the chunks, dS <- e^{cum_C} dS +
+    rd^T dy with rd = r e^{cum_prev}, from ``dstate`` (None = 0).
+    r/logw/dy: (B, S, H, N).  Returns (dstates (B, H, nc, N, N), the
+    gradient of the state after each chunk, whose last entry is
+    ``dstate``; dstate0 (B, H, N, N), the gradient of the state at the
+    start), f32 (f64 for f64 inputs)."""
+    B, S, H, N = r.shape
+    C, nc = _dims(S, chunk)
+    r_, lw, g = (_split(a, C, nc) for a in (r, logw, dy))
+    cum = lw.cumsum(3)
+    inc = torch.einsum("bhcti,bhctj->bhcij", r_ * torch.exp(cum - lw), g)
+    ds = (torch.zeros((B, H, N, N), dtype=inc.dtype, device=r.device)
+          if dstate is None else _wide(dstate))
+    return _scan_states(torch.exp(cum[:, :, :, -1])[..., None], inc, ds,
+                        reverse=True)
+
+
+def wkv6_chunk_grads(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     logw: torch.Tensor, u: torch.Tensor,
+                     states: torch.Tensor, dstates: torch.Tensor,
+                     dy: torch.Tensor, chunk: int = 32):
+    """Pass 2 of :func:`wkv6_chunked_backward` (csrc/wkv6_bwd.cu
+    ``wkv6_bwd``): every chunk on its own, from its start state S
+    (``states``, the forward's) and the gradient dS of the state after it
+    (``dstates``, pass 1's), both (B, H, nc, N, N).  With cum = inclusive
+    cumsum of logw down the chunk, cum_prev = cum - logw, rd = r
+    e^{cum_prev}, kd = k e^{cum_C - cum} and A the intra-chunk attention
+    (strictly lower pairwise decayed products, the bonus u on the
+    diagonal):
+
+        dA = dy v^T,  dv = A^T dy + kd dS,  d(rd) = dy S^T,  d(kd) = v dS^T
+
+    and the pairwise terms of A, whose decays stay pairwise in log space
+    (every exponent <= 0), as the forward's do.  The gradients of cum and
+    cum_prev become dlogw by reverse cumulative sums down the chunk.
+    Returns (dr, dk, dv, dlogw (B, S, H, N), du (B, H, nc, N): each
+    chunk's part), f32 (f64 for f64 inputs)."""
+    B, S, H, N = r.shape
+    C, nc = _dims(S, chunk)
+    rc, kc, vc, lw, g = (_split(a, C, nc) for a in (r, k, v, logw, dy))
+    S0, ds = _wide(states), _wide(dstates)                  # (B,H,nc,N,N)
+    uu = _wide(u)[None, :, None, None, :]                    # (1,H,1,1,N)
+    strict = torch.tril(torch.ones((C, C), dtype=torch.bool,
+                                   device=r.device), diagonal=-1)
+    cum = lw.cumsum(3)
+    cp = cum - lw
+    last = cum[:, :, :, -1:]                                 # (B,H,nc,1,N)
+    rd, kd = rc * torch.exp(cp), kc * torch.exp(last - cum)
+    diff = cp[..., :, None, :] - cum[..., None, :, :]        # (..,t,s,N)
+    E = torch.exp(torch.where(strict[..., None], diff, -math.inf))
+    A = torch.einsum("bhcti,bhcsi,bhctsi->bhcts", rc, kc, E)
+    A = A + torch.diag_embed(torch.einsum("bhcti,bhcti->bhct", rc, kc * uu))
+    dA = torch.einsum("bhctj,bhcsj->bhcts", g, vc)
+    dd = dA.diagonal(dim1=-2, dim2=-1)                       # (B,H,nc,C)
+    dA = torch.where(strict, dA, 0.0)
+    dv = (torch.einsum("bhcts,bhctj->bhcsj", A, g)
+          + torch.einsum("bhcsi,bhcij->bhcsj", kd, ds))
+    drd = torch.einsum("bhctj,bhcij->bhcti", g, S0)
+    dkd = torch.einsum("bhcsj,bhcij->bhcsi", vc, ds)
+    dlast = torch.exp(last[:, :, :, 0]) * (ds * S0).sum(-1)  # (B,H,nc,N)
+    dr2 = torch.einsum("bhcts,bhcsi,bhctsi->bhcti", dA, kc, E)
+    dk2 = torch.einsum("bhcts,bhcti,bhctsi->bhcsi", dA, rc, E)
+    dr = drd * torch.exp(cp) + dr2 + dd[..., None] * uu * kc
+    dk = dkd * torch.exp(last - cum) + dk2 + dd[..., None] * uu * rc
+    du = torch.einsum("bhct,bhcti->bhci", dd, rc * kc)
+    dcp = drd * rd + rc * dr2
+    dcum = -dkd * kd - kc * dk2
+    dcum[:, :, :, -1] += dlast + (dkd * kd).sum(3)
+    # cum_t sums logw up to t, cum_prev_t before t
+    dlw = _rev_cumsum(dcum, 3) + _rev_cumsum(dcp, 3) - dcp
+    return (*(_merge(a, S) for a in (dr, dk, dv, dlw)), du)
 
 
 def wkv6_chunked_backward(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -401,145 +519,122 @@ def wkv6_chunked_backward(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           dstate: Optional[torch.Tensor] = None,
                           chunk: int = 32):
     """The gradient of :func:`wkv6_chunked` in the arithmetic of the
-    backward kernel (csrc/wkv6_bwd.cu): the chunk-start states from a
-    forward pass, then a reverse scan over the chunks carrying dS, the
-    gradient of the state after the chunk.  Per chunk, with rd = r
-    e^{cum_prev}, kd = k e^{cum_C - cum} and A the intra-chunk attention
-    (strictly lower, bonus on the diagonal):
-
-        dA = dy v^T,  dv = A^T dy + kd dS,  d(rd) = dy S^T,  d(kd) = v dS^T
-        dS <- e^{cum_C} dS + rd^T dy
-
-    and the pairwise terms of A, whose decays stay pairwise in log space
-    (every exponent <= 0), as the forward's do.  The gradients of cum and
-    cum_prev become dlogw by reverse cumulative sums down the chunk.
+    backward kernels (csrc/wkv6_bwd.cu): the chunk-start states from a
+    forward pass (:func:`wkv6_chunk_states`), the gradient of the state
+    after each chunk (:func:`wkv6_chunk_dstates`, pass 1), then every
+    chunk's gradients (:func:`wkv6_chunk_grads`, pass 2).
 
     r/k/v/logw, dy: (B, S, H, N); u: (H, N); state0, dstate (None = 0):
     (B, H, N, N).  Returns (dr, dk, dv, dlogw (B, S, H, N), du (H, N),
-    summed over the batch, dstate0 (B, H, N, N)), all f32 (f64 for f64
+    summed over the batch and the chunks, dstate0 (B, H, N, N)), all f32
+    (f64 for f64 inputs)."""
+    states = wkv6_chunk_states(k, v, logw, state0, chunk)
+    dstates, ds0 = wkv6_chunk_dstates(r, logw, dy, dstate, chunk)
+    dr, dk, dv, dlw, du = wkv6_chunk_grads(r, k, v, logw, u, states, dstates,
+                                           dy, chunk)
+    return dr, dk, dv, dlw, du.sum((0, 2)), ds0
+
+
+def ssd_chunk_states(x: torch.Tensor, Bm: torch.Tensor, da: torch.Tensor,
+                     h0: torch.Tensor, chunk: int = 32) -> torch.Tensor:
+    """The state at the start of each chunk of :func:`ssd_chunked` (what
+    csrc/ssd.cu writes when asked): (B, H, nc, P, N), f32 (f64 for f64
     inputs)."""
-    B, S, H, N = r.shape
-    C = min(chunk, S)
-    nc = -(-S // C)
-    per = lambda a: _chunks(a, C, nc).transpose(2, 3)   # (nc,B,H,C,N) # noqa
-    r_, k_, v_, lw_, g_ = (per(a) for a in (r, k, v, logw, dy))
-    uu = _wide(u)[None, :, None, :]                        # (1,H,1,N)
-    strict = torch.tril(torch.ones((C, C), dtype=torch.bool,
-                                   device=r.device), diagonal=-1)
-    # the forward's chunk-start states (the kernel reads the forward's)
-    states = []
-    s = _wide(state0)
-    for c in range(nc):
-        states.append(s)
-        cum = torch.cumsum(lw_[c], dim=2)
-        last = cum[:, :, -1:]
-        s = torch.exp(last[:, :, 0])[..., None] * s + torch.einsum(
-            "bhsi,bhsj->bhij", k_[c] * torch.exp(last - cum), v_[c])
-    ds = torch.zeros_like(s) if dstate is None else _wide(dstate).clone()
-    dr, dk, dv, dlw = (torch.empty_like(r_) for _ in range(4))
-    du = torch.zeros((H, N), dtype=s.dtype, device=r.device)
-    for c in reversed(range(nc)):
-        S0, rc, kc, vc, lw, g = states[c], r_[c], k_[c], v_[c], lw_[c], g_[c]
-        cum = torch.cumsum(lw, dim=2)
-        cp = cum - lw
-        last = cum[:, :, -1:]                                  # (B,H,1,N)
-        rd, kd = rc * torch.exp(cp), kc * torch.exp(last - cum)
-        diff = cp[:, :, :, None, :] - cum[:, :, None, :, :]    # (B,H,t,s,N)
-        E = torch.exp(torch.where(strict[None, None, :, :, None], diff,
-                                  -math.inf))
-        A = torch.einsum("bhti,bhsi,bhtsi->bhts", rc, kc, E)
-        A = A + torch.diag_embed(torch.einsum("bhti,bhti->bht", rc,
-                                              kc * uu))
-        dA = torch.einsum("bhtj,bhsj->bhts", g, vc)
-        dd = dA.diagonal(dim1=-2, dim2=-1)                    # (B,H,C)
-        dA = torch.where(strict, dA, 0.0)
-        dv[c] = (torch.einsum("bhts,bhtj->bhsj", A, g)
-                 + torch.einsum("bhsi,bhij->bhsj", kd, ds))
-        drd = torch.einsum("bhtj,bhij->bhti", g, S0)
-        dkd = torch.einsum("bhsj,bhij->bhsi", vc, ds)
-        dlast = torch.exp(last[:, :, 0]) * (ds * S0).sum(-1)   # (B,H,N)
-        dr2 = torch.einsum("bhts,bhsi,bhtsi->bhti", dA, kc, E)
-        dk2 = torch.einsum("bhts,bhti,bhtsi->bhsi", dA, rc, E)
-        dr[c] = drd * torch.exp(cp) + dr2 + dd[..., None] * uu * kc
-        dk[c] = dkd * torch.exp(last - cum) + dk2 + dd[..., None] * uu * rc
-        du += torch.einsum("bht,bhti->hi", dd, rc * kc)
-        dcp = drd * rd + rc * dr2
-        dcum = -dkd * kd - kc * dk2
-        dcum[:, :, -1] += dlast + (dkd * kd).sum(2)
-        # cum_t sums logw up to t, cum_prev_t before t
-        dlw[c] = _rev_cumsum(dcum, 2) + _rev_cumsum(dcp, 2) - dcp
-        ds = torch.exp(last[:, :, 0])[..., None] * ds + torch.einsum(
-            "bhti,bhtj->bhij", rd, g)
-    out = (_unchunk(a.transpose(2, 3), S) for a in (dr, dk, dv, dlw))
-    return (*out, du, ds)
+    C, nc = _dims(x.shape[1], chunk)
+    xc, dac = _split(x, C, nc), _split(da, C, nc)        # (B,H,nc,C,P|)
+    Bc = _split(Bm, C, nc, heads=False)                  # (B,nc,C,N)
+    cum = dac.cumsum(-1)
+    inc = torch.einsum("bhcs,bhcsp,bcsn->bhcpn",
+                       torch.exp(cum[..., -1:] - cum), xc, Bc)
+    return _scan_states(torch.exp(cum[..., -1])[..., None, None], inc,
+                        _wide(h0), reverse=False)[0]
+
+
+def ssd_chunk_dstates(Cm: torch.Tensor, da: torch.Tensor, dy: torch.Tensor,
+                      dh: Optional[torch.Tensor] = None, chunk: int = 32):
+    """Pass 1 of :func:`ssd_chunked_backward` (csrc/ssd_bwd.cu
+    ``ssd_bwd_dstate``): in reverse over the chunks, dh <- e^{cum_C} dh +
+    dye^T C with dye = dy e^{cum}, from ``dh`` (None = 0).  Cm: (B, S, N);
+    da: (B, S, H); dy: (B, S, H, P).  Returns (dstates (B, H, nc, P, N),
+    the gradient of the state after each chunk, whose last entry is
+    ``dh``; dh0 (B, H, P, N)), f32 (f64 for f64 inputs)."""
+    B, S, H, P = dy.shape
+    C, nc = _dims(S, chunk)
+    gc, dac = _split(dy, C, nc), _split(da, C, nc)
+    Cc = _split(Cm, C, nc, heads=False)
+    cum = dac.cumsum(-1)
+    inc = torch.einsum("bhctp,bctn->bhcpn", gc * torch.exp(cum)[..., None],
+                       Cc)
+    d = (torch.zeros((B, H, P, Cm.shape[-1]), dtype=inc.dtype,
+                     device=dy.device) if dh is None else _wide(dh))
+    return _scan_states(torch.exp(cum[..., -1])[..., None, None], inc, d,
+                        reverse=True)
+
+
+def ssd_chunk_grads(x: torch.Tensor, Bm: torch.Tensor, Cm: torch.Tensor,
+                    da: torch.Tensor, states: torch.Tensor,
+                    dstates: torch.Tensor, dy: torch.Tensor, chunk: int = 32):
+    """Pass 2 of :func:`ssd_chunked_backward` (csrc/ssd_bwd.cu
+    ``ssd_bwd``): every chunk and head on its own, from its start state h
+    (``states``, the forward's) and the gradient dh of the state after it
+    (``dstates``, pass 1's), both (B, H, nc, P, N).  With L the decay
+    e^{cum_t - cum_s} (s <= t, taken pairwise with every exponent <= 0, as
+    the repaired forward's), G = C B^T, M = G L, dye = dy e^{cum} and xd =
+    x e^{cum_last - cum}:
+
+        dM = dy x^T,  dx = M^T dy + e^{cum_last - cum} (B dh^T)
+        dC = dye h + (dM L) B,  dB = (dM L)^T C + xd dh
+
+    and dcum from the row and column sums of dM G L and the two decays;
+    dda is its reverse cumulative sum down the chunk.  Returns (dx (B, S,
+    H, P), dB, dC (B, S, H, N): each head's part, dda (B, S, H)), f32 (f64
+    for f64 inputs)."""
+    B, S, H, P = x.shape
+    C, nc = _dims(S, chunk)
+    x_, g, dac = (_split(a, C, nc) for a in (x, dy, da))
+    Bc, Cc = (_split(a, C, nc, heads=False) for a in (Bm, Cm))  # (B,nc,C,N)
+    h, dh_ = _wide(states), _wide(dstates)                     # (B,H,nc,P,N)
+    mask = torch.tril(torch.ones((C, C), dtype=torch.bool, device=x.device))
+    cum = dac.cumsum(-1)                                       # (B,H,nc,C)
+    elast = torch.exp(cum[..., -1])                            # (B,H,nc)
+    kdec = torch.exp(cum[..., -1:] - cum)
+    L = torch.exp(torch.where(mask, cum[..., :, None] - cum[..., None, :],
+                              -math.inf))
+    G = torch.einsum("bctn,bcsn->bcts", Cc, Bc)[:, None]       # (B,1,nc,t,s)
+    dye = g * torch.exp(cum)[..., None]
+    dC1 = torch.einsum("bhctp,bhcpn->bhctn", dye, h)
+    dM = torch.einsum("bhctp,bhcsp->bhcts", g, x_)
+    dG = dM * L
+    W = dG * G
+    Bdh = torch.einsum("bcsn,bhcpn->bhcsp", Bc, dh_)
+    dkdec = (x_ * Bdh).sum(-1)                                 # (B,H,nc,C)
+    dcum = (torch.einsum("bhctn,bctn->bhct", dC1, Cc) + W.sum(-1)
+            - W.sum(-2) - dkdec * kdec)
+    dcum[..., -1] += elast * (dh_ * h).sum((-1, -2)) + (dkdec * kdec).sum(-1)
+    dx = (torch.einsum("bhcts,bhctp->bhcsp", G * L, g)
+          + kdec[..., None] * Bdh)
+    dC = dC1 + torch.einsum("bhcts,bcsn->bhctn", dG, Bc)
+    dB = (torch.einsum("bhcts,bctn->bhcsn", dG, Cc)
+          + torch.einsum("bhcs,bhcsp,bhcpn->bhcsn", kdec, x_, dh_))
+    return (_merge(dx, S), _merge(dB, S), _merge(dC, S),
+            _merge(_rev_cumsum(dcum, -1), S))
 
 
 def ssd_chunked_backward(x: torch.Tensor, Bm: torch.Tensor, Cm: torch.Tensor,
                          da: torch.Tensor, h0: torch.Tensor, dy: torch.Tensor,
                          dh: Optional[torch.Tensor] = None, chunk: int = 32):
     """The gradient of :func:`ssd_chunked` in the arithmetic of the
-    backward kernel (csrc/ssd_bwd.cu): the chunk-start states from a
-    forward pass, then a reverse scan over the chunks carrying dh, the
-    gradient of the state after the chunk.  Per chunk and head, with L the
-    decay e^{cum_t - cum_s} (s <= t, taken pairwise with every exponent <=
-    0, as the repaired forward's), G = C B^T, M = G L, dye = dy e^{cum} and
-    xd = x e^{cum_last - cum}:
-
-        dM = dy x^T,  dx = M^T dy + e^{cum_last - cum} (B dh^T)
-        dC = dye h + (dM L) B,  dB = (dM L)^T C + xd dh
-        dh <- e^{cum_last} dh + dye^T C
-
-    and dcum from the row and column sums of dM G L and the two decays;
-    dda is its reverse cumulative sum down the chunk.  dB and dC are
-    summed over the heads (B and C have no head axis).
+    backward kernels (csrc/ssd_bwd.cu): the chunk-start states from a
+    forward pass (:func:`ssd_chunk_states`), the gradient of the state
+    after each chunk (:func:`ssd_chunk_dstates`, pass 1), then every
+    chunk's gradients (:func:`ssd_chunk_grads`, pass 2), whose dB and dC
+    are summed over the heads (B and C have no head axis).
 
     x, dy: (B, S, H, P); Bm/Cm: (B, S, N); da: (B, S, H); h0, dh (None =
     0): (B, H, P, N).  Returns (dx (B, S, H, P), dBm, dCm (B, S, N), dda
     (B, S, H), dh0 (B, H, P, N)), all f32 (f64 for f64 inputs)."""
-    B, S, H, P = x.shape
-    C = min(chunk, S)
-    nc = -(-S // C)
-    xc, gc = (_chunks(a, C, nc).transpose(2, 3) for a in (x, dy))
-    dac = _chunks(da, C, nc).transpose(2, 3)                  # (nc,B,H,C)
-    Bc, Cc = _chunks(Bm, C, nc), _chunks(Cm, C, nc)           # (nc,B,C,N)
-    mask = torch.tril(torch.ones((C, C), dtype=torch.bool, device=x.device))
-    states = []
-    h = _wide(h0)
-    for c in range(nc):
-        states.append(h)
-        cum = torch.cumsum(dac[c], dim=-1)
-        kdec = torch.exp(cum[:, :, -1:] - cum)
-        h = torch.exp(cum[:, :, -1])[..., None, None] * h + torch.einsum(
-            "bhs,bhsp,bsn->bhpn", kdec, xc[c], Bc[c])
-    dh_ = torch.zeros_like(h) if dh is None else _wide(dh).clone()
-    dx, ddac = torch.empty_like(xc), torch.empty_like(dac)
-    dBc, dCc = torch.empty_like(Bc), torch.empty_like(Cc)
-    for c in reversed(range(nc)):
-        h, x_, g, B_, C_ = states[c], xc[c], gc[c], Bc[c], Cc[c]
-        cum = torch.cumsum(dac[c], dim=-1)                      # (B,H,C)
-        elast = torch.exp(cum[:, :, -1])                        # (B,H)
-        kdec = torch.exp(cum[:, :, -1:] - cum)
-        L = torch.exp(torch.where(mask, cum[:, :, :, None]
-                                  - cum[:, :, None, :], -math.inf))
-        G = torch.einsum("btn,bsn->bts", C_, B_)[:, None]      # (B,1,t,s)
-        dye = g * torch.exp(cum)[..., None]
-        dC1 = torch.einsum("bhtp,bhpn->bhtn", dye, h)
-        dM = torch.einsum("bhtp,bhsp->bhts", g, x_)
-        dG = dM * L
-        W = dG * G
-        Bdh = torch.einsum("bsn,bhpn->bhsp", B_, dh_)
-        dkdec = (x_ * Bdh).sum(-1)                              # (B,H,C)
-        dcum = (torch.einsum("bhtn,btn->bht", dC1, C_) + W.sum(-1)
-                - W.sum(-2) - dkdec * kdec)
-        dcum[:, :, -1] += elast * (dh_ * h).sum((-1, -2)) + \
-            (dkdec * kdec).sum(-1)
-        ddac[c] = _rev_cumsum(dcum, -1)
-        dx[c] = (torch.einsum("bhts,bhtp->bhsp", G * L, g)
-                 + kdec[..., None] * Bdh)
-        dCc[c] = (dC1 + torch.einsum("bhts,bsn->bhtn", dG, B_)).sum(1)
-        dBc[c] = (torch.einsum("bhts,btn->bhsn", dG, C_) + torch.einsum(
-            "bhs,bhsp,bhpn->bhsn", kdec, x_, dh_)).sum(1)
-        dh_ = elast[..., None, None] * dh_ + torch.einsum(
-            "bhtp,btn->bhpn", dye, C_)
-    return (_unchunk(dx.transpose(2, 3), S), _unchunk(dBc, S),
-            _unchunk(dCc, S), _unchunk(ddac.transpose(2, 3), S), dh_)
+    states = ssd_chunk_states(x, Bm, da, h0, chunk)
+    dstates, dh0 = ssd_chunk_dstates(Cm, da, dy, dh, chunk)
+    dx, dB, dC, dda = ssd_chunk_grads(x, Bm, Cm, da, states, dstates, dy,
+                                      chunk)
+    return dx, dB.sum(2), dC.sum(2), dda, dh0

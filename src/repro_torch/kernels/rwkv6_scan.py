@@ -5,6 +5,10 @@ backward (csrc/wkv6_bwd.cu).
         -> y (B, S, H, N)
     wkv6_backward(r, k, v, logw, u, state0, dy[, dstate])
         -> (dr, dk, dv, dlogw, du, dstate0)
+    wkv6_backward_dstates(r, logw, dy[, dstate]) -> (dstates, dstate0)
+                                                                  (pass 1)
+    wkv6_backward_chunks(r, k, v, logw, u, states, dstates, dy)
+        -> (dr, dk, dv, dlogw, du per chunk)                      (pass 2)
     WKV6.apply(r, k, v, logw, u, state0[, chunk]) -> (y, final state)
 
 The port of ``repro/kernels/rwkv6_scan.py`` with a state in and out: the
@@ -30,8 +34,15 @@ occupancy.
 Training goes through :class:`WKV6`, which writes no caller's buffer: its
 forward takes the state in as an input and returns the final state, and
 on the card it asks the forward kernel for the state at the start of
-each of its chunks, which the backward kernel reads (fp32 only, as
-training is).  On the CPU its backward is ``ref.wkv6_chunked_backward``.
+each of its chunks, which the backward reads (fp32 only, as training
+is).  The backward kernel runs in two passes: :func:`wkv6_backward_dstates`
+scans the chunks in reverse carrying only the state's gradient and writes
+it after every chunk into a scratch tensor, and
+:func:`wkv6_backward_chunks` takes every chunk on its own from its start
+state and that gradient, writing du per chunk; :func:`wkv6_backward` runs
+both and sums du over the batch and the chunks, in a fixed order.  On the
+CPU each is its plain version in ``kernels/ref.py``
+(``wkv6_chunk_dstates``, ``wkv6_chunk_grads``, ``wkv6_chunked_backward``).
 """
 from __future__ import annotations
 
@@ -57,7 +68,10 @@ _LIB = kbuild.Library(
     kernels=("wkv6",))
 _BWD = kbuild.Library(
     "wkv6_bwd", "wkv6_bwd_error_string",
-    {"wkv6_bwd": [_vp] * 14 + [_ci] * 4 + [_vp]}, kernels=("wkv6_bwd",))
+    {"wkv6_bwd_dstate": [_vp] * 6 + [_ci] * 4 + [_vp],
+     "wkv6_bwd": [_vp] * 13 + [_ci] * 4 + [_vp],
+     "wkv6_bwd_attr": [_ci, _ci]},
+    kernels=("wkv6_bwd_dstate", "wkv6_bwd"))
 
 
 def launch_counts():
@@ -79,6 +93,17 @@ def ctas_per_sm(dtype: torch.dtype) -> int:
     current card (one CTA per (batch, head)); builds the kernel, launches
     nothing."""
     return _LIB.query("wkv6_ctas_per_sm", _DTYPES[dtype])
+
+
+def bwd_attrs(which: int) -> dict:
+    """What the backward's pass 1 (``which`` = 1, a CTA per (batch, head,
+    16 rows of the state)) or pass 2 (2, a CTA per (batch, head, chunk))
+    takes on the current card: {"ctas_per_sm", "registers", "smem_bytes"
+    (a CTA's, static and dynamic), "threads" (a CTA's)}; builds the
+    kernels, launches nothing."""
+    return {key: _BWD.query("wkv6_bwd_attr", which, what)
+            for what, key in enumerate(("ctas_per_sm", "registers",
+                                        "smem_bytes", "threads"))}
 
 
 def _check_operands(r, k, v, logw, u, state) -> None:
@@ -163,6 +188,89 @@ def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return y
 
 
+def wkv6_backward_dstates(r: torch.Tensor, logw: torch.Tensor,
+                          dy: torch.Tensor,
+                          dstate: Optional[torch.Tensor] = None):
+    """Pass 1 of :func:`wkv6_backward`: (dstates (B, H, n_chunks, N, N),
+    the gradient of the state after each chunk, whose last entry is
+    ``dstate`` (None = 0); dstate0 (B, H, N, N)), f32, from r, logw and dy
+    (B, S, H, N), at the kernel's chunk of 32.  A CPU tensor takes
+    ``ref.wkv6_chunk_dstates``; a CUDA one launches
+    ``wkv6_bwd_dstate``."""
+    B, S, H, N = r.shape
+    if tuple(logw.shape) != (B, S, H, N) or tuple(dy.shape) != (
+            B, S, H, N) or (dstate is not None and tuple(dstate.shape) != (
+                B, H, N, N)) or len({t.device for t in (r, logw, dy)}) != 1:
+        raise ValueError(f"wkv6_backward_dstates: logw {tuple(logw.shape)}, "
+                         f"dy {tuple(dy.shape)}, dstate do not match r "
+                         f"{tuple(r.shape)} on one device")
+    if r.device.type == "cpu":
+        return ref.wkv6_chunk_dstates(r, logw, dy, dstate, KERNEL_CHUNK)
+    r, lw, dy = kbuild.bwd_operands(
+        "wkv6_backward_dstates", (r, logw, dy), {"head size": N},
+        MAX_HEAD_SIZE)
+    ds = None if dstate is None else dstate.float().contiguous()
+    dstates = torch.empty((B, H, n_chunks(S), N, N), dtype=torch.float32,
+                          device=r.device)
+    ds0 = torch.empty((B, H, N, N), dtype=torch.float32, device=r.device)
+    with torch.cuda.device(r.device):
+        _BWD.launch(
+            "wkv6_bwd_dstate", "wkv6_bwd_dstate",
+            r.data_ptr(), lw.data_ptr(), dy.data_ptr(),
+            None if ds is None else ds.data_ptr(), dstates.data_ptr(),
+            ds0.data_ptr(), B, S, H, N,
+            torch.cuda.current_stream().cuda_stream)
+    return dstates, ds0
+
+
+def wkv6_backward_chunks(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         logw: torch.Tensor, u: torch.Tensor,
+                         chunk_states: torch.Tensor, dstates: torch.Tensor,
+                         dy: torch.Tensor):
+    """Pass 2 of :func:`wkv6_backward`: every chunk's gradients from its
+    start state (``chunk_states``, the forward's) and the gradient after it
+    (``dstates``, pass 1's), both (B, H, n_chunks, N, N): (dr, dk, dv,
+    dlogw (B, S, H, N), du (B, H, n_chunks, N), each chunk's part), f32, at
+    the kernel's chunk of 32.  A CPU tensor takes ``ref.wkv6_chunk_grads``;
+    a CUDA one launches ``wkv6_bwd``."""
+    B, S, H, N = r.shape
+    if not (r.shape == k.shape == v.shape == logw.shape == dy.shape) or \
+            tuple(u.shape) != (H, N) or \
+            len({t.device for t in (r, k, v, logw, u, dy)}) != 1:
+        raise ValueError(f"wkv6_backward_chunks: r, k, v, logw, dy must be "
+                         f"one (B, S, H, N) shape and u (H, N) on one "
+                         f"device, got {tuple(r.shape)}, {tuple(k.shape)}, "
+                         f"{tuple(v.shape)}, {tuple(logw.shape)}, "
+                         f"{tuple(dy.shape)}, {tuple(u.shape)}")
+    if r.device.type == "cpu":
+        return ref.wkv6_chunk_grads(r, k, v, logw, u, chunk_states, dstates,
+                                    dy, KERNEL_CHUNK)
+    want = (B, H, n_chunks(S), N, N)
+    kbuild.check_states(
+        "wkv6_backward_chunks", chunk_states, want, r.device,
+        "the forward's chunk states (wkv6(..., chunk_states=))")
+    kbuild.check_states(
+        "wkv6_backward_chunks", dstates, want, r.device,
+        "pass 1's state gradients (wkv6_backward_dstates)")
+    r, k, v, lw, u, dy, cs, ds = kbuild.bwd_operands(
+        "wkv6_backward_chunks",
+        (r, k, v, logw, u, dy, chunk_states, dstates), {"head size": N},
+        MAX_HEAD_SIZE)
+    dr, dk, dv, dlw = (torch.empty((B, S, H, N), dtype=torch.float32,
+                                   device=r.device) for _ in range(4))
+    du = torch.empty((B, H, n_chunks(S), N), dtype=torch.float32,
+                     device=r.device)
+    with torch.cuda.device(r.device):
+        _BWD.launch(
+            "wkv6_bwd", "wkv6_bwd",
+            r.data_ptr(), k.data_ptr(), v.data_ptr(), lw.data_ptr(),
+            u.data_ptr(), cs.data_ptr(), ds.data_ptr(), dy.data_ptr(),
+            dr.data_ptr(), dk.data_ptr(), dv.data_ptr(), dlw.data_ptr(),
+            du.data_ptr(), B, S, H, N,
+            torch.cuda.current_stream().cuda_stream)
+    return dr, dk, dv, dlw, du
+
+
 def wkv6_backward(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   logw: torch.Tensor, u: torch.Tensor, state0: torch.Tensor,
                   dy: torch.Tensor, dstate: Optional[torch.Tensor] = None,
@@ -172,8 +280,9 @@ def wkv6_backward(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     and the final state's ``dstate`` (None = 0): (dr, dk, dv, dlogw (B, S,
     H, N), du (H, N), dstate0 (B, H, N, N)), f32.  A CPU tensor takes
     ``ref.wkv6_chunked_backward`` at ``chunk``; a CUDA one launches the
-    backward kernel (fp32 only), which reads ``chunk_states``, the
-    forward's (:func:`wkv6`), in place of ``state0``."""
+    backward's two passes (fp32 only), which read ``chunk_states``, the
+    forward's (:func:`wkv6`), in place of ``state0``, and sums pass 2's
+    du over the batch and the chunks."""
     _check_operands(r, k, v, logw, u, state0)
     B, S, H, N = r.shape
     if tuple(dy.shape) != (B, S, H, N) or dy.device != r.device or (
@@ -186,39 +295,16 @@ def wkv6_backward(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if r.device.type == "cpu":
         return ref.wkv6_chunked_backward(r, k, v, logw, u, state0, dy,
                                          dstate, chunk)
-    if any(t.dtype != torch.float32 for t in (r, k, v, logw, u, dy)):
-        raise ValueError(
-            f"wkv6_backward: the backward kernel is fp32 only (training is "
-            f"fp32), got r {r.dtype}, k {k.dtype}, v {v.dtype}, logw "
-            f"{logw.dtype}, u {u.dtype}, dy {dy.dtype}")
-    if N > MAX_HEAD_SIZE:
-        raise ValueError(f"wkv6_backward supports head size <= "
-                         f"{MAX_HEAD_SIZE}, got {N}")
-    want = (B, H, n_chunks(S), N, N)
-    if chunk_states is None or tuple(chunk_states.shape) != want or \
-            chunk_states.dtype != torch.float32 or \
-            chunk_states.device != r.device:
-        raise ValueError(
-            f"wkv6_backward on the card reads the forward's chunk states: "
-            f"pass chunk_states, the float32 {want} tensor that "
-            f"wkv6(..., chunk_states=) filled")
-    r, k, v, lw, dy = (t.contiguous() for t in (r, k, v, logw, dy))
-    uu, cs = u.contiguous(), chunk_states.contiguous()
-    ds = None if dstate is None else dstate.float().contiguous()
-    dr, dk, dv, dlw = (torch.empty((B, S, H, N), dtype=torch.float32,
-                                   device=r.device) for _ in range(4))
-    du = torch.empty((B, H, N), dtype=torch.float32, device=r.device)
-    ds0 = torch.empty((B, H, N, N), dtype=torch.float32, device=r.device)
-    with torch.cuda.device(r.device):
-        _BWD.launch(
-            "wkv6_bwd", "wkv6_bwd",
-            r.data_ptr(), k.data_ptr(), v.data_ptr(), lw.data_ptr(),
-            uu.data_ptr(), cs.data_ptr(), dy.data_ptr(),
-            None if ds is None else ds.data_ptr(), dr.data_ptr(),
-            dk.data_ptr(), dv.data_ptr(), dlw.data_ptr(), du.data_ptr(),
-            ds0.data_ptr(), B, S, H, N,
-            torch.cuda.current_stream().cuda_stream)
-    return dr, dk, dv, dlw, du.sum(0), ds0
+    kbuild.check_states(
+        "wkv6_backward", chunk_states, (B, H, n_chunks(S), N, N), r.device,
+        "the forward's chunk states (wkv6(..., chunk_states=))")
+    r, k, v, lw, u, dy = kbuild.bwd_operands(
+        "wkv6_backward", (r, k, v, logw, u, dy), {"head size": N},
+        MAX_HEAD_SIZE)
+    dstates, ds0 = wkv6_backward_dstates(r, lw, dy, dstate)
+    dr, dk, dv, dlw, du = wkv6_backward_chunks(r, k, v, lw, u, chunk_states,
+                                               dstates, dy)
+    return dr, dk, dv, dlw, du.sum((0, 2)), ds0
 
 
 class WKV6(torch.autograd.Function):

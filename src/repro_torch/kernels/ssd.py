@@ -4,6 +4,9 @@ backward (csrc/ssd_bwd.cu).
     ssd_scan(x (B, S, H, P), Bm/Cm (B, S, N), da (B, S, H),
              h (B, H, P, N) f32) -> y (B, S, H, P)
     ssd_backward(x, Bm, Cm, da, h0, dy[, dh]) -> (dx, dBm, dCm, dda, dh0)
+    ssd_backward_dstates(Cm, da, dy[, dh]) -> (dstates, dh0)       (pass 1)
+    ssd_backward_chunks(x, Bm, Cm, da, states, dstates, dy)
+        -> (dx, dB, dC per head, dda)                               (pass 2)
     SSDScan.apply(x, Bm, Cm, da, h0[, chunk]) -> (y, final state)
 
 The port of ``repro/kernels/ssd.py`` with a state in and out: the SSD
@@ -28,10 +31,15 @@ a chunk on the tensor cores in 3xTF32, so fp32 inputs keep fp32 accuracy
 Training goes through :class:`SSDScan`, which writes no caller's buffer:
 its forward takes the state in as an input and returns the final state,
 and on the card it asks the forward kernel for the state at the start of
-each of its chunks, which the backward kernel reads (fp32 only, as
-training is); the backward writes dB and dC per head and this module
-sums them over the heads.  On the CPU its backward is
-``ref.ssd_chunked_backward``.
+each of its chunks, which the backward reads (fp32 only, as training is).
+The backward kernel runs in two passes: :func:`ssd_backward_dstates`
+scans the chunks in reverse carrying only the state's gradient and
+writes it after every chunk into a scratch tensor, and
+:func:`ssd_backward_chunks` takes every chunk on its own from its start
+state and that gradient, writing dB and dC per head; :func:`ssd_backward`
+runs both and sums dB and dC over the heads, in a fixed order.  On the
+CPU each is its plain version in ``kernels/ref.py`` (``ssd_chunk_dstates``,
+``ssd_chunk_grads``, ``ssd_chunked_backward``).
 """
 from __future__ import annotations
 
@@ -57,7 +65,10 @@ _LIB = kbuild.Library(
     kernels=("ssd",))
 _BWD = kbuild.Library(
     "ssd_bwd", "ssd_bwd_error_string",
-    {"ssd_bwd": [_vp] * 12 + [_ci] * 5 + [_vp]}, kernels=("ssd_bwd",))
+    {"ssd_bwd_dstate": [_vp] * 6 + [_ci] * 5 + [_vp],
+     "ssd_bwd": [_vp] * 11 + [_ci] * 5 + [_vp],
+     "ssd_bwd_attr": [_ci, _ci]},
+    kernels=("ssd_bwd_dstate", "ssd_bwd"))
 
 
 def launch_counts():
@@ -79,6 +90,17 @@ def ctas_per_sm(dtype: torch.dtype) -> int:
     current card (one CTA per (batch, head)); builds the kernel, launches
     nothing."""
     return _LIB.query("ssd_ctas_per_sm", _DTYPES[dtype])
+
+
+def bwd_attrs(which: int) -> dict:
+    """What the backward's pass 1 (``which`` = 1, a CTA per (batch, head,
+    16 rows of the state)) or pass 2 (2, a CTA per (batch, head, chunk))
+    takes on the current card: {"ctas_per_sm", "registers", "smem_bytes"
+    (a CTA's, static and dynamic), "threads" (a CTA's)}; builds the
+    kernels, launches nothing."""
+    return {key: _BWD.query("ssd_bwd_attr", which, what)
+            for what, key in enumerate(("ctas_per_sm", "registers",
+                                        "smem_bytes", "threads"))}
 
 
 def _check_operands(x, Bm, Cm, da, h) -> None:
@@ -163,6 +185,87 @@ def ssd_scan(x: torch.Tensor, Bm: torch.Tensor, Cm: torch.Tensor,
     return y
 
 
+def ssd_backward_dstates(Cm: torch.Tensor, da: torch.Tensor,
+                         dy: torch.Tensor,
+                         dh: Optional[torch.Tensor] = None):
+    """Pass 1 of :func:`ssd_backward`: (dstates (B, H, n_chunks, P, N), the
+    gradient of the state after each chunk, whose last entry is ``dh``
+    (None = 0); dh0 (B, H, P, N)), f32, from Cm (B, S, N), da (B, S, H)
+    and dy (B, S, H, P), at the kernel's chunk of 32.  A CPU tensor takes
+    ``ref.ssd_chunk_dstates``; a CUDA one launches ``ssd_bwd_dstate``."""
+    B, S, H, P = dy.shape
+    N = Cm.shape[-1]
+    if tuple(Cm.shape) != (B, S, N) or tuple(da.shape) != (B, S, H) or (
+            dh is not None and tuple(dh.shape) != (B, H, P, N)) or len(
+            {t.device for t in (Cm, da, dy)}) != 1:
+        raise ValueError(f"ssd_backward_dstates: Cm {tuple(Cm.shape)}, da "
+                         f"{tuple(da.shape)}, dh do not match dy "
+                         f"{tuple(dy.shape)} on one device")
+    if dy.device.type == "cpu":
+        return ref.ssd_chunk_dstates(Cm, da, dy, dh, KERNEL_CHUNK)
+    Cm, da, dy = kbuild.bwd_operands(
+        "ssd_backward_dstates", (Cm, da, dy), {"head_dim": P, "d_state": N},
+        MAX_DIM)
+    dhc = None if dh is None else dh.float().contiguous()
+    dstates = torch.empty((B, H, n_chunks(S), P, N), dtype=torch.float32,
+                          device=dy.device)
+    dh0 = torch.empty((B, H, P, N), dtype=torch.float32, device=dy.device)
+    with torch.cuda.device(dy.device):
+        _BWD.launch(
+            "ssd_bwd_dstate", "ssd_bwd_dstate",
+            Cm.data_ptr(), da.data_ptr(), dy.data_ptr(),
+            None if dhc is None else dhc.data_ptr(), dstates.data_ptr(),
+            dh0.data_ptr(), B, S, H, P, N,
+            torch.cuda.current_stream().cuda_stream)
+    return dstates, dh0
+
+
+def ssd_backward_chunks(x: torch.Tensor, Bm: torch.Tensor, Cm: torch.Tensor,
+                        da: torch.Tensor, chunk_states: torch.Tensor,
+                        dstates: torch.Tensor, dy: torch.Tensor):
+    """Pass 2 of :func:`ssd_backward`: every chunk's gradients from its
+    start state (``chunk_states``, the forward's) and the gradient after it
+    (``dstates``, pass 1's), both (B, H, n_chunks, P, N): (dx (B, S, H, P),
+    dB, dC (B, S, H, N), each head's part, dda (B, S, H)), f32, at the
+    kernel's chunk of 32.  A CPU tensor takes ``ref.ssd_chunk_grads``; a
+    CUDA one launches ``ssd_bwd``."""
+    B, S, H, P = x.shape
+    N = Bm.shape[-1]
+    if x.shape != dy.shape or Bm.shape != Cm.shape or \
+            tuple(Bm.shape) != (B, S, N) or tuple(da.shape) != (B, S, H) or \
+            len({t.device for t in (x, Bm, Cm, da, dy)}) != 1:
+        raise ValueError(f"ssd_backward_chunks: x, dy must be (B, S, H, P), "
+                         f"Bm, Cm (B, S, N) and da (B, S, H) on one device, "
+                         f"got {tuple(x.shape)}, {tuple(dy.shape)}, "
+                         f"{tuple(Bm.shape)}, {tuple(Cm.shape)}, "
+                         f"{tuple(da.shape)}")
+    if x.device.type == "cpu":
+        return ref.ssd_chunk_grads(x, Bm, Cm, da, chunk_states, dstates, dy,
+                                   KERNEL_CHUNK)
+    want = (B, H, n_chunks(S), P, N)
+    kbuild.check_states(
+        "ssd_backward_chunks", chunk_states, want, x.device,
+        "the forward's chunk states (ssd_scan(..., chunk_states=))")
+    kbuild.check_states(
+        "ssd_backward_chunks", dstates, want, x.device,
+        "pass 1's state gradients (ssd_backward_dstates)")
+    x, Bm, Cm, da, dy, cs, ds = kbuild.bwd_operands(
+        "ssd_backward_chunks", (x, Bm, Cm, da, dy, chunk_states, dstates),
+        {"head_dim": P, "d_state": N}, MAX_DIM)
+    dx = torch.empty((B, S, H, P), dtype=torch.float32, device=x.device)
+    dBh, dCh = (torch.empty((B, S, H, N), dtype=torch.float32,
+                            device=x.device) for _ in range(2))
+    dda = torch.empty((B, S, H), dtype=torch.float32, device=x.device)
+    with torch.cuda.device(x.device):
+        _BWD.launch(
+            "ssd_bwd", "ssd_bwd",
+            x.data_ptr(), Bm.data_ptr(), Cm.data_ptr(), da.data_ptr(),
+            cs.data_ptr(), ds.data_ptr(), dy.data_ptr(), dx.data_ptr(),
+            dBh.data_ptr(), dCh.data_ptr(), dda.data_ptr(),
+            B, S, H, P, N, torch.cuda.current_stream().cuda_stream)
+    return dx, dBh, dCh, dda
+
+
 def ssd_backward(x: torch.Tensor, Bm: torch.Tensor, Cm: torch.Tensor,
                  da: torch.Tensor, h0: torch.Tensor, dy: torch.Tensor,
                  dh: Optional[torch.Tensor] = None,
@@ -172,9 +275,9 @@ def ssd_backward(x: torch.Tensor, Bm: torch.Tensor, Cm: torch.Tensor,
     and the final state's ``dh`` (None = 0): (dx (B, S, H, P), dBm, dCm
     (B, S, N), dda (B, S, H), dh0 (B, H, P, N)), f32.  A CPU tensor takes
     ``ref.ssd_chunked_backward`` at ``chunk``; a CUDA one launches the
-    backward kernel (fp32 only), which reads ``chunk_states``, the
-    forward's (:func:`ssd_scan`), in place of ``h0``, and writes dB and dC
-    per head, summed here over the heads."""
+    backward's two passes (fp32 only), which read ``chunk_states``, the
+    forward's (:func:`ssd_scan`), in place of ``h0``, and sums pass 2's
+    per-head dB and dC over the heads."""
     _check_operands(x, Bm, Cm, da, h0)
     B, S, H, P = x.shape
     N = Bm.shape[-1]
@@ -187,38 +290,15 @@ def ssd_backward(x: torch.Tensor, Bm: torch.Tensor, Cm: torch.Tensor,
                          f"{None if dh is None else tuple(dh.shape)}")
     if x.device.type == "cpu":
         return ref.ssd_chunked_backward(x, Bm, Cm, da, h0, dy, dh, chunk)
-    if any(t.dtype != torch.float32 for t in (x, Bm, Cm, da, dy)):
-        raise ValueError(
-            f"ssd_backward: the backward kernel is fp32 only (training is "
-            f"fp32), got x {x.dtype}, Bm {Bm.dtype}, Cm {Cm.dtype}, da "
-            f"{da.dtype}, dy {dy.dtype}")
-    if P > MAX_DIM or N > MAX_DIM:
-        raise ValueError(f"ssd_backward supports head_dim and d_state <= "
-                         f"{MAX_DIM}, got {P} and {N}")
-    want = (B, H, n_chunks(S), P, N)
-    if chunk_states is None or tuple(chunk_states.shape) != want or \
-            chunk_states.dtype != torch.float32 or \
-            chunk_states.device != x.device:
-        raise ValueError(
-            f"ssd_backward on the card reads the forward's chunk states: "
-            f"pass chunk_states, the float32 {want} tensor that "
-            f"ssd_scan(..., chunk_states=) filled")
-    x, Bm, Cm, da, dy = (t.contiguous() for t in (x, Bm, Cm, da, dy))
-    cs = chunk_states.contiguous()
-    dhc = None if dh is None else dh.float().contiguous()
-    dx = torch.empty((B, S, H, P), dtype=torch.float32, device=x.device)
-    dBh, dCh = (torch.empty((B, S, H, N), dtype=torch.float32,
-                            device=x.device) for _ in range(2))
-    dda = torch.empty((B, S, H), dtype=torch.float32, device=x.device)
-    dh0 = torch.empty((B, H, P, N), dtype=torch.float32, device=x.device)
-    with torch.cuda.device(x.device):
-        _BWD.launch(
-            "ssd_bwd", "ssd_bwd",
-            x.data_ptr(), Bm.data_ptr(), Cm.data_ptr(), da.data_ptr(),
-            cs.data_ptr(), dy.data_ptr(),
-            None if dhc is None else dhc.data_ptr(), dx.data_ptr(),
-            dBh.data_ptr(), dCh.data_ptr(), dda.data_ptr(), dh0.data_ptr(),
-            B, S, H, P, N, torch.cuda.current_stream().cuda_stream)
+    kbuild.check_states(
+        "ssd_backward", chunk_states, (B, H, n_chunks(S), P, N), x.device,
+        "the forward's chunk states (ssd_scan(..., chunk_states=))")
+    x, Bm, Cm, da, dy = kbuild.bwd_operands(
+        "ssd_backward", (x, Bm, Cm, da, dy), {"head_dim": P, "d_state": N},
+        MAX_DIM)
+    dstates, dh0 = ssd_backward_dstates(Cm, da, dy, dh)
+    dx, dBh, dCh, dda = ssd_backward_chunks(x, Bm, Cm, da, chunk_states,
+                                            dstates, dy)
     return dx, dBh.sum(2), dCh.sum(2), dda, dh0
 
 

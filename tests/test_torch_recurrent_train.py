@@ -1,10 +1,11 @@
 """Training the recurrent families in the port (rwkv6-3b, zamba2-2.7b)
 against the JAX reference: the chunk scans' backward (kernels/ref.py
 ``wkv6_chunked_backward`` / ``ssd_chunked_backward``, the plain versions
-of csrc/wkv6_bwd.cu and csrc/ssd_bwd.cu) and their autograd functions
-(kernels/rwkv6_scan.py ``WKV6``, kernels/ssd.py ``SSDScan``), the losses
-and gradients of models/lm.py, remat, the single-pod step through
-launch/train.py, and serving after a training step.  The reference
+of csrc/wkv6_bwd.cu and csrc/ssd_bwd.cu, whose two passes
+tests/test_torch_scan_bwd.py holds one at a time) and their autograd
+functions (kernels/rwkv6_scan.py ``WKV6``, kernels/ssd.py ``SSDScan``),
+the losses and gradients of models/lm.py, remat, the single-pod step
+through launch/train.py, and serving after a training step.  The reference
 differentiates its own jnp chunk scans (``models/rwkv6.py:_wkv_chunked``,
 ``models/mamba2.py:_ssd_chunked``); the same numpy inputs and the
 reference's own params (carried over with models/convert.py) go to both.
@@ -269,8 +270,10 @@ def test_cpu_backward_wrappers_launch_nothing():
     twkv.wkv6_backward(*_t(ins), torch.from_numpy(dy))
     ins, dy, _ = _ssd_inputs(1, 40, 2, 8, 8, seed=8, da=_uniform(1.0))
     tssd.ssd_backward(*_t(ins), torch.from_numpy(dy))
-    assert twkv.launch_counts() == {"wkv6": 0, "wkv6_bwd": 0}
-    assert tssd.launch_counts() == {"ssd": 0, "ssd_bwd": 0}
+    assert twkv.launch_counts() == {"wkv6": 0, "wkv6_bwd_dstate": 0,
+                                    "wkv6_bwd": 0}
+    assert tssd.launch_counts() == {"ssd": 0, "ssd_bwd_dstate": 0,
+                                    "ssd_bwd": 0}
     w = _t(_wkv_inputs(1, 8, 1, 4, seed=9)[0])
     with pytest.raises(ValueError, match="chunk_states"):
         twkv.wkv6(*w, chunk_states=torch.zeros(1, 1, 1, 4, 4))
@@ -460,22 +463,23 @@ def test_serving_after_a_training_step_matches_reference(arch):
 # ---------------------------------------------------------------------------
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("S", [100, 256])
-def test_cuda_wkv6_backward_matches_plain_version(S):
+@pytest.mark.parametrize("B,S", [(1, 20), (2, 20), (2, 100), (2, 256)])
+def test_cuda_wkv6_backward_matches_plain_version(B, S):
     """B3's backward against ``ref.wkv6_chunked_backward`` on the card
     (chip_smoke.py phase 24 adds the training shape and strong decays),
     through WKV6.apply: one forward launch writing the chunk states and
-    one backward launch."""
+    one launch of each backward pass; S = 20 is one ragged chunk."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA card with CUDA")
-    ins, dy, ds = _wkv_inputs(2, S, 3, 64, seed=S, strong=False)
+    ins, dy, ds = _wkv_inputs(B, S, 3, 64, seed=S, strong=False)
     leaves = [t.cuda().requires_grad_(True) for t in _t(ins)]
     twkv.reset_launch_counts()
     y, s = twkv.WKV6.apply(*leaves, 32)
     cot = [t.cuda() for t in _t((dy, ds))]
     got = torch.autograd.grad((y * cot[0]).sum() + (s * cot[1]).sum(), leaves)
     torch.cuda.synchronize()
-    assert twkv.launch_counts() == {"wkv6": 1, "wkv6_bwd": 1}
+    assert twkv.launch_counts() == {"wkv6": 1, "wkv6_bwd_dstate": 1,
+                                    "wkv6_bwd": 1}
     want = tref.wkv6_chunked_backward(*[t.detach() for t in leaves], *cot,
                                       chunk=32)
     for g, w in zip(got, want):
@@ -483,20 +487,21 @@ def test_cuda_wkv6_backward_matches_plain_version(S):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("S", [100, 256])
-def test_cuda_ssd_backward_matches_plain_version(S):
+@pytest.mark.parametrize("B,S", [(1, 20), (2, 20), (2, 100), (2, 256)])
+def test_cuda_ssd_backward_matches_plain_version(B, S):
     """B4's backward against ``ref.ssd_chunked_backward`` on the card,
-    through SSDScan.apply."""
+    through SSDScan.apply; S = 20 is one ragged chunk."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA card with CUDA")
-    ins, dy, dh = _ssd_inputs(2, S, 4, 64, 64, seed=S, da=_uniform(1.0))
+    ins, dy, dh = _ssd_inputs(B, S, 4, 64, 64, seed=S, da=_uniform(1.0))
     leaves = [t.cuda().requires_grad_(True) for t in _t(ins)]
     tssd.reset_launch_counts()
     y, h = tssd.SSDScan.apply(*leaves, 32)
     cot = [t.cuda() for t in _t((dy, dh))]
     got = torch.autograd.grad((y * cot[0]).sum() + (h * cot[1]).sum(), leaves)
     torch.cuda.synchronize()
-    assert tssd.launch_counts() == {"ssd": 1, "ssd_bwd": 1}
+    assert tssd.launch_counts() == {"ssd": 1, "ssd_bwd_dstate": 1,
+                                    "ssd_bwd": 1}
     want = tref.ssd_chunked_backward(*[t.detach() for t in leaves], *cot,
                                      chunk=32)
     for g, w in zip(got, want):

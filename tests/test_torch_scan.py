@@ -202,8 +202,10 @@ def test_cpu_wrappers_launch_nothing():
     tops.wkv6(*(torch.from_numpy(a) for a in (r, k, v, logw, u)))
     tops.ssd(*(torch.from_numpy(a) for a in _ssd_inputs(2, 40, 16, 8)))
     # each module counts its backward kernel beside its forward
-    assert twkv.launch_counts() == {"wkv6": 0, "wkv6_bwd": 0}
-    assert tssd.launch_counts() == {"ssd": 0, "ssd_bwd": 0}
+    assert twkv.launch_counts() == {"wkv6": 0, "wkv6_bwd_dstate": 0,
+                                    "wkv6_bwd": 0}
+    assert tssd.launch_counts() == {"ssd": 0, "ssd_bwd_dstate": 0,
+                                    "ssd_bwd": 0}
 
 
 def test_launch_counts_gather_every_kernel():
@@ -211,7 +213,8 @@ def test_launch_counts_gather_every_kernel():
     assert tkernels.launch_counts() == {
         "compress": 0, "decompress": 0, "roundtrip": 0,
         "flash_attention": 0, "flash_attention_bwd": 0, "wkv6": 0,
-        "wkv6_bwd": 0, "ssd": 0, "ssd_bwd": 0}
+        "wkv6_bwd_dstate": 0, "wkv6_bwd": 0, "ssd": 0, "ssd_bwd_dstate": 0,
+        "ssd_bwd": 0}
 
 
 def test_library_counts_only_successful_launches(monkeypatch):
@@ -288,7 +291,8 @@ def test_cuda_wkv6_matches_plain_version(case, dtype):
     got = twkv.wkv6(r, k, v, logw, u, state)
     want, s_want = tref.wkv6_chunked(r, k, v, logw, u, s0, 32)
     torch.cuda.synchronize()
-    assert twkv.launch_counts() == {"wkv6": 1, "wkv6_bwd": 0}
+    assert twkv.launch_counts() == {"wkv6": 1, "wkv6_bwd_dstate": 0,
+                                    "wkv6_bwd": 0}
     tol = 1e-4 if dtype == "float32" else 1e-2
     assert float((got.float() - want).abs().max()) <= \
         tol * float(want.abs().max())
@@ -317,7 +321,8 @@ def test_cuda_ssd_matches_plain_version(case, dtype):
     got = tssd.ssd_scan(x, Bm, Cm, da, h)
     want, h_want = tref.ssd_chunked(x, Bm, Cm, da, h0, 128)
     torch.cuda.synchronize()
-    assert tssd.launch_counts() == {"ssd": 1, "ssd_bwd": 0}
+    assert tssd.launch_counts() == {"ssd": 1, "ssd_bwd_dstate": 0,
+                                    "ssd_bwd": 0}
     tol = 1e-4 if dtype == "float32" else 1e-2
     assert float((got.float() - want).abs().max()) <= \
         tol * float(want.abs().max())
