@@ -215,6 +215,33 @@ only, never JAX or the reference package.  Phases:
     each pass alone with its registers, shared memory, CTAs per SM and
     waves, and the forward kernels' training and serving
     instantiations at the same shape.
+25. The mesh at D == 1: phase 4's small FedAT quantize8 scenario with
+    ``mesh.kind=host`` in this process (one rank, no process group)
+    against the no-mesh run, counts from 0 per run: the trajectory, the
+    final global and tier models bitwise, the same step keys and launch
+    counts (2 roundtrips a round), no collective call.
+26. The client-sharded round (``SHARDED_RANKS`` = 2 ranks started by
+    ``launch/mesh.py`` ``run_ranks``, sharing the card over gloo, each
+    running this script with ``--rank-phase 26``): FedAT quantize8 at
+    phase 3's width with ``mesh.kind=host``, 5 of the 10 clients a rank,
+    ``SHARDED_UPDATES`` updates, counts from 0 on each rank: exactly one
+    roundtrip launch a link a round and one all_reduce a round; the event
+    times bitwise equal on the ranks and to the one-rank run in this
+    process; one round from params0 within the CPU tests' bound of the
+    one-rank round; accuracy within 0.1; the ranks' global models
+    bitwise equal; events/s beside phase 3's and the all_reduce's time
+    (host-clocked: a gloo collective on one card goes through the host).
+27. The multi-pod trainer: ``launch/train.py --multi-pod --codec
+    quantize8 --fedat-sync-every 2 --ckpt-every 0`` (``train.run``) on 2
+    ranks sharing the card over gloo (``--rank-phase 27``), qwen2-7b at
+    published widths cut to ``TRAIN_POD_LAYERS`` layers, 2 pods of 4 x
+    4096 tokens, microbatch 4, remat, fp32 AdamW, 3 steps, counts from 0
+    on each rank: flash 2 x layers x microbatches forward and layers x
+    microbatches backward a step, nothing else; the pods' params differ
+    after step 1 and are bitwise equal after step 2's sync (checksums of
+    every parameter's bits); the bytes a sync sends (int8 codes + row
+    scales) against fp32, then one more step syncing at 4 bits (packed
+    codes half of int8's); step seconds and peak memory per rank.
 
 Any failed check exits non-zero.  The last three lines of standard output
 are the kernel report (JSON), the card's ``name, power.limit`` and
@@ -3149,10 +3176,10 @@ def run_population(torch, api, kernels, SimEnv, dev):
         mat_s.append(time.perf_counter() - t0)
         return out
 
-    def timed_data(pid):
+    def timed_data(*a):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        out = round_data(pid)
+        out = round_data(*a)
         torch.cuda.synchronize()
         data_s.append(time.perf_counter() - t0)
         return out
@@ -4513,9 +4540,495 @@ def recurrent_training_card_vs_cpu(torch, kernels, lm, convert):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phases 25-27: multi-device execution (the mesh)
+# ---------------------------------------------------------------------------
+
+#: phase 26: the client-sharded round at phase 3's width on 2 ranks
+SHARDED_RANKS = 2
+SHARDED_UPDATES = 4
+#: the CPU tests' pins (tests/test_torch_mesh_executor.py): one quantize8
+#: FedAT round within Q8_ATOL of the one-rank round, the trajectory's
+#: accuracy within ACC_ATOL
+SHARDED_ROUND_ATOL = 2e-3
+SHARDED_ACC_ATOL = 0.1
+#: phase 27: the multi-pod trainer at qwen2-7b widths, 2 ranks (one pod
+#: each) sharing the card.  Depth 28 -> 2 layers: each rank holds fp32
+#: params, AdamW m and v and the fp32 gradient accumulator (about 16 bytes
+#: a parameter, 1.56 B parameters at 2 layers: 25 GB) plus a
+#: microbatch's gradients and activations, and both ranks must fit the
+#: card's 80 GB with 10% to spare; 3 layers (1.79 B) would not.  Global
+#: batch 256 -> 8 x 4096 tokens, 4 a pod, microbatch 4 (one row each)
+TRAIN_POD_LAYERS = 2
+TRAIN_POD_BATCH = 8
+TRAIN_POD_MICROBATCH = 4
+TRAIN_POD_STEPS = 3
+
+
+class _Collectives:
+    """Counts (and host-times, around a synchronise) the collectives the
+    port calls in this process, by patching torch.distributed."""
+
+    NAMES = ("all_reduce", "broadcast", "all_gather")
+
+    def __init__(self, torch):
+        import torch.distributed as dist
+        self.torch, self.dist = torch, dist
+        self.calls = {n: [] for n in self.NAMES}
+        self._real = {n: getattr(dist, n) for n in self.NAMES}
+
+    def __enter__(self):
+        for n in self.NAMES:
+            setattr(self.dist, n, self._wrap(n))
+        return self
+
+    def __exit__(self, *exc):
+        for n, f in self._real.items():
+            setattr(self.dist, n, f)
+
+    def _wrap(self, name):
+        real, torch = self._real[name], self.torch
+
+        def call(t, *a, **k):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = real(t, *a, **k)
+            torch.cuda.synchronize()
+            self.calls[name].append((time.perf_counter() - t0,
+                                     t.numel() * t.element_size()))
+            return out
+        return call
+
+    def counts(self):
+        return {n: len(c) for n, c in self.calls.items()}
+
+
+def run_mesh_d1(torch, api, kernels):
+    """Phase 25: phase 4's small FedAT quantize8 scenario with
+    ``mesh.kind=host`` in this process (one rank, no process group)
+    against the no-mesh run: trajectory, final global and tier models
+    bitwise, the same step keys and launch counts, no collective."""
+    import torch.distributed as dist
+    check(not dist.is_initialized(), "phase 25: a process group exists")
+    out = {}
+    for name, extra in (("no_mesh", {}), ("host", {"mesh.kind": "host"})):
+        spec = api.ExperimentSpec().with_overrides(dict(SMALL, **extra))
+        run = api.build(spec, device="cuda")
+        ex = run.env.executor()
+        rounds = []
+        orig = ex.fedat_round
+        ex.fedat_round = lambda *a, **k: rounds.append(1) or orig(*a, **k)
+        kernels.reset_launch_counts()
+        with _Collectives(torch) as coll:
+            res = run.run()
+        torch.cuda.synchronize()
+        del ex.fedat_round
+        m = res.metrics
+        out[name] = {
+            "rounds": len(rounds),
+            "times": m.times, "acc": m.acc, "acc_var": m.acc_var,
+            "w": flat(run.strategy.w_global),
+            "tiers": flat(run.strategy.tier_models),
+            "keys": sorted(map(str, run.env.executor().trace_counts)),
+            "launches": kernels.launch_counts(),
+            "collectives": coll.counts(),
+            "mesh": (None if run.env.mesh is None
+                     else dict(run.env.mesh.shape))}
+    a, b = out["no_mesh"], out["host"]
+    rounds = a["rounds"]
+    check(b["mesh"] == {"data": 1, "model": 1},
+          f"phase 25: host mesh {b['mesh']}")
+    for k in ("rounds", "times", "acc", "acc_var", "keys", "launches"):
+        check(a[k] == b[k], f"phase 25: {k} differ: {a[k]} vs {b[k]}")
+    check(bits_equal(a["w"], b["w"]) and bits_equal(a["tiers"], b["tiers"]),
+          "phase 25: the one-rank mesh run's models differ from the no-mesh "
+          "run's")
+    check(a["launches"]["roundtrip"] == 2 * rounds,
+          f"phase 25: launches {a['launches']} for {rounds} rounds")
+    check(not any(b["collectives"].values()),
+          f"phase 25: collectives {b['collectives']}")
+    info = {"rounds": rounds, "launches": b["launches"], "keys": b["keys"],
+            "collectives": b["collectives"], "acc": b["acc"]}
+    log(f"phase 25: FedAT quantize8 (phase 4's scenario) with mesh.kind=host "
+        f"on one rank: mesh {b['mesh']}, trajectory, global and tier models "
+        f"bitwise the no-mesh run's, keys {b['keys']}, launches "
+        f"{b['launches']['roundtrip']} roundtrips ({rounds} rounds), "
+        f"collectives {b['collectives']}")
+    return info
+
+
+def _rank_out(path_fmt: str, rank: int) -> Path:
+    return Path(path_fmt.format(rank))
+
+
+def rank_phase26(torch, out_fmt: str) -> None:
+    """One rank of phase 26 (started by :func:`run_sharded_round`)."""
+    import torch.distributed as dist
+    from repro_torch import api, kernels
+    from repro_torch.compress import transport
+    from repro_torch.core import aggregation
+    from repro_torch.launch import mesh as mesh_mod
+    dev = mesh_mod.init_from_env(torch.device("cuda"))
+    spec = api.ExperimentSpec().with_overrides(dict(
+        FULL, **{"engine.total_updates": SHARDED_UPDATES,
+                 "mesh.kind": "host"}))
+    run = api.build(spec, device=dev)
+    env = run.env
+    ex = env.executor()
+    out = {"rank": mesh_mod.rank(), "world": mesh_mod.world_size(),
+           "backend": dist.get_backend(), "data_axis": env.data_axis,
+           "device": str(dev)}
+    # one round from params0, as the CPU test's (ids 0..K-1, seed 7)
+    M = env.tm.n_tiers
+    w, t = ({k: v.clone() for k, v in env.params0.items()},
+            {k: torch.stack([v] * M) for k, v in env.params0.items()})
+    ids = np.arange(env.sc.clients_per_round, dtype=np.int32)
+    w1, _ = ex.fedat_round(w, t, 0, ids, 7,
+                           codec=transport.get_codec("quantize8"),
+                           use_prox=True,
+                           cross_weights=aggregation.uniform_weights_host(M))
+    np.save(_rank_out(out_fmt, out["rank"]).with_suffix(".round.npy"),
+            flat(w1).numpy())
+    # the run, counts from 0
+    round_s = []
+    orig = ex.fedat_round
+
+    def timed_round(*a, **k):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = orig(*a, **k)
+        torch.cuda.synchronize()
+        round_s.append(time.perf_counter() - t0)
+        return res
+
+    ex.fedat_round = timed_round
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    with _Collectives(torch) as coll:
+        t0 = time.perf_counter()
+        res = run.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    m = res.metrics
+    np.save(_rank_out(out_fmt, out["rank"]).with_suffix(".w.npy"),
+            flat(run.strategy.global_params()).numpy())
+    np.save(_rank_out(out_fmt, out["rank"]).with_suffix(".t.npy"),
+            flat(run.strategy.tier_models).numpy())
+    ar = coll.calls["all_reduce"]
+    out.update({
+        "launches": kernels.launch_counts(), "rounds": len(round_s),
+        "round_s": round_s, "wall_s": wall,
+        "events_per_s": len(round_s) / wall, "times": m.times,
+        "acc": m.acc, "collectives": coll.counts(),
+        "all_reduce_s": [c[0] for c in ar],
+        "all_reduce_bytes": [c[1] for c in ar],
+        "keys": sorted(map(str, ex.trace_counts)),
+        "peak_mem_bytes": torch.cuda.max_memory_allocated()})
+    _rank_out(out_fmt, out["rank"]).write_text(json.dumps(out))
+    mesh_mod.shutdown()
+
+
+def run_sharded_round(torch, api, phase3_events_per_s: float):
+    """Phase 26: FedAT quantize8 at phase 3's width with ``mesh.kind=host``
+    on 2 ranks sharing the card over gloo (5 of the round's 10 clients a
+    rank), against the one-rank run in this process."""
+    import shutil
+    from repro_torch.compress import transport
+    from repro_torch.core import aggregation
+    from repro_torch.launch import mesh as mesh_mod
+    work = ROOT / "build" / "chip_smoke_ranks"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    fmt = str(work / "p26_rank{}.json")
+    t0 = time.perf_counter()
+    res = mesh_mod.run_ranks([str(ROOT / "chip_smoke.py"), "--rank-phase",
+                              "26", "--rank-out", fmt], SHARDED_RANKS,
+                             timeout=600, store_dir=str(work))
+    ranks_s = time.perf_counter() - t0
+    for r, (rc, so, se) in enumerate(res):
+        check(rc == 0, f"phase 26: rank {r} exited {rc}: {se[-3000:]}")
+    ranks = [json.loads(_rank_out(fmt, r).read_text())
+             for r in range(SHARDED_RANKS)]
+    # the one-rank run: the same spec without the mesh, on the card
+    spec = api.ExperimentSpec().with_overrides(dict(
+        FULL, **{"engine.total_updates": SHARDED_UPDATES}))
+    run = api.build(spec, device="cuda")
+    env = run.env
+    M = env.tm.n_tiers
+    w1, _ = env.executor().fedat_round(
+        {k: v.clone() for k, v in env.params0.items()},
+        {k: torch.stack([v] * M) for k, v in env.params0.items()}, 0,
+        np.arange(env.sc.clients_per_round, dtype=np.int32), 7,
+        codec=transport.get_codec("quantize8"), use_prox=True,
+        cross_weights=aggregation.uniform_weights_host(M))
+    w1 = flat(w1).numpy()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    one = run.run().metrics
+    torch.cuda.synchronize()
+    one_eps = len(one.times) and SHARDED_UPDATES / (time.perf_counter() - t0)
+    w_one = flat(run.strategy.global_params()).numpy()
+    t_one = flat(run.strategy.tier_models).numpy()
+    rounds = ranks[0]["rounds"]
+    round_diff, w, tiers = [], [], []
+    for r, info in enumerate(ranks):
+        check(info["world"] == SHARDED_RANKS and info["data_axis"] == 2
+              and info["backend"] == "gloo",
+              f"phase 26: rank {r}: world {info['world']}, data axis "
+              f"{info['data_axis']}, backend {info['backend']}")
+        want = {k: 0 for k in info["launches"]}
+        want["roundtrip"] = 2 * info["rounds"]
+        check(info["launches"] == want,
+              f"phase 26: rank {r} launches {info['launches']}, expected "
+              f"{want} (one roundtrip a link a round)")
+        check(info["collectives"]["all_reduce"] == info["rounds"]
+              and not info["collectives"]["broadcast"],
+              f"phase 26: rank {r} collectives {info['collectives']}")
+        check(info["times"] == one.times,
+              f"phase 26: rank {r} event times {info['times']} vs the "
+              f"one-rank run's {one.times}")
+        check(all(abs(a - b) <= SHARDED_ACC_ATOL
+                  for a, b in zip(info["acc"], one.acc)),
+              f"phase 26: accuracy {info['acc']} vs {one.acc}")
+        check(all("data2" in k for k in info["keys"]),
+              f"phase 26: keys {info['keys']}")
+        rd = np.load(_rank_out(fmt, r).with_suffix(".round.npy"))
+        round_diff.append(float(np.abs(rd - w1).max()))
+        w.append(np.load(_rank_out(fmt, r).with_suffix(".w.npy")))
+        tiers.append(np.load(_rank_out(fmt, r).with_suffix(".t.npy")))
+    check(max(round_diff) <= SHARDED_ROUND_ATOL,
+          f"phase 26: one sharded round differs from the one-rank round by "
+          f"{round_diff} (bound {SHARDED_ROUND_ATOL})")
+    check(ranks[0]["times"] == ranks[1]["times"]
+          and np.array_equal(w[0], w[1]) and np.array_equal(tiers[0],
+                                                            tiers[1]),
+          "phase 26: the ranks disagree on the times or the models")
+    # Eq. 3 weighs a tier by the update count of its mirror tier (M-1-m),
+    # so while only tier 0 has committed the global model is tier 4's
+    # untrained slot, params0, bit for bit, on both runs: every round of
+    # this run starts from params0, and the tier models (tier 0's slot the
+    # last round's output, the others params0) differ from the one-rank
+    # run's by one round's difference, which the one-round pin bounds
+    p0 = flat(env.params0).numpy()
+    check(np.array_equal(w_one, p0) and np.array_equal(w[0], p0),
+          "phase 26: the global model left params0, so the rounds did not "
+          "all start from it and the one-round bound on the tier models "
+          "does not apply")
+    tier_diff = float(np.abs(tiers[0] - t_one).max())
+    check(tier_diff <= SHARDED_ROUND_ATOL,
+          f"phase 26: the sharded run's tier models differ from the "
+          f"one-rank run's by {tier_diff} (bound {SHARDED_ROUND_ATOL})")
+    rel = float(np.linalg.norm(w[0] - w_one) / np.linalg.norm(w_one))
+    rel_t = float(np.linalg.norm(tiers[0] - t_one) / np.linalg.norm(t_one))
+    ar = [s for info in ranks for s in info["all_reduce_s"]]
+    info = {"ranks": ranks, "ranks_wall_s": ranks_s, "rounds": rounds,
+            "round_maxdiff": round_diff, "tiers_maxdiff": tier_diff,
+            "w_rel_l2_vs_one_rank": rel,
+            "tiers_rel_l2_vs_one_rank": rel_t, "one_rank_acc": one.acc,
+            "one_rank_events_per_s": one_eps,
+            "events_per_s": [r["events_per_s"] for r in ranks],
+            "phase3_events_per_s": phase3_events_per_s,
+            "all_reduce_ms_median": 1e3 * float(np.median(ar)),
+            "all_reduce_bytes": ranks[0]["all_reduce_bytes"][0]}
+    log(f"phase 26: FedAT quantize8 full width on {SHARDED_RANKS} ranks "
+        f"sharing the card (gloo, 5 clients a rank): {rounds} rounds a rank, "
+        f"{[r['launches']['roundtrip'] for r in ranks]} roundtrip launches "
+        f"(one a link a round), {info['events_per_s']} events/s (the "
+        f"one-rank run here {one_eps:.4f}, phase 3 "
+        f"{phase3_events_per_s:.4f}); event times bitwise the one-rank "
+        f"run's; one round within {max(round_diff):.3g} of the one-rank "
+        f"round; tier models within {tier_diff:.3g} of the one-rank run's "
+        f"(bound {SHARDED_ROUND_ATOL}); rel L2 from the one-rank run: tier "
+        f"models {rel_t:.3g}, "
+        f"global model {rel:.3g} (acc {ranks[0]['acc']} vs {one.acc}); "
+        f"all_reduce of "
+        f"{info['all_reduce_bytes']} B: {info['all_reduce_ms_median']:.3f} "
+        f"ms median, host-clocked around a synchronise (gloo copies through "
+        f"the host: no multi-card figure); peak "
+        f"{[r['peak_mem_bytes'] / 2**30 for r in ranks]} GiB; the ranks ran "
+        f"{ranks_s:.1f} s with their start")
+    shutil.rmtree(work, ignore_errors=True)
+    return info
+
+
+def _checksum(torch, params) -> list:
+    """Two sums of every leaf's bit patterns (plain and position-weighted),
+    chunked on the card: equal trees give equal sums, and two trees that
+    differ anywhere almost surely do not."""
+    total = [0, 0]
+    for k in sorted(params):
+        v = params[k]
+        if isinstance(v, dict):
+            sub = _checksum(torch, v)
+            total = [total[0] + sub[0], total[1] + sub[1]]
+            continue
+        for chunk in v.reshape(-1).split(1 << 24):
+            bits = chunk.view(torch.int32).to(torch.int64)
+            pos = torch.arange(bits.numel(), device=bits.device) % 65521 + 1
+            total[0] += int(bits.sum())
+            total[1] += int((bits * pos).sum())
+    return total
+
+
+def rank_phase27(torch, out_fmt: str) -> None:
+    """One rank of phase 27 (started by :func:`run_multipod`)."""
+    import dataclasses
+    import torch.distributed as dist
+    from repro_torch import kernels
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.configs.registry import get_config
+    from repro_torch.configs.shapes import ShapeConfig
+    from repro_torch.core import steps as steps_mod
+    from repro_torch.data.pipeline import TokenPipeline
+    from repro_torch.launch import mesh as mesh_mod
+    from repro_torch.launch import train
+    cfg = get_config("qwen2-7b").replace(n_layers=TRAIN_POD_LAYERS,
+                                         microbatch=TRAIN_POD_MICROBATCH)
+    shape = ShapeConfig("train_4k", 4096, TRAIN_POD_BATCH, "train")
+    steps = []
+    make = steps_mod.make_fedat_step
+
+    def recorded(*a, **k):
+        fns = make(*a, **k)
+
+        def step(state, batch):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, m = fns.train_step(state, batch)
+            torch.cuda.synchronize()
+            steps.append({"step_s": time.perf_counter() - t0,
+                          "loss": float(m["loss"]),
+                          "payload_bytes": float(m["payload_bytes"]),
+                          "checksum": _checksum(torch, state["params"])})
+            return state, m
+        return dataclasses.replace(fns, train_step=step)
+
+    steps_mod.make_fedat_step = recorded
+    ck = ROOT / "build" / "chip_smoke_multipod"
+    argv = ["--arch", "qwen2-7b", "--multi-pod", "--codec", "quantize8",
+            "--fedat-sync-every", "2", "--ckpt-every", "0", "--steps",
+            str(TRAIN_POD_STEPS), "--seed", "0", "--device", "cuda",
+            "--ckpt-dir", str(ck)]
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = train.run(train.parser().parse_args(argv), cfg=cfg, shape=shape)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    steps_mod.make_fedat_step = make
+    params = res.state["params"]
+    n = sum(x.numel() for x in _leaves(params))
+    rows = sum(x.numel() // x.shape[-1] for x in _leaves(params))
+    # one more step that syncs at 4 bits, on the trained state
+    dev = params["embed"].device
+    fns4 = make(cfg, TrainConfig(fedat_enabled=True, fedat_sync_every=1,
+                                 fedat_compress_bits=4, total_steps=4),
+                mesh_mod.make_host_mesh(n_pods=2), device=dev)
+    batch = steps_mod.split_batch_for_pods(
+        TokenPipeline(cfg, shape, seed=0).batch(TRAIN_POD_STEPS), 2)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    state, m4 = fns4.train_step(res.state, batch)
+    torch.cuda.synchronize()
+    out = {"rank": mesh_mod.rank(), "backend": dist.get_backend(),
+           "pod": mesh_mod.make_host_mesh(n_pods=2).coord("pod"),
+           "launches": counts, "steps": steps, "wall_s": wall,
+           "losses": res.losses, "peak_mem_bytes": peak,
+           "peak_mem_all_bytes": torch.cuda.max_memory_allocated(),
+           "n_params": n, "rows": rows,
+           "int4_payload_bytes": float(m4["payload_bytes"]),
+           "int4_step_s": time.perf_counter() - t1,
+           "int4_checksum": _checksum(torch, state["params"]),
+           "runner_stats": res.runner_stats}
+    _rank_out(out_fmt, out["rank"]).write_text(json.dumps(out))
+    mesh_mod.shutdown()
+
+
+def run_multipod(torch, kernels):
+    """Phase 27: ``launch/train.py --multi-pod --codec quantize8
+    --fedat-sync-every 2 --ckpt-every 0`` at qwen2-7b widths cut to
+    ``TRAIN_POD_LAYERS`` layers, 2 ranks (one pod each) sharing the card
+    over gloo."""
+    import shutil
+    from repro_torch.launch import mesh as mesh_mod
+    work = ROOT / "build" / "chip_smoke_ranks"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    fmt = str(work / "p27_rank{}.json")
+    t0 = time.perf_counter()
+    res = mesh_mod.run_ranks(
+        [str(ROOT / "chip_smoke.py"), "--rank-phase", "27", "--rank-out",
+         fmt], 2, timeout=900, store_dir=str(work),
+        env={"PYTORCH_CUDA_ALLOC_CONF": "expandable_segments:True"})
+    ranks_s = time.perf_counter() - t0
+    for r, (rc, so, se) in enumerate(res):
+        check(rc == 0, f"phase 27: rank {r} exited {rc}: {se[-3000:]}")
+    ranks = sorted((json.loads(_rank_out(fmt, r).read_text())
+                    for r in range(2)), key=lambda x: x["pod"])
+    L, mb = TRAIN_POD_LAYERS, TRAIN_POD_MICROBATCH
+    per_step = {"flash_attention": 2 * L * mb, "flash_attention_bwd": L * mb}
+    want = {k: TRAIN_POD_STEPS * v for k, v in per_step.items()}
+    for info in ranks:
+        c = info["launches"]
+        check(info["backend"] == "gloo", f"phase 27: {info['backend']}")
+        check(all(c[k] == v for k, v in want.items())
+              and all(n == 0 for k, n in c.items() if k not in want),
+              f"phase 27: pod {info['pod']} launches {c}, expected {want}")
+        check(len(info["steps"]) == TRAIN_POD_STEPS
+              and all(math.isfinite(x) for x in info["losses"]),
+              f"phase 27: losses {info['losses']}")
+        check(info["runner_stats"]["failures"] == 0,
+              f"phase 27: runner {info['runner_stats']}")
+        n, rows = info["n_params"], info["rows"]
+        sent = [s["payload_bytes"] for s in info["steps"]]
+        check(sent == [0.0, n + 4 * rows, 0.0],
+              f"phase 27: bytes sent a step {sent}, expected a sync of "
+              f"{n} int8 codes + {rows} scales at step 2")
+        check(info["int4_payload_bytes"] == n // 2 + 4 * rows,
+              f"phase 27: int4 sync sent {info['int4_payload_bytes']}")
+    a, b = ranks
+    check(a["losses"] == b["losses"], "phase 27: the pods log other losses")
+    cs = [(x["checksum"], y["checksum"]) for x, y in zip(a["steps"],
+                                                         b["steps"])]
+    check(cs[0][0] != cs[0][1], "phase 27: the pods equal after step 1")
+    check(cs[1][0] == cs[1][1], "phase 27: the pods differ after step 2's "
+          "sync")
+    check(a["int4_checksum"] == b["int4_checksum"],
+          "phase 27: the pods differ after the int4 sync")
+    n = a["n_params"]
+    info = {"ranks": ranks, "ranks_wall_s": ranks_s, "layers": L,
+            "batch": TRAIN_POD_BATCH, "microbatch": mb,
+            "launches_per_step": per_step,
+            "sync_bytes_int8": n + 4 * a["rows"], "sync_bytes_fp32": 4 * n,
+            "sync_bytes_int4": a["int4_payload_bytes"],
+            "step_s": [[s["step_s"] for s in r["steps"]] for r in ranks],
+            "peak_mem_bytes": [r["peak_mem_bytes"] for r in ranks]}
+    log(f"phase 27: multi-pod FedAT trainer at qwen2-7b widths ({n} params: "
+        f"{L} layers; 2 pods of 4 x 4096 tokens, microbatch {mb}, remat, "
+        f"fp32 AdamW, quantize8 sync every 2) on 2 ranks sharing the card "
+        f"(gloo): losses {a['losses']}; flash {per_step} a step on each rank; "
+        f"the pods differ after step 1 and are bitwise equal after step 2's "
+        f"sync; a sync sends {info['sync_bytes_int8']} B (int8 + row scales) "
+        f"against {info['sync_bytes_fp32']} B in fp32, "
+        f"{info['sync_bytes_int4']:.0f} B at 4 bits; step seconds "
+        f"{info['step_s']} (step 2 syncs); int4 sync step "
+        f"{[r['int4_step_s'] for r in ranks]} s; peak "
+        f"{[r['peak_mem_bytes'] / 2**30 for r in ranks]} GiB a rank; the "
+        f"ranks ran {ranks_s:.1f} s with their start")
+    shutil.rmtree(work, ignore_errors=True)
+    shutil.rmtree(ROOT / "build" / "chip_smoke_multipod", ignore_errors=True)
+    return info
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="also write every number as JSON here")
+    ap.add_argument("--rank-phase", choices=["26", "27"],
+                    help=argparse.SUPPRESS)  # one rank of phase 26 or 27
+    ap.add_argument("--rank-out", help=argparse.SUPPRESS)
     args = ap.parse_args()
     t_start = time.perf_counter()
 
@@ -4526,6 +5039,10 @@ def main() -> None:
         fail(f"the port's sources (src/repro_torch) are not beside "
              f"{Path(__file__).name}")
     sys.path.insert(0, str(ROOT / "src"))
+    if args.rank_phase:
+        {"26": rank_phase26, "27": rank_phase27}[args.rank_phase](
+            torch, args.rank_out)
+        return
     from repro_torch import api, kernels, serve
     from repro_torch.api import cli
     from repro_torch.core.simulation import SimEnv
@@ -4667,10 +5184,27 @@ def main() -> None:
         torch, kernels, lm, convert)
     scan_bwd = {kind: check_scan_bwd(torch, kind) for kind in ("wkv6",
                                                                 "ssd")}
-    seconds = {"phase_24": time.perf_counter() - t24,
-               "script": time.perf_counter() - t_start}
-    log(f"phase 24 took {seconds['phase_24']:.1f} s; the script so far "
-        f"{seconds['script']:.1f} s")
+    seconds = {"phase_24": time.perf_counter() - t24}
+    log(f"phase 24 took {seconds['phase_24']:.1f} s")
+    api.clear_env_cache()
+    gc.collect()
+    torch.cuda.empty_cache()
+    # phases 25-27: the mesh, counts from 0 per run (and per rank)
+    t25 = time.perf_counter()
+    mesh_d1 = run_mesh_d1(torch, api, kernels)
+    t26 = time.perf_counter()
+    sharded = run_sharded_round(torch, api, main_path["events_per_s"])
+    api.clear_env_cache()
+    gc.collect()
+    torch.cuda.empty_cache()
+    t27 = time.perf_counter()
+    multipod = run_multipod(torch, kernels)
+    seconds.update({"phase_25": t26 - t25, "phase_26": t27 - t26,
+                    "phase_27": time.perf_counter() - t27,
+                    "script": time.perf_counter() - t_start})
+    log(f"phases 25-27 took {seconds['phase_25']:.1f} / "
+        f"{seconds['phase_26']:.1f} / {seconds['phase_27']:.1f} s; the "
+        f"script so far {seconds['script']:.1f} s")
 
     src = "src/repro_torch/kernels/csrc/polyline_codec.cu"
     # the main path's lossy step: B1a and B1b fused, per stacked uplink
@@ -4692,6 +5226,9 @@ def main() -> None:
             fedlm_ckpt["train_launches"]["roundtrip"],
         "population_launches": population["launches"]["roundtrip"],
         "topology_launches": topology["launches"]["roundtrip"],
+        "mesh_d1_launches": mesh_d1["launches"]["roundtrip"],
+        "sharded_launches_per_rank": [
+            r["launches"]["roundtrip"] for r in sharded["ranks"]],
         "topology_silo_round_ms": topology["profile"].get("codec_ms")}]
     # the reference's pair, held in phase 2 and off the main path since
     # the roundtrip fused it (its launches there are 0)
@@ -4728,6 +5265,8 @@ def main() -> None:
         "hd80_bf16_bound_ms": z16["bound_ms"],
         "hd80_bf16_library_ms": z16["library_ms"],
         "train_launches": trainer["launches"]["flash_attention"],
+        "multipod_launches_per_rank": [
+            r["launches"]["flash_attention"] for r in multipod["ranks"]],
         "fedlm_launches": fedlm["launches"]["flash_attention"],
         "fedlm_faults_launches":
             fedlm_ckpt["train_launches"]["flash_attention"],
@@ -4770,6 +5309,8 @@ def main() -> None:
         "bf16_graph_ms": t16["graph_ms"], "bf16_parts_ms": t16["parts_ms"],
         "bf16_max_rel_err": flash_bwd["bfloat16"]["max_rel_err"],
         "fedlm_launches": fedlm["launches"]["flash_attention_bwd"],
+        "multipod_launches_per_rank": [
+            r["launches"]["flash_attention_bwd"] for r in multipod["ranks"]],
         "fedlm_ms": fl["ms"], "fedlm_plain_ms": fl["plain_ms"],
         "fedlm_bound_ms": fl["bound_ms"], "fedlm_bound_by": fl["bound_by"],
         "fedlm_library_ms": fl["library_ms"],
@@ -4866,7 +5407,9 @@ def main() -> None:
             "hubert_attention": hubert_attn,
             "recurrent_training": recurrent_train,
             "recurrent_training_card_vs_cpu": recurrent_train_agree,
-            "scan_bwd": scan_bwd, "seconds": seconds}, indent=2))
+            "scan_bwd": scan_bwd, "mesh_d1": mesh_d1,
+            "sharded_round": sharded, "multipod": multipod,
+            "seconds": seconds}, indent=2))
     print(json.dumps({"kernels": report}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

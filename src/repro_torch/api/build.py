@@ -39,6 +39,7 @@ from repro_torch.core.engine import EngineConfig, ServerStrategy, run_engine
 from repro_torch.core.scheduler import Metrics
 from repro_torch.core.simulation import SimEnv
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.launch import mesh as mesh_mod
 from repro_torch.models.common import flatten_tree, unflatten_tree
 
 #: (env_hash, device) -> SimEnv, shared across strategy/codec sweeps
@@ -111,8 +112,9 @@ def _engine_ckpt_dir(checkpoint_dir: str, spec: ExperimentSpec,
                 f"resume_engine=True but {eng!r} has no {ckpt.SIDECAR} — "
                 f"nothing was ever checkpointed there (run with "
                 f"checkpoint_dir= and faults.checkpoint_every > 0 first)")
-        ckpt.write_sidecar(eng, {"spec_hash": spec.hash(),
-                                 "spec": spec.to_dict()})
+        if mesh_mod.is_writer():
+            ckpt.write_sidecar(eng, {"spec_hash": spec.hash(),
+                                     "spec": spec.to_dict()})
         return eng
     if saved.get("spec_hash") != spec.hash():
         raise SpecError(
@@ -187,7 +189,7 @@ class Run:
                                  resume=resume_engine)
         finally:
             self.env.params0 = params0
-        if checkpoint_dir is not None:
+        if checkpoint_dir is not None and mesh_mod.is_writer():
             save_checkpoint(checkpoint_dir, self.spec,
                             self.strategy.global_params(),
                             step=self.cfg.total_updates)

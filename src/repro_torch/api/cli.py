@@ -30,6 +30,13 @@ from the embedded spec, and serves it with the continuous-batching engine
 under open-loop Poisson load (``--rate``), printing p50/p95/p99 latency
 and tok/s (``--out`` writes the full report as JSON).  Zoo decoders are
 served by ``python -m repro_torch.launch.serve``.
+
+Several ranks (``--set mesh.kind=host``: the round's clients split over
+them, launch/mesh.py): ``python -m torch.distributed.run --nproc-per-node
+N -m repro_torch.api.cli --set mesh.kind=host ...``.  Each rank joins the
+process group the launcher describes (gloo on the CPU and for ranks that
+share one card, nccl for one card a rank); every rank runs the same
+events, and only rank 0 prints rows and writes ``--out`` and checkpoints.
 """
 from __future__ import annotations
 
@@ -40,6 +47,7 @@ from typing import Any, Dict, List, Optional
 
 from repro_torch import api
 from repro_torch.device import resolve_device
+from repro_torch.launch import mesh as mesh_mod
 
 
 def _parse_value(s: str) -> Any:
@@ -153,6 +161,13 @@ def main(argv: Optional[List[str]] = None) -> List[api.Result]:
     if argv and argv[0] == "serve":
         _serve_main(argv[1:])
         return []
+    try:
+        return _run_main(argv)
+    finally:
+        mesh_mod.shutdown()
+
+
+def _run_main(argv: List[str]) -> List[api.Result]:
     ap = argparse.ArgumentParser(
         prog="repro_torch.api.cli",
         description="Run declarative FL experiments (ExperimentSpec) with "
@@ -206,7 +221,8 @@ def main(argv: Optional[List[str]] = None) -> List[api.Result]:
             print(spec.to_json())
             return []
         spec.validate()
-        device = _device(args.device)
+        device = mesh_mod.init_from_env(_device(args.device))
+        writer = mesh_mod.is_writer()
 
         grid = {}
         for s in args.sweeps:
@@ -216,20 +232,23 @@ def main(argv: Optional[List[str]] = None) -> List[api.Result]:
         if grid:
             axes = " x ".join(f"{k}[{len(v)}]" for k, v in grid.items())
             print(f"base spec {spec.hash()}  sweep: {axes}", flush=True)
-            results = api.sweep(spec, grid, on_result=_print_row,
-                                device=device)
+            results = api.sweep(
+                spec, grid, device=device,
+                on_result=_print_row if writer else None)
         else:
-            print(f"spec {spec.hash()}", flush=True)
+            if writer:
+                print(f"spec {spec.hash()}", flush=True)
             res = api.build(spec, device=device,
                             resume_from=args.resume_from).run(
                 checkpoint_dir=args.checkpoint_dir,
                 resume_engine=args.resume)
-            _print_row(res)
+            if writer:
+                _print_row(res)
             results = [res]
     except api.SpecError as e:
         raise SystemExit(f"spec error: {e}")
 
-    if args.out:
+    if args.out and mesh_mod.is_writer():
         with open(args.out, "w") as f:
             json.dump({"base_spec_hash": spec.hash(),
                        "runs": [_result_record(r) for r in results]},

@@ -6,11 +6,9 @@ therefore the same content hash (the default spec hashes to
 ``60fd95ec9d49`` in both packages).  The device a run uses is *not* part of
 the spec: it is an argument of ``api.build``.
 
-Validation is the reference's for everything the port runs, the fault,
-population and topology sections included.  The ``mesh`` section, whose
-plane is not ported yet, accepts only its defaults and names the ROADMAP
-item that ports it (A16).  Every registered model is ported, the
-``tiny_lm`` LMs included.
+Validation is the reference's, section for section, the mesh, fault,
+population and topology sections included.  Every registered model is
+ported, the ``tiny_lm`` LMs included.
 """
 from __future__ import annotations
 
@@ -67,23 +65,6 @@ def _strict_fields(cls, d: Dict[str, Any], section: str) -> Dict[str, Any]:
 def _require(cond: bool, msg: str) -> None:
     if not cond:
         raise SpecError(msg)
-
-
-def _require_default(section) -> list:
-    """Names of the fields of ``section`` that differ from their default
-    (``seed`` fields excepted: a seed of an unused plane changes nothing)."""
-    default = type(section)()
-    return sorted(f.name for f in dataclasses.fields(section)
-                  if f.name != "seed"
-                  and getattr(section, f.name) != getattr(default, f.name))
-
-
-def _unported(section: str, fields: list, item: str, what: str) -> None:
-    if fields:
-        raise SpecError(
-            f"{section}.{fields[0]}: {what} is not ported to the PyTorch "
-            f"package yet (ROADMAP {item}); leave {section} "
-            f"{fields} at their defaults")
 
 
 # ---------------------------------------------------------------------------
@@ -252,19 +233,69 @@ class EngineSpec:
 
 @dataclasses.dataclass
 class MeshSpec:
-    """Device mesh for the round step; only ``single`` is ported."""
+    """Device mesh for the round step (launch/mesh.py).
+
+    * ``"single"`` — no mesh; the executor runs the single-device round
+      bodies (the default, and the bitwise-parity anchor).
+    * ``"host"`` — a mesh over the launched ranks (``python -m
+      torch.distributed.run --nproc-per-node N``); ``n_pods > 1`` adds the
+      pod (tier) axis.
+    * ``"production"`` — the 256/512-device datacenter shapes (data axis
+      16; ``n_pods=2`` adds the pod axis), read by the dry-run only.
+
+    With a data axis of size D > 1 the per-round clients are split over
+    it, which requires ``tiers.clients_per_round % D == 0`` — checked
+    statically here when D is known (``single``/``production``), at
+    environment build time for ``host`` (D is the world size).
+    ``shard_tiers`` lays the (M, ...) tier-model stack over the pod axis.
+    """
     kind: str = "single"                 # single | host | production
     n_pods: int = 1
     shard_tiers: bool = False
 
     def to_name(self) -> Optional[str]:
+        """The :func:`repro_torch.launch.mesh.resolve_mesh` name
+        (None = single)."""
         if self.kind == "single":
             return None
         return self.kind if self.n_pods == 1 else f"{self.kind}:{self.n_pods}"
 
-    def validate(self) -> None:
-        _unported("mesh", _require_default(self), "A16",
-                  "multi-device execution")
+    @classmethod
+    def from_name(cls, name: Optional[str],
+                  shard_tiers: bool = False) -> "MeshSpec":
+        from repro_torch.launch import mesh as mesh_mod
+        kind, n_pods = mesh_mod.parse_mesh_name(name)
+        return cls(kind=kind, n_pods=n_pods, shard_tiers=shard_tiers)
+
+    def validate(self, clients_per_round: int,
+                 k_field: str = "tiers.clients_per_round") -> None:
+        from repro_torch.launch import mesh as mesh_mod
+        _require(self.kind in mesh_mod.MESH_KINDS,
+                 f"mesh.kind must be one of {mesh_mod.MESH_KINDS}, "
+                 f"got {self.kind!r}")
+        _require(self.n_pods >= 1,
+                 f"mesh.n_pods must be >= 1, got {self.n_pods}")
+        if self.kind == "single":
+            _require(self.n_pods == 1,
+                     "mesh.n_pods > 1 needs mesh.kind 'host' or "
+                     "'production' (a single device has no pod axis)")
+        if self.kind == "production":
+            _require(self.n_pods in (1, 2),
+                     f"production mesh has 1 or 2 pods, "
+                     f"got mesh.n_pods={self.n_pods}")
+        if self.shard_tiers:
+            _require(self.n_pods > 1,
+                     "mesh.shard_tiers maps tiers onto the pod axis and "
+                     "needs mesh.n_pods > 1")
+        d = mesh_mod.STATIC_DATA_AXIS.get(self.kind)
+        if d and clients_per_round % d:
+            k = clients_per_round
+            raise SpecError(
+                f"{k_field}={k} does not pad to a multiple "
+                f"of the {self.kind} mesh data axis (size {d}); use a "
+                f"multiple of {d} (e.g. {((k + d - 1) // d) * d}).  For "
+                f"'host' meshes this is checked at build time against the "
+                f"actual device count.")
 
 
 @dataclasses.dataclass
@@ -580,11 +611,14 @@ class ExperimentSpec:
         self.strategy.validate()
         self.transport.validate()
         self.engine.validate()
-        self.mesh.validate()
+        self.mesh.validate(self.tiers.clients_per_round)
         self.faults.validate()
         self.population.validate(self.data.n_clients)
         self.topology.validate(self.data.n_clients)
         if self.topology.to_config() is not None:
+            if self.topology.clients_per_edge:
+                self.mesh.validate(self.topology.clients_per_edge,
+                                   k_field="topology.clients_per_edge")
             _require(self.strategy.name == "fedat",
                      f"the topology plane runs the tiered FedAT strategy "
                      f"(edges = Eq. 4, silos = Eq. 3); got "
@@ -725,8 +759,7 @@ class ExperimentSpec:
     # -- bridge to the core layer ---------------------------------------
     def to_sim_config(self) -> SimConfig:
         """Materialization recipe for :class:`~repro_torch.core.
-        simulation.SimEnv` (the unported mesh stays at its defaults, which
-        :meth:`validate` enforces)."""
+        simulation.SimEnv`."""
         return SimConfig(
             model=self.data.model, n_clients=self.data.n_clients,
             n_classes=self.data.n_classes,
@@ -757,9 +790,7 @@ class ExperimentSpec:
     @classmethod
     def from_sim_config(cls, sc: SimConfig) -> "ExperimentSpec":
         """The inverse bridge: a truthful spec echo for runs driven through
-        an already-built environment (the legacy ``run_*`` wrappers).  The
-        unported mesh is at its defaults (``SimEnv`` refuses others)."""
-        sc.check_ported()
+        an already-built environment (the legacy ``run_*`` wrappers)."""
         return cls(
             data=DataSpec(
                 model=sc.model, n_clients=sc.n_clients,
@@ -778,6 +809,7 @@ class ExperimentSpec:
             engine=EngineSpec(
                 local_epochs=sc.local_epochs, batch_size=sc.batch_size,
                 lr=sc.lr, prox_lambda=sc.prox_lambda),
+            mesh=MeshSpec.from_name(sc.mesh, shard_tiers=sc.shard_tiers),
             faults=FaultSpec(
                 churn_rate=sc.churn_rate, churn_events=sc.churn_events,
                 churn_downtime=sc.churn_downtime,

@@ -222,9 +222,9 @@ def get_codec(spec: Union[str, Codec, None]) -> Codec:
 
 def cross_tier_bits(spec: Union[str, Codec]) -> int:
     """Int width of the cross-tier collective of the multi-pod trainer (a
-    pure function of the codec spec; the collective itself is ROADMAP
-    A16).  Only the quantize family carries an int payload; polyline is a
-    host-side wire codec."""
+    pure function of the codec spec; the collective is core/steps.py
+    ``make_fedat_step``'s pod exchange).  Only the quantize family
+    carries an int payload; polyline is a host-side wire codec."""
     codec = get_codec(spec)
     if not isinstance(codec, QuantizeCodec):
         raise ValueError(

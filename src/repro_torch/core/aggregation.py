@@ -19,7 +19,7 @@ device.  Only :func:`weighted_average` touches model-sized tensors.
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional
 
 import numpy as np
 import torch
@@ -68,19 +68,21 @@ def client_weights_host(n_samples) -> np.ndarray:
     return w / np.maximum(w.sum(dtype=np.float32), np.float32(1.0))
 
 
-def weighted_average(stacked: Params, weights: torch.Tensor) -> Params:
+def weighted_average(stacked: Params, weights: torch.Tensor,
+                     dtype: Optional[torch.dtype] = None) -> Params:
     """stacked: dict of (M, ...) tensors -> dict of weighted means over M.
 
     The fp32 product is materialised first and then summed over axis 0,
     the order the reference pins with an optimization barrier; it is not
     contracted into one einsum.  Exactly-zero weights (padding slots) add
-    exactly-zero terms.
+    exactly-zero terms.  Each mean is cast to its leaf's dtype, or to
+    ``dtype`` if given (fp32 partial sums that a collective completes).
     """
     w = weights.to(torch.float32)
     out = {}
     for k, leaf in stacked.items():
         prod = leaf.to(torch.float32) * w.reshape((-1,) + (1,) * (leaf.dim() - 1))
-        out[k] = prod.sum(dim=0).to(leaf.dtype)
+        out[k] = prod.sum(dim=0).to(dtype or leaf.dtype)
     return out
 
 

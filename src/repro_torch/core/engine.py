@@ -18,6 +18,11 @@ Crash-resume: with a checkpoint directory and ``faults.checkpoint_every >
 metrics, byte counters, tier map) is checkpointed every N committed
 updates through checkpoint/ckpt.py, and ``resume=True`` replays the rest
 of a killed run bitwise.
+
+On a mesh of several ranks every rank runs this loop with the same draws,
+so the metrics are equal on every rank; only rank 0 writes the snapshots
+(``launch/mesh.py`` ``is_writer``), and a resume reads the same snapshot
+on every rank.
 """
 from __future__ import annotations
 
@@ -33,6 +38,7 @@ from repro_torch.core import faults as faults_mod
 from repro_torch.core import tiering
 from repro_torch.core.scheduler import EventQueue, Metrics
 from repro_torch.core.simulation import SimEnv
+from repro_torch.launch import mesh as mesh_mod
 from repro_torch.models.common import flatten_tree, unflatten_tree
 
 
@@ -253,7 +259,8 @@ def run_engine(env: SimEnv, strategy: ServerStrategy, cfg: EngineConfig,
                                "bytes_down": ctx.bytes_down})
             if cfg.retier_every and ctx.t_global % cfg.retier_every == 0:
                 env.retier(ctx.rng, cfg.retier_drift)
-            if mgr is not None and ctx.t_global % every == 0:
+            if (mgr is not None and ctx.t_global % every == 0
+                    and mesh_mod.is_writer()):
                 mgr.save(ctx.t_global, _engine_snapshot(ctx, strategy, env))
     finally:
         if mgr is not None:

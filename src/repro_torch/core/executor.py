@@ -1,5 +1,4 @@
-"""Device-resident round execution (the port of ``repro/core/executor.py``,
-single-device steps).
+"""Device-resident round execution (the port of ``repro/core/executor.py``).
 
 Per popped event a strategy calls one round method; each runs, on the
 environment's device:
@@ -41,6 +40,25 @@ on any device), and tests substitute the reference's own key path.
 Execution is eager.  The Eq. 4 / Eq. 3 weight vectors are computed on the
 host (numpy twins in core/aggregation.py) and uploaded per event.  The
 tier-model stack is updated in place (the strategy owns it).
+``trace_counts`` keeps the reference's step keys: each round-body
+configuration that ran, counted once (there is no trace to repeat).
+
+**Client sharding on a mesh.**  When the environment's mesh has a
+``data`` axis of size D > 1 (one rank a device, every rank running the
+same host program with the same draws), rank r trains the padded clients
+``[r*K/D, (r+1)*K/D)``: the downlink lossy step on the whole global model,
+local training of its K/D clients, the uplink lossy step on them (one B1
+launch a link, as on one device), and the fp32 products ``w_intra *
+leaf`` summed over its clients; one ``all_reduce`` over the data group
+completes Eq. 4 (:meth:`_intra_average`).  Everything after it (tier-slot
+write, Eq. 3) runs whole on every rank.  The FedAT and FedAvg/TiFL steps
+take keys ``(..., "dataD")``; FedAsync trains one client and is the same
+under any mesh; the gated bodies and the topology round refuse D > 1, as
+the reference's do.  With D == 1 (no mesh, or a one-rank mesh) the same
+bodies take all K slots: no collective, the single-device keys.  D > 1
+matches the single-device trajectory within a tolerance only: the sum
+over ranks re-associates Eq. 4, and the uplink codec groups its blocks
+per rank.
 """
 from __future__ import annotations
 
@@ -48,6 +66,7 @@ from typing import Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.core import aggregation
 from repro_torch.core import steps as fl_steps
@@ -69,7 +88,25 @@ class RoundExecutor:
         self.K = int(env.sc.clients_per_round)
         self.device = env.device
         self.perm_source: PermSource = perm_source or self.torch_perms
+        #: the env's mesh (None = one device) and its data-axis size D;
+        #: D > 1 runs the client-sharded bodies, D == 1 the single-device
+        #: ones unchanged
+        self.mesh = env.mesh
+        self.D = int(env.data_axis)
+        assert self.K % self.D == 0, "SimEnv validates divisibility"
+        #: this rank's padded client slots (all of them at D == 1) and the
+        #: step keys' mesh tag
+        self._shard = slice(None)
+        self._dtag: Tuple[str, ...] = ()
+        if self.D > 1:
+            r, k = self.mesh.coord("data"), self.K // self.D
+            self._shard = slice(r * k, (r + 1) * k)
+            self._dtag = (f"data{self.D}",)
+            self._group = self.mesh.group("data")[0]
         self.streaming = bool(env.streaming)
+        self._tag: Tuple[str, ...] = ("stream",) if self.streaming else ()
+        #: step key -> 1 for each round-body configuration that ran
+        self.trace_counts: Dict[tuple, int] = {}
         #: topology plane: a silo round fans out over E edges x K_edge
         #: client slots; None = flat
         self.topo = env.topology
@@ -113,16 +150,18 @@ class RoundExecutor:
         return self.perm_source(seed, n_live, n_slots).to(
             self.device, torch.int64)
 
-    def _round_data(self, pid: np.ndarray) -> Dict[str, torch.Tensor]:
-        """The padded clients' rows on the device: gathered from the
-        resident train stacks, or (streaming plane) materialized on the
-        host and uploaded."""
+    def _round_data(self, pid: np.ndarray, rows: slice = slice(None)
+                    ) -> Dict[str, torch.Tensor]:
+        """The padded clients' rows ``pid[rows]`` on the device: gathered
+        from the resident train stacks, or (streaming plane) materialized
+        on the host (all of ``pid``, the same host work on every rank)
+        and uploaded."""
         if self.streaming:
             batch = self.env.population.materialize(pid)
             self.stream_bytes = max(self.stream_bytes,
                                     sum(a.nbytes for a in batch.values()))
-            return self.env.upload(batch)
-        idx = torch.from_numpy(pid.astype(np.int64)).to(self.device)
+            return self.env.upload({k: v[rows] for k, v in batch.items()})
+        idx = torch.from_numpy(pid[rows].astype(np.int64)).to(self.device)
         stacks = self.env.train_dev
         return {k: stacks[k].index_select(0, idx) for k in ("x", "y", "mask")}
 
@@ -176,6 +215,41 @@ class RoundExecutor:
     def _weights(self, w: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.asarray(w, np.float32)).to(self.device)
 
+    def _key(self, *key) -> None:
+        """Record a round body's step key (``dataD`` under client
+        sharding, ``stream`` on the streaming plane)."""
+        self.trace_counts.setdefault(key + self._tag, 1)
+
+    def _intra_average(self, client_params: Params, w_intra: np.ndarray
+                       ) -> Params:
+        """Eq. 4 over this rank's clients ``w_intra[self._shard]``: the
+        fp32 products summed over the clients, then (D > 1) one
+        ``all_reduce`` of all leaves' partial sums over the data group,
+        cast back to each leaf's dtype.  ``w_intra`` is normalized over
+        all K slots, so the sum of the partial sums is the weighted
+        average; padded zero-weight slots stay neutral on whichever rank
+        holds them."""
+        sums = aggregation.weighted_average(
+            client_params, self._weights(w_intra[self._shard]),
+            dtype=torch.float32)
+        if self.D > 1:
+            keys = sorted(sums)
+            buf = torch.cat([sums[k].reshape(-1) for k in keys])
+            dist.all_reduce(buf, group=self._group)
+            off = 0
+            for k in keys:
+                n = sums[k].numel()
+                sums[k] = buf[off:off + n].reshape(sums[k].shape)
+                off += n
+        return {k: v.to(client_params[k].dtype) for k, v in sums.items()}
+
+    def _refuse_gate_sharded(self) -> None:
+        if self.D > 1:
+            raise NotImplementedError(
+                "the update validation gate is single-device only for now "
+                f"(mesh data axis D={self.D}); run gated fault scenarios "
+                "without a mesh data axis")
+
     # ------------------------------------------------------------------
     # public per-event entry points
     # ------------------------------------------------------------------
@@ -196,15 +270,16 @@ class RoundExecutor:
                 w_global, tier_models, m, ids, seed, codec=codec,
                 use_prox=use_prox, cross_weights=cross_weights, gate=gate,
                 poison=poison)
+        self._key("fedat", codec.name, use_prox, *self._dtag)
         pid, ns = self._pad_ids(ids)
         perms = self._perms(seed, len(ids), self.K)
         update = (self.env.update_fn if use_prox
                   else self.env.update_fn_noprox)
         w_sent = codec.lossy(w_global)
-        client_params, _ = update(w_sent, self._round_data(pid), perms)
-        client_params = codec.lossy(client_params)
-        tier_model = aggregation.weighted_average(
-            client_params, self._weights(aggregation.client_weights_host(ns)))
+        client_params, _ = update(w_sent, self._round_data(pid, self._shard),
+                                  perms[self._shard])
+        tier_model = self._intra_average(codec.lossy(client_params),
+                                         aggregation.client_weights_host(ns))
         for k, v in tier_model.items():
             tier_models[k][m] = v
         w_global = aggregation.weighted_average(
@@ -234,9 +309,16 @@ class RoundExecutor:
         ``silo_models`` and ``dispatch`` are written in place.  Returns
         ``(w_global, silo_models, dispatch)``.
         """
+        if self.D > 1:
+            raise NotImplementedError(
+                f"the topology plane is single-data-axis for now (mesh "
+                f"data axis D={self.D}); use a D==1 mesh — multi-pod "
+                f"host meshes with one device per pod still map silos "
+                f"onto the pod axis (mesh.shard_tiers)")
         ce, es, sg = codecs
         E, Ke = self.E, self.K_edge
         lam = float(self.topo.cfg.compensation)
+        self._key("fedat_topo", ce.name, es.name, sg.name, use_prox, lam)
         pid, w_intra, w_edge, counts = self._pad_topology(ids_edges)
         perms = self._topology_perms(seed, counts)
         update = (self.env.update_fn if use_prox
@@ -278,15 +360,17 @@ class RoundExecutor:
         if gate is not None:
             return self._fedavg_round_gated(w, ids, seed, codec=codec,
                                             gate=gate, poison=poison)
+        self._key(*(("fedavg",) if codec is None else ("fedavg", codec.name)),
+                  *self._dtag)
         pid, ns = self._pad_ids(ids)
         perms = self._perms(seed, len(ids), self.K)
         w_in = w if codec is None else codec.lossy(w)
         client_params, _ = self.env.update_fn_noprox(
-            w_in, self._round_data(pid), perms)
+            w_in, self._round_data(pid, self._shard), perms[self._shard])
         if codec is not None:
             client_params = codec.lossy(client_params)
-        return aggregation.weighted_average(
-            client_params, self._weights(aggregation.client_weights_host(ns)))
+        return self._intra_average(client_params,
+                                   aggregation.client_weights_host(ns))
 
     # ------------------------------------------------------------------
     # the fault plane's gated bodies
@@ -312,6 +396,8 @@ class RoundExecutor:
         """The FedAT round with the gate spliced in after the uplink
         decode; the clip reference is the decoded downlink ``w_sent``.
         With no surviving client the tier slot keeps its model."""
+        self._refuse_gate_sharded()
+        self._key("fedat", codec.name, use_prox, "gate", gate.clip_norm)
         pid, ns = self._pad_ids(ids)
         perms = self._perms(seed, len(ids), self.K)
         update = (self.env.update_fn if use_prox
@@ -332,6 +418,9 @@ class RoundExecutor:
                             codec, gate, poison) -> Params:
         """The FedAvg/TiFL round with the gate; with no surviving client
         the server keeps its previous model."""
+        self._refuse_gate_sharded()
+        self._key(*(("fedavg",) if codec is None else ("fedavg", codec.name)),
+                  "gate", gate.clip_norm)
         pid, ns = self._pad_ids(ids)
         perms = self._perms(seed, len(ids), self.K)
         w_in = w if codec is None else codec.lossy(w)
@@ -350,7 +439,11 @@ class RoundExecutor:
 
         The interpolation coefficients are rounded to f32 on the host, and
         both products are formed before the add, as in the reference.
+        FedAsync trains one client per event, so it is the same under any
+        mesh.
         """
+        self._key(*(("fedasync",) if codec is None
+                    else ("fedasync", codec.name)))
         pid = np.asarray([client], np.int32)
         perms = self._perms(seed, 1, 1)
         w_in = w if codec is None else codec.lossy(w)

@@ -44,8 +44,12 @@ PAPER_DELAY_BANDS = ((0.0, 0.0), (0.0, 5.0), (6.0, 10.0), (11.0, 15.0),
 class SimConfig:
     """The reference's SimConfig fields.  ``population`` and ``topology``
     take the planes' configs (None = the legacy data plane and the flat
-    FedAT engine).  The mesh, which the port does not run yet, must stay
-    at its default (ROADMAP A16)."""
+    FedAT engine).  ``mesh`` names the mesh of the round step
+    (launch/mesh.py grammar: None/"single" | "host[:n_pods]" |
+    "production[:n_pods]"); with a data axis D > 1 the per-round client
+    fan-out is split over its ranks (core/executor.py), and
+    ``clients_per_round`` must pad to a multiple of D.  ``shard_tiers``
+    lays the tier-model stack over the pod axis (a layout)."""
     model: str = "cnn"
     n_clients: int = 100
     n_classes: int = 10
@@ -78,24 +82,46 @@ class SimConfig:
     population: Optional[population_mod.PopulationConfig] = None
     topology: Optional[topology_mod.TopologyConfig] = None
 
-    def check_ported(self) -> None:
-        """Raise for a plane the port does not run yet."""
-        if self.mesh not in (None, "single") or self.shard_tiers:
-            raise NotImplementedError(
-                "a device mesh is not ported to the PyTorch package yet: "
-                "ROADMAP A16")
-
 
 class SimEnv:
     """One materialized scenario: partitions, latencies/tiers, dropout
-    schedule, model init, and the device-resident data plane."""
+    schedule, model init, the device-resident data plane, and (optionally)
+    the mesh the round step splits its clients over.
+
+    ``sc.mesh`` names the mesh (launch/mesh.py grammar); with a data axis
+    of size D > 1 each rank trains K/D of the round's clients, which
+    requires ``clients_per_round % D == 0`` (checked here, before any
+    round).  A shape-only (production) mesh cannot run a round and
+    raises."""
 
     def __init__(self, sc: SimConfig, device: DeviceLike = None,
                  params0: Optional[Dict[str, Any]] = None):
-        sc.check_ported()
         self.sc = sc
         self.device = resolve_device(device)
         rng = np.random.default_rng(sc.seed)
+
+        # the mesh of the round step (None = one device), resolved per
+        # environment; sized from this env's own mesh, never the ambient
+        # one
+        from repro_torch.launch import mesh as mesh_mod
+        self.mesh = mesh_mod.resolve_mesh(sc.mesh)
+        if self.mesh is not None:
+            self.mesh.require_runnable("a federated round")
+        self.data_axis = (self.mesh.shape.get("data", 1)
+                          if self.mesh is not None else 1)
+        # the per-round fan-out that must pad over the data axis is the
+        # per-edge sample size under the topology plane, else the flat
+        # clients_per_round — the error names the spec field that failed
+        k, k_field = sc.clients_per_round, "tiers.clients_per_round"
+        if sc.topology is not None and sc.topology.clients_per_edge:
+            k, k_field = (sc.topology.clients_per_edge,
+                          "topology.clients_per_edge")
+        if k % self.data_axis:
+            d = self.data_axis
+            raise ValueError(
+                f"{k_field}={k} does not pad to a multiple of the "
+                f"mesh data axis (size {d}, mesh {sc.mesh!r}); use a "
+                f"multiple of {d} (e.g. {((k + d - 1) // d) * d})")
         self.model = model_registry.build_model(
             sc.model, model_registry.DataDims(
                 n_classes=sc.n_classes, image_hw=sc.image_hw,

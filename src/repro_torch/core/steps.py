@@ -1,33 +1,62 @@
-"""Train steps: the single-pod step of ``repro/core/steps.py``.
+"""Train steps, single-pod and multi-pod (FedAT pods-as-tiers).
 
-The port's counterpart of the reference's jitted single-pod step, on one
-device (tensor parallelism 1, so the state and batch shardings are
-``None``): a forward and backward of ``lm.loss_fn`` per microbatch with
-the gradients summed in fp32 and divided by the microbatch count, the
-cosine schedule, and AdamW with global-norm clipping.  It is the same for
-every family: ``lm.loss_fn`` dispatches (the recurrent families' scans
-carry their own backward).  The trainer's
+The port of ``repro/core/steps.py``.  Datacenter-scale mapping of the
+paper: a *tier* is a pod (the ``pod`` axis of a mesh, launch/mesh.py),
+intra-tier synchronous training is a data-parallel step over the
+``data`` ranks, and the cross-tier asynchronous update is a per-pod model
+replica mixed every ``sync_every`` steps by Eq. 3 weights computed from
+the per-tier update counts, its payload quantized per last-dim row
+(int8/int16, or two int4 nibbles a byte) on the wire.
+
+* :func:`make_single_pod_step`: a forward and backward of ``lm.loss_fn``
+  per microbatch with the gradients summed in fp32 and divided by the
+  microbatch count, the cosine schedule, and AdamW with global-norm
+  clipping.  On a mesh of D ranks each rank takes B/D rows of the global
+  batch, and the gradients are all-reduced to their mean before AdamW;
+  with no mesh or one rank it is the one-device step, unchanged.
+* :func:`make_fedat_step`: each rank holds the state of its pod slot
+  (a leading pod dim of 1), runs the per-pod update, and at a sync step
+  quantizes each leaf per row (:func:`quantize_rows`, the reference's
+  ``_mix_leaf``), exchanges the int payloads and scales over the pod
+  group (one broadcast of each from every pod: the bytes of an
+  all-gather), dequantizes and mixes them by
+  ``aggregation.cross_tier_weights(counts)`` (Eq. 3), so the pods hold
+  equal params after it.  The per-row quantize is not a Pallas kernel in
+  the reference, so plain torch ops compute it.
+
+It is the same for every family: ``lm.loss_fn`` dispatches (the
+recurrent families' scans carry their own backward).  The trainer's
 state is updated in place (``optim.adamw``), so a model of billions of
-parameters keeps one copy of its params and moments on the card.
+parameters keeps one copy of its params and moments on the card.  The
+state and batch shardings the reference hands to ``jax.jit`` are layouts
+here (runtime/sharding.py): each rank holds its tensors whole, so
+``StepFns`` carries None for both.
 
 The fault plane's server-side update gate (:class:`UpdateGate`,
 :func:`poison_updates`, :func:`gate_updates`) runs as plain torch ops on
 the K-stacked client dict, with no host read, inside the executor's gated
-rounds.  The multi-pod FedAT step (pods as tiers) and the batch split for
-pods are not ported yet: they raise naming ROADMAP A16 (the mesh).
+rounds.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Dict, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.configs.base import ModelConfig, TrainConfig
+from repro_torch.core import aggregation
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import common, lm
 from repro_torch.optim import adamw, cosine_schedule, global_norm
+from repro_torch.optim.optimizers import tree_leaves, tree_map
+
+
+def opt_axes_like(param_axes):
+    """AdamW m/v shard exactly like their params (ZeRO: fsdp dims)."""
+    return {"m": param_axes, "v": param_axes, "count": ()}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -86,9 +115,55 @@ def _loss_and_grads(cfg: ModelConfig, params, batch, tp: int,
     return loss, common.unflatten_tree(dict(zip(names, grads))), metrics
 
 
-def _to_device(batch, device: torch.device) -> Dict[str, torch.Tensor]:
+def _to_device(batch, device: torch.device, rows: slice = slice(None)
+               ) -> Dict[str, torch.Tensor]:
+    """Rows ``rows`` of every leaf (numpy or tensor) on ``device``."""
     return {k: (torch.from_numpy(np.asarray(v)) if not isinstance(
-        v, torch.Tensor) else v).to(device) for k, v in batch.items()}
+        v, torch.Tensor) else v)[rows].to(device) for k, v in batch.items()}
+
+
+def _rank_rows(n: int, index: int, ranks: int) -> slice:
+    if n % ranks:
+        raise ValueError(f"a batch of {n} rows does not split over "
+                         f"{ranks} data ranks")
+    k = n // ranks
+    return slice(index * k, (index + 1) * k)
+
+
+def _data_parallel(mesh, axes: Tuple[str, ...]):
+    """(ranks, this rank's index, group) of the data-parallel line over
+    ``axes`` of ``mesh`` (1, 0, None without one)."""
+    if mesh is None:
+        return 1, 0, None
+    mesh.require_runnable("a train step")
+    live = [a for a in axes if mesh.shape.get(a, 1) > 1]
+    if not live:
+        return 1, 0, None
+    if len(live) == 1:
+        group, ranks = mesh.group(live[0])
+        return len(ranks), mesh.coord(live[0]), group
+    return mesh.size, mesh.rank, None     # every rank: the world group
+
+
+def _mean_over(tensors: List[torch.Tensor], ranks: int, group) -> None:
+    """In place: each tensor summed over ``group`` and divided by
+    ``ranks`` (nothing for one rank)."""
+    if ranks == 1:
+        return
+    for t in tensors:
+        dist.all_reduce(t, group=group)
+        t.div_(ranks)
+
+
+def _sync_metrics(loss, parts, ranks: int, group):
+    """The loss and its parts averaged over the data ranks (equal on
+    every rank after)."""
+    if ranks == 1:
+        return loss, parts
+    keys = sorted(parts)
+    buf = torch.stack([loss.float()] + [parts[k].float() for k in keys])
+    _mean_over([buf], ranks, group)
+    return buf[0], {k: buf[i + 1] for i, k in enumerate(keys)}
 
 
 def make_single_pod_step(cfg: ModelConfig, tcfg: TrainConfig,
@@ -98,12 +173,12 @@ def make_single_pod_step(cfg: ModelConfig, tcfg: TrainConfig,
     card) from a generator seeded with ``seed``; ``train_step(state,
     batch)`` -> (state, {"loss", "grad_norm", "lr_scale", "ce_loss",
     "aux_loss"}), the state updated in place (the reference's metrics,
-    plus the loss's two parts).  ``mesh`` must be None or a one-device mesh: the
-    port has no mesh (ROADMAP A16)."""
-    if mesh is not None and getattr(mesh, "size", 1) != 1:
-        raise NotImplementedError(
-            "a device mesh is not ported to the PyTorch package yet "
-            "(ROADMAP A16); the single-pod step runs on one device")
+    plus the loss's two parts).  ``batch`` is the global batch; on a mesh
+    of D data ranks (the ``pod`` and ``data`` axes) each rank trains its
+    B/D rows and the gradients are averaged over the ranks before AdamW,
+    so every rank holds the same state.  No mesh, or a one-rank mesh, is
+    the one-device step with no collective."""
+    ranks, index, group = _data_parallel(mesh, ("pod", "data"))
     tp = 1
     dev = resolve_device(device)
     opt = adamw(tcfg.lr, tcfg.betas[0], tcfg.betas[1], tcfg.eps,
@@ -116,10 +191,14 @@ def make_single_pod_step(cfg: ModelConfig, tcfg: TrainConfig,
                 "step": torch.zeros((), dtype=torch.int32, device=dev)}
 
     def train_step(state, batch):
-        batch = _to_device(batch, dev)
+        n = len(next(iter(batch.values())))
+        batch = _to_device(batch, dev, _rank_rows(n, index, ranks)
+                           if ranks > 1 else slice(None))
         params = state["params"]
         loss, grads, parts = _loss_and_grads(cfg, params, batch, tp,
                                              cfg.microbatch)
+        _mean_over(tree_leaves(grads), ranks, group)
+        loss, parts = _sync_metrics(loss, parts, ranks, group)
         lr_scale = sched(state["step"])
         grad_norm = global_norm(grads)
         new_params, new_opt = opt.step(params, grads, state["opt"],
@@ -132,20 +211,189 @@ def make_single_pod_step(cfg: ModelConfig, tcfg: TrainConfig,
     return StepFns(train_step, init_state, None, None)
 
 
+def None_shape(cfg):  # minimal train-kind shape token for input_axes
+    from repro_torch.configs.shapes import ShapeConfig
+    return ShapeConfig("train", 1, 1, "train")
+
+
 # ---------------------------------------------------------------------------
-# not ported yet
+# multi-pod FedAT step (pods as tiers)
 # ---------------------------------------------------------------------------
 
-def make_fedat_step(*args, **kwargs):
-    raise NotImplementedError(
-        "the multi-pod FedAT step (pods as tiers) is not ported to the "
-        "PyTorch package yet (ROADMAP A16: the mesh)")
+def quantize_rows(x: torch.Tensor, bits: int):
+    """One pod's leaf -> (payload, row scales) on the wire, as the
+    reference's ``_mix_leaf`` forms them: scales ``max|row| / qmax``
+    (floored at 1e-30) per last-dim row, codes ``round(x / scale)``
+    clipped to +-qmax.  ``bits`` 16/8 give int16/int8 codes; 4 with an
+    even last dim packs two nibbles (code + 8) a byte, high nibble first;
+    4 with an odd last dim gives int8 codes of qmax 7; 0 sends fp32 and
+    no scale (None)."""
+    xf = x.to(torch.float32)
+    if not bits:
+        return xf, None
+    qmax = 7.0 if bits == 4 else float((1 << (min(bits, 16) - 1)) - 1)
+    scale = torch.clamp_min(xf.abs().amax(dim=-1, keepdim=True) / qmax,
+                            1e-30)
+    q = torch.clamp(torch.round(xf / scale), -qmax, qmax)
+    if bits == 4 and x.shape[-1] % 2 == 0:
+        pairs = (q + 8.0).reshape(*q.shape[:-1], q.shape[-1] // 2, 2)
+        return (pairs[..., 0] * 16 + pairs[..., 1]).to(torch.uint8), scale
+    return q.to(torch.int8 if bits <= 8 else torch.int16), scale
 
 
-def split_batch_for_pods(*args, **kwargs):
-    raise NotImplementedError(
-        "splitting batches for pods is not ported to the PyTorch package "
-        "yet (ROADMAP A16: the mesh)")
+def dequantize_rows(payload: torch.Tensor, scale: Optional[torch.Tensor],
+                    shape: Tuple[int, ...]) -> torch.Tensor:
+    """Inverse of :func:`quantize_rows` (any leading dims), fp32."""
+    if scale is None:
+        return payload.to(torch.float32)
+    if payload.dtype == torch.uint8:
+        hi = torch.div(payload, 16, rounding_mode="floor").float() - 8.0
+        lo = torch.remainder(payload, 16).float() - 8.0
+        q = torch.stack([hi, lo], dim=-1).reshape(
+            *payload.shape[:-1], shape[-1])
+        return q * scale
+    return payload.to(torch.float32) * scale
+
+
+def _as_bytes(t: torch.Tensor) -> torch.Tensor:
+    return t.contiguous().reshape(-1).view(torch.uint8)
+
+
+def exchange_pods(payloads: List[torch.Tensor], scales: List[torch.Tensor],
+                  n_pods: int, group, ranks: List[int]):
+    """Every pod's payloads and scales on every rank of the pod group:
+    one byte buffer of this pod's payloads and one fp32 buffer of its
+    scales, and ``n_pods`` broadcasts of each into (P, ...) buffers (the
+    bytes of an all-gather; gloo takes CUDA tensors in broadcast, not in
+    all_gather).  Returns the two gathered buffers; one pod gathers
+    nothing."""
+    mine = torch.cat([_as_bytes(p) for p in payloads])
+    sc = (torch.cat([s.reshape(-1) for s in scales]) if scales else
+          torch.zeros(0, dtype=torch.float32, device=mine.device))
+    if n_pods == 1:
+        return mine[None], sc[None]
+    me = dist.get_rank()
+    out = []
+    for buf in (mine, sc):
+        full = torch.empty((n_pods,) + tuple(buf.shape), dtype=buf.dtype,
+                           device=buf.device)
+        for p, src in enumerate(ranks):
+            if src == me:
+                full[p].copy_(buf)
+            dist.broadcast(full[p], src=src, group=group)
+        out.append(full)
+    return out[0], out[1]
+
+
+def make_fedat_step(cfg: ModelConfig, tcfg: TrainConfig, mesh,
+                    param_dtype=torch.float32,
+                    device: DeviceLike = None) -> StepFns:
+    """Multi-pod train step: per-pod update + compressed cross-tier mix.
+
+    ``mesh`` needs a ``pod`` axis.  Each rank's state holds its pod slot
+    (a leading pod dim of 1): ``params``, AdamW ``m``/``v``/``count`` and
+    ``step``, plus the (n_pods,) update ``counts`` every rank keeps
+    whole.  ``train_step(state, batch)`` takes the batch pre-split
+    ``(n_pods, B/n_pods, ...)`` (:func:`split_batch_for_pods`); the rank
+    trains its pod's rows (B/n_pods/D of them on each of D data ranks,
+    gradients averaged over those), and every ``tcfg.fedat_sync_every``
+    steps mixes the pods at ``tcfg.fedat_compress_bits`` (Eq. 3).  Returns
+    (state, {"loss" (mean over pods), "ce_loss", "aux_loss", "synced",
+    "payload_bytes": this rank's bytes on the wire at a sync, payload and
+    scales, else 0})."""
+    if mesh is None or "pod" not in mesh.shape:
+        raise ValueError("make_fedat_step needs a multi-pod mesh (a 'pod' "
+                         "axis)")
+    mesh.require_runnable("a train step")
+    n_pods = mesh.shape["pod"]
+    pod = mesh.coord("pod")
+    pod_group, pod_ranks = (mesh.group("pod") if n_pods > 1
+                            else (None, [mesh.rank]))
+    d_ranks, d_index, d_group = _data_parallel(mesh, ("data",))
+    tp = 1
+    dev = resolve_device(device)
+    opt = adamw(tcfg.lr, tcfg.betas[0], tcfg.betas[1], tcfg.eps,
+                tcfg.weight_decay, grad_clip=tcfg.grad_clip)
+    sched = cosine_schedule(1.0, tcfg.warmup_steps, tcfg.total_steps)
+    bits = int(tcfg.fedat_compress_bits)
+
+    def init_state(seed: int):
+        params = lm.init_params(cfg, seed, tp, param_dtype, device=dev)
+        stacked = tree_map(lambda a: a.unsqueeze(0), params)
+        zeros = lambda a: torch.zeros_like(a, dtype=torch.float32)  # noqa
+        return {"params": stacked,
+                "opt": {"m": tree_map(zeros, stacked),
+                        "v": tree_map(zeros, stacked),
+                        "count": torch.zeros(1, dtype=torch.int32,
+                                             device=dev)},
+                "step": torch.zeros(1, dtype=torch.int32, device=dev),
+                "counts": torch.zeros(n_pods, dtype=torch.float32,
+                                      device=dev)}
+
+    def mix(params, weights) -> int:
+        """Eq. 3 over the pods' dequantized payloads, written into this
+        rank's params in place; returns the bytes this rank sent."""
+        leaves = tree_leaves(params)
+        wire = [quantize_rows(x[0], bits) for x in leaves]
+        payloads = [p for p, _ in wire]
+        scales = [s for _, s in wire if s is not None]
+        full, full_sc = exchange_pods(payloads, scales, n_pods, pod_group,
+                                      pod_ranks)
+        off = soff = 0
+        for x, (p, s) in zip(leaves, wire):
+            nb = p.numel() * p.element_size()
+            pay = full[:, off:off + nb].contiguous().view(p.dtype).reshape(
+                (n_pods,) + tuple(p.shape))
+            off += nb
+            sc = None
+            if s is not None:
+                sc = full_sc[:, soff:soff + s.numel()].reshape(
+                    (n_pods,) + tuple(s.shape))
+                soff += s.numel()
+            vals = dequantize_rows(pay, sc, tuple(x.shape[1:]))
+            mixed = torch.einsum("p,p...->...", weights, vals)
+            x.copy_(mixed[None].to(x.dtype))
+        return full.shape[1] + 4 * full_sc.shape[1]
+
+    def train_step(state, batch):
+        n = len(next(iter(batch.values()))[pod])
+        local = {k: v[pod] for k, v in batch.items()}
+        local = _to_device(local, dev, _rank_rows(n, d_index, d_ranks)
+                           if d_ranks > 1 else slice(None))
+        params = tree_map(lambda a: a[0], state["params"])
+        opt_state = {"m": tree_map(lambda a: a[0], state["opt"]["m"]),
+                     "v": tree_map(lambda a: a[0], state["opt"]["v"]),
+                     "count": state["opt"]["count"][0]}
+        loss, grads, parts = _loss_and_grads(cfg, params, local, tp,
+                                             cfg.microbatch)
+        _mean_over(tree_leaves(grads), d_ranks, d_group)
+        _, new_opt = opt.step(params, grads, opt_state,
+                              sched(state["step"][0]))
+        del grads
+        state["opt"]["count"][0] = new_opt["count"]
+        loss, parts = _sync_metrics(loss, parts, d_ranks, d_group)
+        step = state["step"] + 1
+        counts = state["counts"] + 1.0
+        synced = int(step[0]) % tcfg.fedat_sync_every == 0
+        sent = 0
+        if synced:
+            sent = mix(state["params"],
+                       aggregation.cross_tier_weights(counts).to(dev))
+        loss, parts = _sync_metrics(loss, parts, n_pods, pod_group)
+        metrics = {"loss": loss, **parts, "synced": float(synced),
+                   "payload_bytes": float(sent)}
+        return ({"params": state["params"], "opt": state["opt"],
+                 "step": step, "counts": counts}, metrics)
+
+    return StepFns(train_step, init_state, None, None)
+
+
+def split_batch_for_pods(batch, n_pods: int):
+    """(B, ...) -> (n_pods, B/n_pods, ...) on every leaf (numpy arrays or
+    tensors, ``meta`` ones included)."""
+    def split(x):
+        return x.reshape((n_pods, x.shape[0] // n_pods) + tuple(x.shape[1:]))
+    return {k: split(v) for k, v in batch.items()}
 
 
 # ---------------------------------------------------------------------------

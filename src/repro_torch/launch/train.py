@@ -1,30 +1,47 @@
-"""Training entry point: checkpointed, restart-on-failure, one device.
+"""Training entry point: fault-tolerant, checkpointed, FedAT-aware.
 
-The port of ``repro/launch/train.py`` for one device: the single-pod step
-(core/steps.py), the synthetic token pipeline, asynchronous checkpoints
-and the guarded runner that restores the last good checkpoint on a failed
-step.  It runs on the card unless ``--device cpu`` is given; the params
-are drawn on the device from a ``torch.Generator`` seeded with
-``--seed``.  Every family of the zoo trains: dense, moe, the vlm and
-audio frontends (with the pipeline's patch and frame batches; the MoE aux
-loss is logged beside the cross-entropy), and the recurrent rwkv6 and
-zamba2 (their scans' backward a kernel on the card).  ``--multi-pod`` and
-``--codec`` (pods as FedAT tiers and the cross-tier link) raise naming
-ROADMAP A16.
+The port of ``repro/launch/train.py``: the single-pod step or, with
+``--multi-pod``, the FedAT pods-as-tiers step (core/steps.py), the
+synthetic token pipeline, asynchronous checkpoints and the guarded runner
+that restores the last good checkpoint on a failed step.  It runs on the
+card unless ``--device cpu`` is given; the params are drawn on the device
+from a ``torch.Generator`` seeded with ``--seed``.  Every family of the
+zoo trains: dense, moe, the vlm and audio frontends (with the pipeline's
+patch and frame batches; the MoE aux loss is logged beside the
+cross-entropy), and the recurrent rwkv6 and zamba2 (their scans' backward
+a kernel on the card).
+
+The mesh is the host mesh over the launched ranks (launch/mesh.py; the
+production shapes are read by the dry-run only).  ``--multi-pod`` lays
+two pods over them, each pod a FedAT tier that mixes with the other every
+``--fedat-sync-every`` steps at ``--fedat-bits`` (or the int width of
+``--codec`` quantize8/quantize16); on one rank the mesh has no pod axis
+and the run is single-pod, the reference's rule.  Each rank draws the
+same global batch and trains its pod's (and data rank's) rows.  Rank 0
+writes the checkpoints of a single-pod run; under ``--multi-pod`` each
+pod's first data rank writes its pod's slot under ``<ckpt-dir>/pod<p>``.
+A restore (``--resume``, or the guarded runner after a failed step) is
+collective: the writers load one agreed step and broadcast it to their
+data ranks (:class:`RankCheckpoints`).
 
 Examples (CPU):
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-7b \\
       --smoke --steps 4 --ckpt-dir /tmp/ckpt --device cpu
-  PYTHONPATH=src python -m repro_torch.launch.train --arch rwkv6-3b \\
-      --smoke --steps 2 --device cpu
+  PYTHONPATH=src python -m torch.distributed.run --nproc-per-node 2 \\
+      -m repro_torch.launch.train --smoke --multi-pod --codec quantize8 \\
+      --fedat-sync-every 2 --steps 4 --ckpt-every 0 --device cpu
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
 import logging
+import os
 import time
 from typing import Any, Dict, List, Optional
+
+import torch
+import torch.distributed as dist
 
 from repro_torch.checkpoint import CheckpointManager
 from repro_torch.configs.base import TrainConfig
@@ -33,6 +50,8 @@ from repro_torch.configs.shapes import SHAPES, smoke_shape
 from repro_torch.core import steps as steps_mod
 from repro_torch.data.pipeline import TokenPipeline
 from repro_torch.device import resolve_device
+from repro_torch.launch import mesh as mesh_mod
+from repro_torch.optim.optimizers import tree_leaves
 from repro_torch.runtime.fault import GuardedRunner
 
 log = logging.getLogger("repro_torch.train")
@@ -59,39 +78,125 @@ def parser() -> argparse.ArgumentParser:
                     help="reduced config + tiny shape (CPU-runnable)")
     ap.add_argument("--steps", type=int, default=20)
     ap.add_argument("--multi-pod", action="store_true",
-                    help="not ported yet (ROADMAP A16)")
+                    help="two pods as FedAT tiers (needs an even number "
+                         "of ranks; single-pod on one rank)")
     ap.add_argument("--ckpt-dir", default="/tmp/repro_ckpt")
     ap.add_argument("--ckpt-every", type=int, default=10,
                     help="steps between checkpoints; 0 writes none")
     ap.add_argument("--resume", action="store_true")
     ap.add_argument("--inject-failure-rate", type=float, default=0.0)
+    ap.add_argument("--fedat-sync-every", type=int, default=4)
+    ap.add_argument("--fedat-bits", type=int, default=8)
     ap.add_argument("--codec", default=None,
-                    help="not ported yet (ROADMAP A16)")
+                    help="transport codec for the cross-tier link "
+                         "(quantize8/quantize16; overrides --fedat-bits)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default=None,
                     help="torch device: cuda (default), cuda:N or cpu")
     return ap
 
 
+class RankCheckpoints:
+    """The checkpoints of a run over the ranks of ``mesh``, with the
+    :class:`CheckpointManager` calls the guarded runner makes.
+
+    The ranks of one data line hold the same state, and its first rank,
+    the writer, alone holds ``ckpt`` (``None`` on the others) and saves.
+    :meth:`latest_step` and :meth:`restore` are collective over the world,
+    so every rank calls them at the same step (the runner's injected
+    failures are drawn from the same seed on every rank): each writer
+    waits for its pending save, the writers agree on the newest step that
+    all of them hold (a min over the world), load it and broadcast it to
+    the rest of their data line.  On one rank they are the manager's
+    own."""
+
+    def __init__(self, ckpt: Optional[CheckpointManager], mesh, device):
+        self.ckpt = ckpt
+        self.mesh = mesh
+        self.device = device
+
+    def save(self, step: int, state: Any, blocking: bool = False) -> None:
+        if self.ckpt is not None:
+            self.ckpt.save(step, state, blocking=blocking)
+
+    def _agree(self, step: Optional[int]) -> Optional[int]:
+        """The min over the world of the writers' ``step`` (None: -1)."""
+        if self.ckpt is None:
+            step = 2 ** 62
+        t = torch.tensor([-1 if step is None else step], dtype=torch.int64,
+                         device=self.device)
+        dist.all_reduce(t, op=dist.ReduceOp.MIN)
+        return None if int(t) < 0 else int(t)
+
+    def latest_step(self) -> Optional[int]:
+        if mesh_mod.world_size() == 1:
+            return self.ckpt.latest_step()
+        if self.ckpt is not None:
+            self.ckpt.wait()
+        return self._agree(None if self.ckpt is None
+                           else self.ckpt.latest_step())
+
+    def restore(self, like: Any):
+        if mesh_mod.world_size() == 1:
+            return self.ckpt.restore(like)
+        state, step = like, None
+        if self.ckpt is not None:
+            try:
+                state, step = self.ckpt.restore(like)
+            except FileNotFoundError:
+                pass
+        agreed = self._agree(step)
+        if agreed is None:
+            raise FileNotFoundError("no checkpoint that every writer can "
+                                    "restore")
+        if self.ckpt is not None and step != agreed:
+            state, _ = self.ckpt.restore(like, step=agreed)
+        if self.mesh.shape["data"] > 1:
+            group, ranks = self.mesh.group("data")
+            for leaf in tree_leaves(state):
+                dist.broadcast(leaf, src=ranks[0], group=group)
+        return state, agreed
+
+
+def build(cfg, tcfg, mesh, multi_pod: bool, device=None):
+    if multi_pod:
+        return steps_mod.make_fedat_step(cfg, tcfg, mesh, device=device)
+    return steps_mod.make_single_pod_step(cfg, tcfg, mesh, device=device)
+
+
 def run(args: argparse.Namespace, cfg=None, shape=None) -> TrainResult:
     """Train ``args.steps`` steps (from the latest checkpoint with
     ``--resume``).  ``cfg`` / ``shape`` override what ``--arch`` /
-    ``--shape`` / ``--smoke`` resolve to (a depth-cut config, say)."""
-    if args.multi_pod or args.codec:
-        raise NotImplementedError(
-            "--multi-pod and --codec (pods as FedAT tiers, the cross-tier "
-            "link) are not ported to the PyTorch package yet (ROADMAP A16)")
-    dev = resolve_device(args.device)
+    ``--shape`` / ``--smoke`` resolve to (a depth-cut config, say).
+    Under a launcher's environment (``WORLD_SIZE`` > 1) the rank joins
+    the process group first."""
+    if args.codec:
+        from repro_torch.compress import transport
+        try:
+            args.fedat_bits = transport.cross_tier_bits(args.codec)
+        except ValueError as e:
+            parser().error(str(e))
+    dev = mesh_mod.init_from_env(resolve_device(args.device))
     if cfg is None:
         cfg = get_smoke_config(args.arch) if args.smoke else get_config(
             args.arch)
     if shape is None:
         shape = smoke_shape("train") if args.smoke else SHAPES[args.shape]
-    tcfg = TrainConfig(total_steps=args.steps, ckpt_dir=args.ckpt_dir,
-                       ckpt_every=args.ckpt_every, seed=args.seed)
-    fns = steps_mod.make_single_pod_step(cfg, tcfg, device=dev)
+    tcfg = TrainConfig(
+        fedat_enabled=args.multi_pod, fedat_sync_every=args.fedat_sync_every,
+        fedat_compress_bits=args.fedat_bits, total_steps=args.steps,
+        ckpt_dir=args.ckpt_dir, ckpt_every=args.ckpt_every, seed=args.seed)
+    mesh = mesh_mod.make_host_mesh(n_pods=2 if args.multi_pod else 1)
+    multi_pod = args.multi_pod and "pod" in mesh.shape
+    n_pods = mesh.shape.get("pod", 1)
+    fns = build(cfg, tcfg, mesh, multi_pod, device=dev)
     pipe = TokenPipeline(cfg, shape, seed=args.seed)
-    ckpt = CheckpointManager(args.ckpt_dir, keep=3)
+    ckpt_dir = args.ckpt_dir
+    if multi_pod:
+        ckpt_dir = os.path.join(ckpt_dir, f"pod{mesh.coord('pod')}")
+    ckpt = RankCheckpoints(
+        CheckpointManager(ckpt_dir, keep=3) if mesh.coord("data") == 0
+        else None, mesh, dev)
 
     state = fns.init_state(args.seed)
     start = 0
@@ -106,6 +211,8 @@ def run(args: argparse.Namespace, cfg=None, shape=None) -> TrainResult:
         while True:
             t = time.perf_counter()
             batch = pipe.batch(step)
+            if multi_pod:
+                batch = steps_mod.split_batch_for_pods(batch, n_pods)
             batch_s.append(time.perf_counter() - t)
             yield batch
             step += 1
@@ -142,7 +249,10 @@ def run(args: argparse.Namespace, cfg=None, shape=None) -> TrainResult:
 def main(argv: Optional[List[str]] = None) -> List[float]:
     args = parser().parse_args(argv)
     logging.basicConfig(level=logging.INFO)
-    return run(args).losses
+    try:
+        return run(args).losses
+    finally:
+        mesh_mod.shutdown()
 
 
 if __name__ == "__main__":

@@ -1,8 +1,11 @@
 """GQA/MQA attention: chunked full/windowed prefill + cached decode.
 
-The port of ``repro/models/attention.py`` at tensor parallelism 1 (the
-reference's TP padding and sharding annotations are identities there;
-``tp > 1`` raises naming ROADMAP A16).
+The port of ``repro/models/attention.py``.  At ``tp > 1`` it computes
+what the reference computes on one device: query heads padded to
+``cfg.padded_heads(tp)`` (zero-initialised nowhere: the padded heads are
+ordinary heads of the wider projection), the KV layout by
+``cfg.kv_sharded(tp)``, and the ``reference`` backend; the reference's
+sharding annotations are layouts (runtime/sharding.py).
 
   * Full-sequence attention (train / prefill) takes one of two backends
     (:func:`resolve_attention_backend`): ``flash`` routes through the
@@ -31,13 +34,6 @@ from repro_torch.kernels import ops as kops
 from repro_torch.models.common import PSpec, apply_rope
 
 NEG_INF = -1e9
-
-
-def check_tp(tp: int) -> None:
-    if tp != 1:
-        raise NotImplementedError(
-            f"tensor parallelism (tp={tp}) is not ported to the PyTorch "
-            f"package yet (ROADMAP A16); use tp=1")
 
 
 def resolve_attention_backend(cfg: ModelConfig, tp: int) -> str:
@@ -105,7 +101,6 @@ class KVCache(NamedTuple):
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, tp: int,
                dtype=torch.bfloat16, stacked: int = 0,
                device: Optional[torch.device] = None) -> KVCache:
-    check_tp(tp)
     T = min(max_len, cfg.swa_window) if cfg.swa_window else max_len
     kv, hd = cfg.n_kv_heads, cfg.head_dim
     lead = (stacked,) if stacked else ()

@@ -4,7 +4,9 @@ The port of ``repro/models/common.py``.  Parameters are plain nested dicts
 of tensors with the reference's keys, shapes and layouts (``(in, out)``
 dense weights, layers stacked on a leading axis).  Every model module
 declares a same-structure tree of :class:`PSpec`; :func:`init_from_specs`
-materializes it directly on the target device.
+materializes it directly on the target device, :func:`shapes_from_specs`
+on the ``meta`` device (shapes only), and :func:`shardings_from_specs`
+resolves its logical axes to layouts on a mesh.
 """
 from __future__ import annotations
 
@@ -78,6 +80,31 @@ def init_from_specs(specs: Dict[str, Any], generator: torch.Generator,
             node = node.setdefault(k, {})
         node[path[-1]] = t
     return out
+
+
+def _map_specs(fn, specs):
+    if is_pspec(specs):
+        return fn(specs)
+    return {k: _map_specs(fn, v) for k, v in specs.items()}
+
+
+def axes_from_specs(specs):
+    """The spec tree's logical axes, one tuple a leaf."""
+    return _map_specs(lambda s: s.axes, specs)
+
+
+def shapes_from_specs(specs, dtype=torch.float32):
+    """The spec tree as tensors on the ``meta`` device: shapes and dtypes,
+    no storage (the reference's ``ShapeDtypeStruct`` stand-ins)."""
+    return _map_specs(lambda s: torch.empty(s.shape, dtype=dtype,
+                                            device="meta"), specs)
+
+
+def shardings_from_specs(specs, mesh=None):
+    """Each leaf's resolved layout under ``mesh`` (runtime/sharding.py;
+    None without a mesh)."""
+    from repro_torch.runtime import sharding as shd
+    return _map_specs(lambda s: shd.logical_sharding(s.axes, mesh), specs)
 
 
 def param_bytes(specs: Dict[str, Any], bytes_per_el: int = 2) -> int:

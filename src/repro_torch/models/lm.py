@@ -2,12 +2,13 @@
 
 The port of ``repro/models/lm.py``:
 
-  * ``param_specs / init_params``
+  * ``param_specs / init_params / param_axes / abstract_params``
   * ``forward_train(cfg, params, batch, tp)``     (features)
   * ``loss_fn(cfg, params, batch, tp)``           (train shapes)
   * ``serve_prefill(cfg, params, batch, tp, cache, last_pos=None)``
   * ``serve_step(cfg, params, tokens, pos, tp, cache)``
-  * ``init_cache / cache_axes_tree``
+  * ``init_cache / abstract_cache / cache_axes_tree``
+  * ``input_specs / input_axes``  (``meta``-device stand-ins for the dry-run)
 
 Families: dense/moe/vlm/audio -> transformer.py; ssm -> rwkv6.py;
 hybrid -> zamba2.py, dispatched here as in the reference.  The recurrent
@@ -25,6 +26,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.shapes import ShapeConfig
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import attention as attn
 from repro_torch.models import common, mamba2, rwkv6, transformer, zamba2
@@ -57,6 +59,20 @@ def init_params(cfg: ModelConfig, seed: int, tp: int = 1,
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
     return common.init_from_specs(param_specs(cfg, tp), gen, dev, dtype)
+
+
+def param_axes(cfg: ModelConfig, tp: int):
+    return common.axes_from_specs(param_specs(cfg, tp))
+
+
+def anchor_params(cfg: ModelConfig, params, tp: int):
+    """The reference pins every leaf to its logical sharding inside the
+    jitted step; a rank holds each leaf whole, so the params unchanged."""
+    return params
+
+
+def abstract_params(cfg: ModelConfig, tp: int, dtype=torch.bfloat16):
+    return common.shapes_from_specs(param_specs(cfg, tp), dtype)
 
 
 def forward_train(cfg: ModelConfig, p, batch, tp: int):
@@ -170,10 +186,22 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, tp: int,
                             device=dev)
 
 
+def abstract_cache(cfg: ModelConfig, batch: int, max_len: int, tp: int,
+                   dtype=torch.bfloat16):
+    """:func:`init_cache` on the ``meta`` device (shapes and dtypes)."""
+    meta = torch.device("meta")
+    if cfg.family in TRANSFORMER_FAMILIES:
+        return transformer.init_cache(cfg, batch, max_len, tp, dtype,
+                                      device=meta)
+    if cfg.family == "hybrid":
+        return zamba2.init_cache(cfg, batch, max_len, tp, dtype, device=meta)
+    return rwkv6.init_state(cfg, batch, tp, stacked=cfg.n_layers,
+                            device=meta)
+
+
 def cache_axes_tree(cfg: ModelConfig, tp: int):
     """Logical axes of each cache leaf, in the cache's own tree (the
     engine finds each leaf's batch axis as ``"cache_batch"``)."""
-    attn.check_tp(tp)
     kv_axes = (None,) + attn.cache_axes(cfg, tp)
     kv_tree = attn.KVCache(k=kv_axes, v=kv_axes,
                            positions=(None, "cache_batch", kv_axes[2]))
@@ -191,3 +219,47 @@ def cache_axes_tree(cfg: ModelConfig, tp: int):
         cshift=(None, "cache_batch", None),
         wkv=(None, "cache_batch", "tp", None, None),
     )
+
+
+# ---------------------------------------------------------------------------
+# input specs (meta-device stand-ins for the dry-run / launchers)
+# ---------------------------------------------------------------------------
+
+def _meta(shape, dtype) -> torch.Tensor:
+    return torch.empty(shape, dtype=dtype, device="meta")
+
+
+def input_specs(cfg: ModelConfig, shape: ShapeConfig) -> Dict[str, Any]:
+    """Abstract model inputs for one (arch x shape) cell."""
+    B, S = shape.global_batch, shape.seq_len
+    i32 = torch.int32
+    if shape.kind in ("train", "prefill"):
+        if cfg.family == "vlm":
+            np_ = min(cfg.n_frontend_tokens, S // 2)
+            return {"patch_embeds": _meta((B, np_, cfg.d_model),
+                                          torch.bfloat16),
+                    "tokens": _meta((B, S - np_), i32)}
+        if cfg.family == "audio":
+            out = {"frames": _meta((B, S, cfg.d_model), torch.bfloat16)}
+            if shape.kind == "train":
+                out["labels"] = _meta((B, S), i32)
+                out["mask"] = _meta((B, S), torch.bool)
+            return out
+        return {"tokens": _meta((B, S), i32)}
+    # decode: one new token against a cache of S
+    return {"tokens": _meta((B,), i32), "pos": _meta((), i32)}
+
+
+def input_axes(cfg: ModelConfig, shape: ShapeConfig) -> Dict[str, tuple]:
+    if shape.kind in ("train", "prefill"):
+        if cfg.family == "vlm":
+            return {"patch_embeds": ("batch", None, None),
+                    "tokens": ("batch", None)}
+        if cfg.family == "audio":
+            out = {"frames": ("batch", None, None)}
+            if shape.kind == "train":
+                out["labels"] = ("batch", None)
+                out["mask"] = ("batch", None)
+            return out
+        return {"tokens": ("batch", None)}
+    return {"tokens": ("batch",), "pos": ()}

@@ -1,9 +1,10 @@
 """Mixture-of-experts FFN (GShard/Switch-style dense dispatch).
 
-The port of ``repro/models/moe.py`` at tensor parallelism 1 (the
-reference's two sharding modes, experts over the ``model`` axis or each
-expert's d_ff over it, and its sharding annotations are identities there;
-``tp > 1`` raises naming ROADMAP A16 in models/attention.py ``check_tp``).
+The port of ``repro/models/moe.py``.  The reference's two sharding
+modes (experts over the ``model`` axis, or each expert's d_ff over it)
+choose the logical axes of the expert weights (:func:`moe_specs`); the
+values are the same either way, and the annotations are layouts
+(runtime/sharding.py).
 
 Token-choice top-k routing with per-group capacity; dropped tokens fall
 through on the residual path.  Groups are 256-token chunks of the sequence

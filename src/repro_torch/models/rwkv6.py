@@ -1,7 +1,7 @@
 """RWKV-6 (Finch): data-dependent decay linear RNN [arXiv:2404.05892].
 
-The port of ``repro/models/rwkv6.py`` at tensor parallelism 1 (the
-reference's head padding for a 16-way model axis is the identity there).
+The port of ``repro/models/rwkv6.py``; at ``tp > 1`` the heads are
+padded to a multiple of ``tp`` (:func:`padded_rwkv_heads`), as there.
 Structure per layer: time-mix (WKV6 recurrence) + channel-mix, both with
 token-shift and the ddlerp dynamic mixing LoRA.  Recurrence per head:
 
@@ -29,7 +29,6 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import rwkv6_scan
-from repro_torch.models.attention import check_tp
 from repro_torch.models.common import PSpec, rms_norm
 
 # The reference model's WKV6 chunk length (its intra-chunk pairwise-decay
@@ -38,8 +37,9 @@ CHUNK = 32
 
 
 def padded_rwkv_heads(cfg: ModelConfig, tp: int) -> int:
-    check_tp(tp)
-    return cfg.d_model // cfg.rwkv.head_size
+    """Heads padded up to a multiple of the tensor-parallel degree."""
+    h = cfg.d_model // cfg.rwkv.head_size
+    return -(-h // tp) * tp if tp > 1 else h
 
 
 def layer_specs(cfg: ModelConfig, tp: int, L: int) -> Dict[str, Any]:

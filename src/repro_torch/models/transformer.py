@@ -43,7 +43,6 @@ def _is_moe(cfg: ModelConfig) -> bool:
 # ---------------------------------------------------------------------------
 
 def param_specs(cfg: ModelConfig, tp: int) -> Dict[str, Any]:
-    attn.check_tp(tp)
     d, L = cfg.d_model, cfg.n_layers
     vp = cfg.padded_vocab(tp)
     layer: Dict[str, Any] = {
@@ -191,7 +190,6 @@ def _run_layers(cfg: ModelConfig, tp: int, x: torch.Tensor, layers,
 def forward_train(cfg: ModelConfig, p, batch, tp: int
                   ) -> Tuple[torch.Tensor, torch.Tensor, int]:
     """Returns (features (B,S,d), aux_loss, prefix_len)."""
-    attn.check_tp(tp)
     x, prefix_len = embed_inputs(cfg, p, batch, tp)
     x, aux = _run_layers(cfg, tp, x, p["layers"], index_tree, prefix_len)
     x = rms_norm(x, p["final_norm"], cfg.rms_eps)
@@ -305,7 +303,6 @@ def serve_prefill(cfg, p, batch, tp: int, cache: attn.KVCache,
     decode never attends the right-padding.  It indexes the embedded
     sequence: for vlm, the patches come first.
     """
-    attn.check_tp(tp)
     x, prefix_len = embed_inputs(cfg, p, batch, tp)
     S = x.shape[1]
     positions = torch.arange(S, dtype=torch.int32, device=x.device)
@@ -326,7 +323,6 @@ def serve_prefill(cfg, p, batch, tp: int, cache: attn.KVCache,
 def serve_step(cfg: ModelConfig, p, tokens: torch.Tensor, pos, tp: int,
                cache: attn.KVCache) -> Tuple[torch.Tensor, attn.KVCache]:
     """One decode step. tokens: (B,) int32; pos: int or (B,) int32."""
-    attn.check_tp(tp)
     x = p["embed"][tokens.long()[:, None]]
     if cfg.family == "vlm":
         x = x * (cfg.d_model ** 0.5)

@@ -40,7 +40,6 @@ def n_attn_apps(cfg: ModelConfig) -> int:
 
 
 def param_specs(cfg: ModelConfig, tp: int) -> Dict[str, Any]:
-    attn.check_tp(tp)
     d, L = cfg.d_model, cfg.n_layers
     vp = cfg.padded_vocab(tp)
     return {

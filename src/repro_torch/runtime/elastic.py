@@ -5,9 +5,10 @@ regained, FedAT keeps training: the tier map shrinks/grows and the
 cross-tier weights renormalize (Eq. 3 is defined for any M).  This module
 handles the mechanical part:
 
-  * ``reshard(tree, device)``: move every leaf of a state dict to a
-    device (the reference reshards onto a new mesh; the port has one
-    device until the mesh lands, ROADMAP A16);
+  * ``reshard(tree, target)``: place a state tree for this rank on a new
+    mesh (each rank keeps its pod slots of a multi-pod FedAT state; every
+    other layout of the reference keeps leaves whole,
+    runtime/sharding.py) or on a device;
   * ``shrink_pods / grow_pods``: adjust the pod-stacked leading dim of a
     multi-pod FedAT state (dropping a tier keeps the survivors' models;
     adding a tier bootstraps the newcomer from the Eq. 3 global model);
@@ -31,13 +32,29 @@ def _map(fn, tree):
     return fn(tree)
 
 
-def reshard(tree: Any, device: DeviceLike = None) -> Any:
-    """Every tensor leaf of ``tree`` on ``device``.  One device only: the
-    reference's placement on a new mesh waits for the port's mesh
-    (ROADMAP A16)."""
+def reshard(tree: Any, target: Any = None,
+            device: DeviceLike = None) -> Any:
+    """``tree`` placed for this rank: every tensor leaf on ``device``
+    (None = the card), or on ``target`` when it is a device.  When
+    ``target`` is a mesh with a pod axis of P > 1 and ``tree`` a
+    multi-pod FedAT state (``params``/``opt``/``step``/``counts``), each
+    pod-stacked leaf with a leading dim of P keeps this rank's pod slot
+    (a leading dim of 1); ``counts`` stays whole, as Eq. 3 reads every
+    tier's."""
+    if target is not None and not hasattr(target, "shape"):
+        device = target
     dev = resolve_device(device)
-    return _map(lambda x: x.to(dev) if isinstance(x, torch.Tensor) else x,
+    tree = _map(lambda x: x.to(dev) if isinstance(x, torch.Tensor) else x,
                 tree)
+    pods = getattr(target, "shape", {}).get("pod", 1)
+    if pods == 1 or not (isinstance(tree, dict) and "counts" in tree):
+        return tree
+    p = target.coord("pod")
+
+    def keep(x):
+        return x[p:p + 1] if x.shape[0] == pods else x
+    return {k: (v if k == "counts" else _map(keep, v))
+            for k, v in tree.items()}
 
 
 def shrink_pods(state: Dict[str, Any], keep: Sequence[int]) -> dict:

@@ -41,7 +41,6 @@ import numpy as np
 import torch
 
 from repro_torch.models import lm
-from repro_torch.models.attention import check_tp
 from repro_torch.serve.spec import ServeSpec
 
 
@@ -90,7 +89,6 @@ class ServeEngine:
 
     def __init__(self, cfg, params, spec: ServeSpec, tp: int = 1):
         spec.validate()
-        check_tp(tp)
         self.cfg = cfg
         self.spec = spec
         self.tp = tp

@@ -78,14 +78,25 @@ FAULT_BAD = {"faults.churn_rate": 1.5, "faults.blackouts": -1,
     ("mesh.kind", "host", "A16"),
 ])
 def test_unported_sections_name_their_roadmap_item(path, value, item):
-    """The plane still to port (the mesh, A16) refuses non-default values
-    naming its item.  The fault (A12), population (A13) and topology
-    (A14) planes are ported: their knobs validate, hash as in the
-    reference and bridge to the reference's ``SimConfig`` payload, and
-    an out-of-range fault knob raises the reference's message."""
+    """Every case refused naming its ROADMAP item before the item was
+    ported (the ids are kept).  The fault (A12), population (A13),
+    topology (A14) and mesh (A16) sections are ported: their knobs
+    validate, hash as in the reference and bridge to the reference's
+    ``SimConfig`` payload, and an out-of-range fault knob raises the
+    reference's message."""
     spec = tapi.ExperimentSpec().with_overrides({path: value})
     jspec = japi.ExperimentSpec().with_overrides({path: value})
     jspec.validate()                                       # valid there
+    if item == "A16":
+        spec.validate()
+        assert spec.hash() == jspec.hash()
+        assert spec.env_hash() == jspec.env_hash()
+        assert spec.env_hash() != tapi.ExperimentSpec().env_hash()
+        sc, jsc = spec.to_sim_config(), jspec.to_sim_config()
+        assert (sc.mesh, sc.shard_tiers) == (jsc.mesh, jsc.shard_tiers) \
+            == ("host", False)
+        assert type(spec).from_sim_config(sc) == spec
+        return
     if item in ("A13", "A14"):
         spec.validate()
         assert spec.hash() == jspec.hash()

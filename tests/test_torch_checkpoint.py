@@ -210,10 +210,23 @@ def test_trainer_smoke_runs_on_cpu_and_resumes(tmp_path):
 
 
 def test_trainer_cli_main_and_unported_flags(tmp_path):
-    losses = ttrain.main(["--smoke", "--device", "cpu", "--steps", "2",
-                          "--ckpt-dir", str(tmp_path)])
+    """``--multi-pod`` and ``--codec`` raised naming A16 before A16 was
+    ported (the name is kept).  On one rank ``--multi-pod`` has no pod
+    axis and trains single-pod, the reference's rule, to the same losses;
+    ``--codec`` sets the cross-tier bits as the reference's
+    ``cross_tier_bits`` does, and refuses a codec with no int payload
+    with the reference's message."""
+    from repro.compress import transport as jtransport
+    argv = ["--smoke", "--device", "cpu", "--steps", "2", "--ckpt-every",
+            "0", "--ckpt-dir", str(tmp_path)]
+    losses = ttrain.main(argv)
     assert len(losses) == 2
-    for flag in (["--multi-pod"], ["--codec", "quantize8"]):
-        with pytest.raises(NotImplementedError, match="A16"):
-            ttrain.main(["--smoke", "--device", "cpu", "--steps", "1",
-                         "--ckpt-dir", str(tmp_path)] + flag)
+    assert ttrain.main(argv + ["--multi-pod"]) == losses
+    for codec in ("quantize8", "quantize16"):
+        args = ttrain.parser().parse_args(argv + ["--codec", codec])
+        res = ttrain.run(args)
+        assert args.fedat_bits == jtransport.cross_tier_bits(codec)
+        assert res.losses == losses
+    with pytest.raises(SystemExit) as e:
+        ttrain.main(argv + ["--codec", "polyline:4"])
+    assert e.value.code == 2

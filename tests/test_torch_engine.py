@@ -289,17 +289,24 @@ def test_runs_are_deterministic(envs):
         delay=(("silo_global", 1.0, 3.0),), silo_skew=0.5), "A14"),
     ("mesh", "host", "A16")])
 def test_unported_planes_name_their_roadmap_item(field, value, item):
-    """The plane still to port (the mesh, A16) refuses to build, naming
-    its item.  Churn (A12), the population plane (A13) and the topology
-    plane (A14) are ported: the environment builds and equals the
-    reference's (churn windows, tier map, eval subset, silo and edge
-    membership, bitwise)."""
+    """Every case refused to build naming its ROADMAP item before the
+    item was ported (the ids are kept).  Churn (A12), the population
+    plane (A13), the topology plane (A14) and the mesh (A16) are ported:
+    the environment builds and equals the reference's (churn windows,
+    tier map, eval subset, silo and edge membership, the mesh's data
+    axis, bitwise)."""
     sc = TSimConfig(n_clients=4, n_tiers=2, clients_per_round=2,
                     n_unstable=1)
     setattr(sc, field, value)
     if item == "A16":
-        with pytest.raises(NotImplementedError, match=item):
-            TSimEnv(sc, device="cpu")
+        # one rank, as the reference's one device: a (data=1, model=1)
+        # mesh, data axis 1, the single-device round bodies
+        env, jenv = TSimEnv(sc, device="cpu"), JSimEnv(JSimConfig(
+            n_clients=4, n_tiers=2, clients_per_round=2, n_unstable=1,
+            mesh=value))
+        assert env.data_axis == jenv.data_axis == 1
+        assert env.mesh.shape == dict(jenv.mesh.shape)
+        assert np.array_equal(env.tm.tier_of, jenv.tm.tier_of)
         return
     env = TSimEnv(sc, device="cpu")
     if item == "A12":

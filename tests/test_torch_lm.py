@@ -290,9 +290,14 @@ def test_unported_families_raise(arch, match):
 
 
 def test_tp_and_device_policy(monkeypatch):
+    """tp > 1 (A16) gives the reference's padded shapes; the default
+    device is the card, with no fallback."""
     cfg = tsmoke("qwen2-7b")
-    with pytest.raises(NotImplementedError, match="A16"):
-        tlm.param_specs(cfg, tp=2)
+    want = jax.tree.map(lambda s: tuple(s.shape),
+                        jlm.abstract_params(jsmoke("qwen2-7b"), 2))
+    got = jax.tree.map(lambda s: tuple(s.shape), tlm.param_specs(cfg, tp=2),
+                       is_leaf=lambda s: hasattr(s, "axes"))
+    assert got == want
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         tlm.init_params(cfg, seed=0)

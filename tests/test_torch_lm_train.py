@@ -185,14 +185,17 @@ def test_init_state_draws_on_the_device():
                                   "poison_updates", "gate_updates",
                                   "UpdateGate"])
 def test_unported_steps_raise(name):
-    """The multi-pod step and its batch split raise naming A16; the fault
-    plane's update gate (A12) is ported with the reference's signatures
-    (tests/test_torch_faults.py holds its results to the reference's)."""
-    if name in ("make_fedat_step", "split_batch_for_pods"):
-        with pytest.raises(NotImplementedError, match="A16"):
-            getattr(tsteps, name)()
-        return
+    """The multi-pod step and its batch split raised naming A16 before
+    A16 was ported (the ids are kept); each now takes the reference's
+    parameters (the multi-pod step one more, ``device``), as the fault
+    plane's update gate (A12) does.  tests/test_torch_steps_multipod.py
+    and tests/test_torch_faults.py hold their results to the
+    reference's."""
     import inspect
     from repro.core import steps as jsteps
-    assert (list(inspect.signature(getattr(tsteps, name)).parameters)
-            == list(inspect.signature(getattr(jsteps, name)).parameters))
+    got = list(inspect.signature(getattr(tsteps, name)).parameters)
+    want = list(inspect.signature(getattr(jsteps, name)).parameters)
+    if name == "make_fedat_step":
+        assert got == want + ["device"]
+        return
+    assert got == want

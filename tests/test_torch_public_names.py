@@ -16,7 +16,7 @@ gap from regrowing unseen.
   * The coverage guard: every public top-level function, class and method
     of each reference module whose file the port has exists in the port,
     or is listed in ``NOT_PORTED`` with the ROADMAP item that will bring
-    it (A16: the mesh and sharding).
+    it (empty now).
 """
 import ast
 import importlib
@@ -64,25 +64,9 @@ ROOT = Path(__file__).resolve().parents[1] / "src"
 FP32_RTOL = 2e-6
 
 #: reference names the port does not have yet, each with the ROADMAP
-#: item that brings it; a whole file is listed by its path alone
-NOT_PORTED = {
-    "launch/dryrun.py": "A16",
-    "launch/mesh.py": "A16",
-    "runtime/sharding.py": "A16",
-    "api/spec.py:MeshSpec.from_name": "A16",
-    "core/steps.py:None_shape": "A16",
-    "core/steps.py:opt_axes_like": "A16",
-    "launch/train.py:build": "A16",
-    "models/common.py:axes_from_specs": "A16",
-    "models/common.py:shapes_from_specs": "A16",
-    "models/common.py:shardings_from_specs": "A16",
-    "models/lm.py:abstract_cache": "A16",
-    "models/lm.py:abstract_params": "A16",
-    "models/lm.py:anchor_params": "A16",
-    "models/lm.py:input_axes": "A16",
-    "models/lm.py:input_specs": "A16",
-    "models/lm.py:param_axes": "A16",
-}
+#: item that brings it; a whole file is listed by its path alone.  Empty
+#: since A16 (the mesh, sharding and the dry-run) was ported.
+NOT_PORTED = {}
 
 
 def _public_names(path: Path):
@@ -114,6 +98,58 @@ def _port_module(rel: str):
     if mod.endswith(".__init__"):
         mod = mod[:-len(".__init__")]
     return importlib.import_module("repro_torch." + mod)
+
+
+#: the names ROADMAP A16 brought (the mesh, sharding, the dry-run and
+#: the multi-pod trainer); a whole file is listed by its path
+A16_NAMES = [
+    "launch/dryrun.py", "launch/mesh.py", "runtime/sharding.py",
+    "api/spec.py:MeshSpec.from_name", "core/steps.py:None_shape",
+    "core/steps.py:opt_axes_like", "launch/train.py:build",
+    "models/common.py:axes_from_specs", "models/common.py:shapes_from_specs",
+    "models/common.py:shardings_from_specs", "models/lm.py:abstract_cache",
+    "models/lm.py:abstract_params", "models/lm.py:anchor_params",
+    "models/lm.py:input_axes", "models/lm.py:input_specs",
+    "models/lm.py:param_axes"]
+#: parameters the port adds after the reference's (where a call runs:
+#: the device; a mesh's collective backend; the dry-run's argv)
+PORT_EXTRA = ("device", "backend", "argv")
+
+
+def _a16_cases():
+    out = []
+    for key in A16_NAMES:
+        rel, _, name = key.partition(":")
+        names = [name] if name else [
+            n for n in _public_names(ROOT / "repro" / rel) if "." not in n]
+        out += [(rel, n) for n in names]
+    return out
+
+
+def _params(path: Path, dotted: str):
+    """Parameter names of function or method ``dotted`` of ``path``, read
+    from its source (importing the reference's launch/dryrun.py would set
+    its forced device count for the rest of the process)."""
+    body = ast.parse(path.read_text()).body
+    *owners, name = dotted.split(".")
+    for owner in owners:
+        body = next(n for n in body if isinstance(n, ast.ClassDef)
+                    and n.name == owner).body
+    fn = next(n for n in body if isinstance(n, ast.FunctionDef)
+              and n.name == name)
+    a = fn.args
+    names = [x.arg for x in a.posonlyargs + a.args + a.kwonlyargs]
+    return [n for n in names if n not in ("self", "cls")]
+
+
+@pytest.mark.parametrize("rel,name", _a16_cases())
+def test_a16_names_take_the_reference_parameters(rel, name):
+    """Each name A16 brought takes the reference's parameters, in order,
+    the port's own trailing extras (``PORT_EXTRA``) aside."""
+    want = _params(ROOT / "repro" / rel, name)
+    got = _params(ROOT / "repro_torch" / rel, name)
+    assert got[:len(want)] == want, (got, want)
+    assert all(p in PORT_EXTRA for p in got[len(want):]), got
 
 
 def test_every_public_reference_name_is_ported_or_listed():
