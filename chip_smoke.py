@@ -242,6 +242,23 @@ only, never JAX or the reference package.  Phases:
     every parameter's bits); the bytes a sync sends (int8 codes + row
     scales) against fp32, then one more step syncing at 4 bits (packed
     codes half of int8's); step seconds and peak memory per rank.
+28. The trainer sharded over ``data`` (FSDP, ZeRO-3): ``launch/train.py``
+    (``train.run``, ``--ckpt-every 0``) on 2 ranks sharing the card over
+    gloo (``--rank-phase 28``), qwen2-7b at published widths cut to
+    ``FSDP_LAYERS`` layers, a global batch of 2 x 4096 tokens (one row a
+    rank, microbatch 1), remat, fp32 AdamW, ``FSDP_STEPS`` steps; then
+    the same global batch on one rank in this process, replicated (2
+    rows, microbatch 2).  Counts from 0 on each rank, exact a step: flash
+    2 x layers forward and layers backward; FSDP gathers (one a layer
+    forward and again in the recompute, the embedding and head) and
+    reduce-scatters (one a gathered group), each a collective over one
+    flat buffer: gloo broadcasts D a gather, all_reduces one a
+    reduce-scatter plus one a whole leaf, the metrics and the norm.  Each
+    rank's params + m + v bytes exactly the dry-run's ``device_bytes``
+    arithmetic; the ranks' losses equal, and with the gathered final
+    params within ``FSDP_LOSS_RTOL`` / ``FSDP_PARAM_ATOL`` of the one-rank
+    run's; a rank's peak below the one-rank run's; state bytes, peaks,
+    step seconds and the collectives' host seconds.
 
 Any failed check exits non-zero.  The last three lines of standard output
 are the kernel report (JSON), the card's ``name, power.limit`` and
@@ -4564,12 +4581,24 @@ TRAIN_POD_BATCH = 8
 TRAIN_POD_MICROBATCH = 4
 TRAIN_POD_STEPS = 3
 
+#: phase 28: 2 ranks, one row of 4096 tokens each, the same depth as
+#: phase 27 so the one-rank replicated run fits beside it
+FSDP_RANKS = 2
+FSDP_LAYERS = 2
+FSDP_STEPS = 2
+#: read 0 and 0 (bitwise: the ranks' rows are the one-rank run's
+#: microbatches through the same kernels, a sum of two commutes); room
+#: for the clip's norm summed in another order
+FSDP_LOSS_RTOL = 1e-6
+FSDP_PARAM_ATOL = 1e-7
+
 
 class _Collectives:
     """Counts (and host-times, around a synchronise) the collectives the
     port calls in this process, by patching torch.distributed."""
 
-    NAMES = ("all_reduce", "broadcast", "all_gather")
+    NAMES = ("all_reduce", "broadcast", "all_gather",
+             "all_gather_into_tensor", "reduce_scatter_tensor")
 
     def __init__(self, torch):
         import torch.distributed as dist
@@ -5023,11 +5052,260 @@ def run_multipod(torch, kernels):
     return info
 
 
+def _fsdp_cfg(microbatch: int):
+    from repro_torch.configs.registry import get_config
+    from repro_torch.configs.shapes import ShapeConfig
+    cfg = get_config("qwen2-7b").replace(n_layers=FSDP_LAYERS,
+                                         microbatch=microbatch)
+    return cfg, ShapeConfig("train_4k", 4096, FSDP_RANKS, "train")
+
+
+def _fsdp_argv() -> list:
+    return ["--arch", "qwen2-7b", "--ckpt-every", "0", "--steps",
+            str(FSDP_STEPS), "--seed", "0", "--device", "cuda", "--ckpt-dir",
+            str(ROOT / "build" / "chip_smoke_fsdp" / "ck")]
+
+
+def rank_phase28(torch, out_fmt: str) -> None:
+    """One rank of phase 28 (started by :func:`run_fsdp`)."""
+    import dataclasses
+    import torch.distributed as dist
+    from repro_torch import kernels
+    from repro_torch.core import steps as steps_mod
+    from repro_torch.launch import mesh as mesh_mod
+    from repro_torch.launch import train
+    from repro_torch.models import common, lm
+    from repro_torch.runtime import sharding as shd
+    cfg, shape = _fsdp_cfg(1)
+    steps, coll = [], _Collectives(torch)
+    make = steps_mod.make_single_pod_step
+
+    def recorded(cfg, tcfg, mesh, **k):
+        fns = make(cfg, tcfg, mesh, **k)
+        fsdp = shd.FSDP.over(mesh)      # the one the step gathers through
+
+        def step(state, batch):
+            fsdp.reset_stats()
+            before = {n: list(c) for n, c in coll.calls.items()}
+            launches = kernels.launch_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, m = fns.train_step(state, batch)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            new = {n: c[len(before[n]):] for n, c in coll.calls.items()}
+            now = kernels.launch_counts()
+            steps.append({
+                "step_s": dt, "loss": float(m["loss"]),
+                "grad_norm": float(m["grad_norm"]),
+                "fsdp": dict(fsdp.stats),
+                "peak_live_bytes": fsdp.peak_live_bytes,
+                "collectives": {n: len(c) for n, c in new.items()},
+                "collective_s": sum(x[0] for c in new.values() for x in c),
+                "launches": {n: now[n] - launches.get(n, 0) for n in now}})
+            return state, m
+        return dataclasses.replace(fns, train_step=step)
+
+    steps_mod.make_single_pod_step = recorded
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    with coll:
+        res = train.run(train.parser().parse_args(_fsdp_argv()),
+                        cfg=cfg, shape=shape)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    steps_mod.make_single_pod_step = make
+    mesh = mesh_mod.make_host_mesh()
+    state = res.state
+    nbytes = lambda t: sum(x.numel() * x.element_size()  # noqa
+                           for x in _leaves(t))
+    held = (nbytes(state["params"]) + nbytes(state["opt"]["m"])
+            + nbytes(state["opt"]["v"]))
+    want = sum(3 * shd.device_bytes(spec.shape, 4, shd.logical_sharding(
+        spec.axes, mesh), mesh) for _, spec in common.iter_specs(
+            lm.param_specs(cfg, 1)))
+    whole = sum(3 * 4 * math.prod(spec.shape) for _, spec in
+                common.iter_specs(lm.param_specs(cfg, 1)))
+    split = {k: shd.split_dim(v) for k, v in common.flatten_tree(
+        res.layouts["params"]).items()}
+    rank = mesh_mod.rank()
+    torch.save({k: v.detach().cpu() for k, v in common.flatten_tree(
+        state["params"]).items()},
+        str(_rank_out(out_fmt, rank).with_suffix(".pt")))
+    out = {"rank": rank, "index": mesh.coord("data"),
+           "backend": dist.get_backend(), "launches": kernels.launch_counts(),
+           "steps": steps, "losses": res.losses, "wall_s": wall,
+           "peak_mem_bytes": torch.cuda.max_memory_allocated(),
+           "state_bytes": held, "state_bytes_dryrun": want,
+           "state_bytes_whole": whole, "split": split,
+           "runner_stats": res.runner_stats}
+    _rank_out(out_fmt, rank).write_text(json.dumps(out))
+    mesh_mod.shutdown()
+
+
+def run_fsdp(torch, kernels):
+    """Phase 28: ``launch/train.py`` at qwen2-7b widths cut to
+    ``FSDP_LAYERS`` layers on 2 ranks sharing the card, the state sharded
+    over ``data``, against the same global batch on one rank,
+    replicated."""
+    import shutil
+    from repro_torch.launch import mesh as mesh_mod
+    from repro_torch.launch import train
+    from repro_torch.models import common
+    work = ROOT / "build" / "chip_smoke_fsdp"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    fmt = str(work / "p28_rank{}.json")
+    t0 = time.perf_counter()
+    res = mesh_mod.run_ranks(
+        [str(ROOT / "chip_smoke.py"), "--rank-phase", "28", "--rank-out",
+         fmt], FSDP_RANKS, timeout=600, store_dir=str(work),
+        env={"PYTORCH_CUDA_ALLOC_CONF": "expandable_segments:True"})
+    ranks_s = time.perf_counter() - t0
+    for r, (rc, so, se) in enumerate(res):
+        check(rc == 0, f"phase 28: rank {r} exited {rc}: {se[-3000:]}")
+    ranks = sorted((json.loads(_rank_out(fmt, r).read_text())
+                    for r in range(FSDP_RANKS)), key=lambda x: x["index"])
+    L, D = FSDP_LAYERS, FSDP_RANKS
+    n_whole = sum(v is None for v in ranks[0]["split"].values())
+    # a step at microbatch 1: gathers the embedding, each layer (forward
+    # and its recompute) and the head; a reduce-scatter a gathered group
+    per_step = {
+        "launches": {"flash_attention": 2 * L, "flash_attention_bwd": L},
+        "gathers": 2 * L + 2, "reduce_scatters": L + 2,
+        "broadcast": D * (2 * L + 2),
+        # reduce-scatters, the whole leaves, the metrics, the norm
+        "all_reduce": (L + 2) + n_whole + 1 + 1}
+    for info in ranks:
+        tag = f"phase 28: rank {info['rank']}"
+        check(info["backend"] == "gloo", f"{tag}: {info['backend']}")
+        check(info["runner_stats"]["failures"] == 0,
+              f"{tag}: runner {info['runner_stats']}")
+        check(len(info["steps"]) == FSDP_STEPS
+              and all(math.isfinite(x) for x in info["losses"]),
+              f"{tag}: losses {info['losses']}")
+        check(info["state_bytes"] == info["state_bytes_dryrun"],
+              f"{tag}: holds {info['state_bytes']} B of params and moments, "
+              f"the dry-run counts {info['state_bytes_dryrun']}")
+        for i, st in enumerate(info["steps"]):
+            c, f = st["launches"], st["fsdp"]
+            check(all(c[k] == v for k, v in per_step["launches"].items())
+                  and all(n == 0 for k, n in c.items()
+                          if k not in per_step["launches"]),
+                  f"{tag} step {i + 1}: launches {c}, expected "
+                  f"{per_step['launches']}")
+            check(f["gathers"] == per_step["gathers"]
+                  and f["reduce_scatters"] == per_step["reduce_scatters"],
+                  f"{tag} step {i + 1}: FSDP {f}, expected "
+                  f"{per_step['gathers']} gathers and "
+                  f"{per_step['reduce_scatters']} reduce-scatters")
+            co = st["collectives"]
+            check(co["broadcast"] == per_step["broadcast"]
+                  and co["all_reduce"] == per_step["all_reduce"]
+                  and not co["all_gather"],
+                  f"{tag} step {i + 1}: collectives {co}, expected "
+                  f"{per_step['broadcast']} broadcasts and "
+                  f"{per_step['all_reduce']} all_reduces")
+    a, b = ranks
+    check(a["losses"] == b["losses"], "phase 28: the ranks log other losses")
+    # the one-rank run: the same global batch, 2 rows, microbatch 2
+    cfg, shape = _fsdp_cfg(FSDP_RANKS)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    t1 = time.perf_counter()
+    one = train.run(train.parser().parse_args(_fsdp_argv()), cfg=cfg,
+                    shape=shape)
+    torch.cuda.synchronize()
+    one_s = time.perf_counter() - t1
+    one_peak = torch.cuda.max_memory_allocated()
+    one_losses, one_step_s = one.losses, one.step_seconds
+    one_launches = kernels.launch_counts()
+    want_one = {"flash_attention": FSDP_STEPS * 2 * L * D,
+                "flash_attention_bwd": FSDP_STEPS * L * D}
+    check(all(one_launches[k] == v for k, v in want_one.items()),
+          f"phase 28: the one-rank run launched {one_launches}, expected "
+          f"{want_one}")
+    loss_rel = max(abs(x - y) / abs(y) for x, y in zip(a["losses"],
+                                                       one_losses))
+    norms = [s["grad_norm"] for s in a["steps"]]
+    one_norms = [m["grad_norm"] for m in one.metrics]
+    norm_rel = max(abs(x - y) / abs(y) for x, y in zip(norms, one_norms))
+    # the ranks' final shards against the blocks of the one-rank params
+    param_diff = 0.0
+    flat = common.flatten_tree(one.state["params"])
+    for info in ranks:
+        shards = torch.load(str(_rank_out(fmt, info["rank"]).with_suffix(
+            ".pt")), mmap=True)
+        for name, shard in shards.items():
+            dim = info["split"][name]
+            want = flat[name]
+            if dim is not None:
+                n = shard.shape[dim]
+                want = want.narrow(dim, info["index"] * n, n)
+            param_diff = max(param_diff, float(
+                (shard.to(want.device) - want).abs().max()))
+        del shards
+    del one, flat
+    torch.cuda.empty_cache()
+    check(loss_rel <= FSDP_LOSS_RTOL and norm_rel <= FSDP_LOSS_RTOL,
+          f"phase 28: losses {a['losses']}, grad norms {norms} vs the "
+          f"one-rank run's {one_losses}, {one_norms} (rel {loss_rel:.3g}, "
+          f"{norm_rel:.3g} > {FSDP_LOSS_RTOL})")
+    check(param_diff <= FSDP_PARAM_ATOL,
+          f"phase 28: final params {param_diff:.3g} from the one-rank run's "
+          f"(bound {FSDP_PARAM_ATOL})")
+    peaks = [r["peak_mem_bytes"] for r in ranks]
+    check(max(peaks) < one_peak,
+          f"phase 28: a rank peaked at {max(peaks)} B, the one-rank "
+          f"replicated run at {one_peak} B")
+    info = {"ranks": ranks, "ranks_wall_s": ranks_s, "layers": L,
+            "per_step": per_step, "loss_rel_vs_one_rank": loss_rel,
+            "grad_norm_rel_vs_one_rank": norm_rel, "grad_norms": norms,
+            "param_maxdiff_vs_one_rank": param_diff,
+            "state_bytes": [r["state_bytes"] for r in ranks],
+            "state_bytes_whole": a["state_bytes_whole"],
+            "peak_mem_bytes": peaks, "one_rank_peak_mem_bytes": one_peak,
+            "one_rank_losses": one_losses, "one_rank_s": one_s,
+            "one_rank_step_s": one_step_s,
+            "step_s": [[s["step_s"] for s in r["steps"]] for r in ranks],
+            "collective_s": [[s["collective_s"] for s in r["steps"]]
+                             for r in ranks],
+            "gather_bytes": a["steps"][-1]["fsdp"]["gather_bytes"],
+            "reduce_scatter_bytes":
+                a["steps"][-1]["fsdp"]["reduce_scatter_bytes"],
+            "peak_live_bytes": [s["peak_live_bytes"] for s in a["steps"]]}
+    log(f"phase 28: the trainer sharded over data (FSDP) at qwen2-7b widths "
+        f"({L} layers; 2 x 4096 tokens, one row a rank, remat, fp32 AdamW) "
+        f"on {D} ranks sharing the card (gloo): losses {a['losses']} on both "
+        f"ranks, {loss_rel:.3g} relative from the one-rank replicated run's "
+        f"{one_losses} (2 rows, microbatch 2; steps {one_step_s} s), grad "
+        f"norms {norms} ({norm_rel:.3g}); final params within "
+        f"{param_diff:.3g}; flash {per_step['launches']}, "
+        f"{per_step['gathers']} gathers and {per_step['reduce_scatters']} "
+        f"reduce-scatters a step ({per_step['broadcast']} broadcasts, "
+        f"{per_step['all_reduce']} all_reduces); params + m + v "
+        f"{info['state_bytes']} B a rank (the dry-run's arithmetic; "
+        f"{info['state_bytes_whole']} B whole); peak "
+        f"{[p / 2**30 for p in peaks]} GiB a rank against "
+        f"{one_peak / 2**30:.2f} GiB replicated; live gathered peak "
+        f"{[x / 2**30 for x in info['peak_live_bytes']]} GiB; step seconds "
+        f"{info['step_s']}, of it in collectives {info['collective_s']} "
+        f"(host-clocked around a synchronise; gathered "
+        f"{info['gather_bytes']} B and reduce-scattered "
+        f"{info['reduce_scatter_bytes']} B a step); the one-rank run "
+        f"{one_s:.1f} s with its set-up; the ranks ran {ranks_s:.1f} s with "
+        f"their start")
+    shutil.rmtree(work, ignore_errors=True)
+    return info
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="also write every number as JSON here")
-    ap.add_argument("--rank-phase", choices=["26", "27"],
-                    help=argparse.SUPPRESS)  # one rank of phase 26 or 27
+    ap.add_argument("--rank-phase", choices=["26", "27", "28"],
+                    help=argparse.SUPPRESS)  # one rank of phase 26-28
     ap.add_argument("--rank-out", help=argparse.SUPPRESS)
     args = ap.parse_args()
     t_start = time.perf_counter()
@@ -5040,8 +5318,8 @@ def main() -> None:
              f"{Path(__file__).name}")
     sys.path.insert(0, str(ROOT / "src"))
     if args.rank_phase:
-        {"26": rank_phase26, "27": rank_phase27}[args.rank_phase](
-            torch, args.rank_out)
+        {"26": rank_phase26, "27": rank_phase27,
+         "28": rank_phase28}[args.rank_phase](torch, args.rank_out)
         return
     from repro_torch import api, kernels, serve
     from repro_torch.api import cli
@@ -5199,12 +5477,19 @@ def main() -> None:
     torch.cuda.empty_cache()
     t27 = time.perf_counter()
     multipod = run_multipod(torch, kernels)
+    gc.collect()
+    torch.cuda.empty_cache()
+    # phase 28: the trainer sharded over data, counts from 0 per rank
+    t28 = time.perf_counter()
+    fsdp = run_fsdp(torch, kernels)
     seconds.update({"phase_25": t26 - t25, "phase_26": t27 - t26,
-                    "phase_27": time.perf_counter() - t27,
+                    "phase_27": t28 - t27,
+                    "phase_28": time.perf_counter() - t28,
                     "script": time.perf_counter() - t_start})
-    log(f"phases 25-27 took {seconds['phase_25']:.1f} / "
-        f"{seconds['phase_26']:.1f} / {seconds['phase_27']:.1f} s; the "
-        f"script so far {seconds['script']:.1f} s")
+    log(f"phases 25-28 took {seconds['phase_25']:.1f} / "
+        f"{seconds['phase_26']:.1f} / {seconds['phase_27']:.1f} / "
+        f"{seconds['phase_28']:.1f} s; the script so far "
+        f"{seconds['script']:.1f} s")
 
     src = "src/repro_torch/kernels/csrc/polyline_codec.cu"
     # the main path's lossy step: B1a and B1b fused, per stacked uplink
@@ -5267,6 +5552,8 @@ def main() -> None:
         "train_launches": trainer["launches"]["flash_attention"],
         "multipod_launches_per_rank": [
             r["launches"]["flash_attention"] for r in multipod["ranks"]],
+        "fsdp_launches_per_rank": [
+            r["launches"]["flash_attention"] for r in fsdp["ranks"]],
         "fedlm_launches": fedlm["launches"]["flash_attention"],
         "fedlm_faults_launches":
             fedlm_ckpt["train_launches"]["flash_attention"],
@@ -5311,6 +5598,8 @@ def main() -> None:
         "fedlm_launches": fedlm["launches"]["flash_attention_bwd"],
         "multipod_launches_per_rank": [
             r["launches"]["flash_attention_bwd"] for r in multipod["ranks"]],
+        "fsdp_launches_per_rank": [
+            r["launches"]["flash_attention_bwd"] for r in fsdp["ranks"]],
         "fedlm_ms": fl["ms"], "fedlm_plain_ms": fl["plain_ms"],
         "fedlm_bound_ms": fl["bound_ms"], "fedlm_bound_by": fl["bound_by"],
         "fedlm_library_ms": fl["library_ms"],
@@ -5409,7 +5698,7 @@ def main() -> None:
             "recurrent_training_card_vs_cpu": recurrent_train_agree,
             "scan_bwd": scan_bwd, "mesh_d1": mesh_d1,
             "sharded_round": sharded, "multipod": multipod,
-            "seconds": seconds}, indent=2))
+            "fsdp": fsdp, "seconds": seconds}, indent=2))
     print(json.dumps({"kernels": report}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

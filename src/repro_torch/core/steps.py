@@ -12,8 +12,8 @@ the per-tier update counts, its payload quantized per last-dim row
   per microbatch with the gradients summed in fp32 and divided by the
   microbatch count, the cosine schedule, and AdamW with global-norm
   clipping.  On a mesh of D ranks each rank takes B/D rows of the global
-  batch, and the gradients are all-reduced to their mean before AdamW;
-  with no mesh or one rank it is the one-device step, unchanged.
+  batch and the gradients are averaged over the ranks before AdamW; with
+  no mesh or one rank it is the one-device step, unchanged.
 * :func:`make_fedat_step`: each rank holds the state of its pod slot
   (a leading pod dim of 1), runs the per-pod update, and at a sync step
   quantizes each leaf per row (:func:`quantize_rows`, the reference's
@@ -24,13 +24,24 @@ the per-tier update counts, its payload quantized per last-dim row
   equal params after it.  The per-row quantize is not a Pallas kernel in
   the reference, so plain torch ops compute it.
 
+The state is laid out as the reference's ``state_shardings`` say
+(``StepFns`` carries them on a mesh): with D > 1 data ranks, every leaf
+whose layout has an ``fsdp`` dimension (the reference's ``"fsdp":
+"data"``) -- params, AdamW ``m``/``v`` and the fp32 gradient sum -- is
+held as this rank's 1/D shard (ZeRO-3, runtime/sharding.py ``FSDP``).
+The forward gathers one layer's shards at a time (``lm.anchor_params``),
+the backward reduce-scatters their gradients, AdamW updates the shards
+in place, and the clip's global norm sums the shards' squares over the
+data group; leaves with no ``fsdp`` dimension are kept whole and
+averaged by an ``all_reduce``.  At a multi-pod sync each rank quantizes
+and exchanges its own shard, a split row's scale from the row's amax
+over the data group.  The state is updated in place (``optim.adamw``),
+so a model of billions of parameters keeps one copy of its params and
+moments on the card.  No mesh, or one data rank, is the one-device step:
+every leaf whole, no collective.
+
 It is the same for every family: ``lm.loss_fn`` dispatches (the
-recurrent families' scans carry their own backward).  The trainer's
-state is updated in place (``optim.adamw``), so a model of billions of
-parameters keeps one copy of its params and moments on the card.  The
-state and batch shardings the reference hands to ``jax.jit`` are layouts
-here (runtime/sharding.py): each rank holds its tensors whole, so
-``StepFns`` carries None for both.
+recurrent families' scans carry their own backward).
 
 The fault plane's server-side update gate (:class:`UpdateGate`,
 :func:`poison_updates`, :func:`gate_updates`) runs as plain torch ops on
@@ -52,6 +63,7 @@ from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import common, lm
 from repro_torch.optim import adamw, cosine_schedule, global_norm
 from repro_torch.optim.optimizers import tree_leaves, tree_map
+from repro_torch.runtime import sharding as shd
 
 
 def opt_axes_like(param_axes):
@@ -68,21 +80,28 @@ class StepFns:
 
 
 def _loss_and_grads(cfg: ModelConfig, params, batch, tp: int,
-                    microbatch: int
+                    microbatch: int, mesh=None
                     ) -> Tuple[torch.Tensor, Dict[str, Any],
                                Dict[str, torch.Tensor]]:
     """(mean loss, grads tree, mean loss metrics: ``ce_loss`` and
     ``aux_loss``).  With ``microbatch`` k > 1 the batch is split into k
     slices along its leading dim; their fp32 gradients are summed and
-    divided by k, and so are their losses."""
+    divided by k, and so are their losses.  On a ``mesh`` with data ranks
+    the params are this rank's shards, gathered where the model reads
+    them (``lm.anchor_params`` under the mesh), and a sharded leaf's
+    gradient comes back as this rank's shard of the sum over the data
+    ranks (the gather's backward), so the fp32 sum is held at shard
+    size."""
     flat = common.flatten_tree(params)
     names = list(flat)
 
     def value_and_grad(b):
         leaves = [flat[n].detach().requires_grad_(True) for n in names]
         with torch.enable_grad():
-            loss, metrics = lm.loss_fn(
-                cfg, common.unflatten_tree(dict(zip(names, leaves))), b, tp)
+            with shd.use_mesh(mesh):
+                p = lm.anchor_params(
+                    cfg, common.unflatten_tree(dict(zip(names, leaves))), tp)
+            loss, metrics = lm.loss_fn(cfg, p, b, tp)
             # a leaf the loss does not read (the audio family's token
             # embedding) gets a zero gradient, as jax.grad gives it
             grads = [torch.zeros_like(x) if g is None else g for x, g in zip(
@@ -155,6 +174,56 @@ def _mean_over(tensors: List[torch.Tensor], ranks: int, group) -> None:
         t.div_(ranks)
 
 
+def _split_leaves(cfg: ModelConfig, tp: int, mesh,
+                  fsdp: Optional[shd.FSDP]):
+    """A tree of bools over the params: True where the leaf is held as an
+    FSDP shard (its layout splits it over ``data``)."""
+    axes = lm.param_axes(cfg, tp)
+    if fsdp is None:
+        return tree_map(lambda a: False, axes)
+    return tree_map(lambda a: shd.split_dim(shd.logical_sharding(
+        a, mesh)) is not None, axes)
+
+
+def _mean_grads(grads, split, ranks: int, group, pods: int = 1,
+                pod_group=None) -> None:
+    """In place: the gradients averaged over the ``ranks`` data-parallel
+    ranks.  A shard's gradient already holds the sum over the data ranks
+    (the gather's reduce-scatter), summed over ``pod_group`` too when the
+    step's rows span pods; a whole leaf's is all-reduced (``group``)."""
+    whole, shards = [], []
+    for g, s in zip(tree_leaves(grads), tree_leaves(split)):
+        (shards if s else whole).append(g)
+    _mean_over(whole, ranks, group)
+    for g in shards:
+        if pods > 1:
+            dist.all_reduce(g, group=pod_group)
+        g.div_(ranks)
+
+
+def _state_layouts(cfg: ModelConfig, tp: int, mesh, pod_axis: bool):
+    """The state's resolved layouts on ``mesh`` (None without one), as
+    the reference's ``state_shardings``: params and AdamW m/v by their
+    logical axes (behind a leading ``pod`` under ``pod_axis``), and the
+    inputs' by ``lm.input_axes``."""
+    if mesh is None:
+        return None, None
+    axes = lm.param_axes(cfg, tp)
+    p_sh = tree_map(lambda a: shd.logical_sharding(a, mesh), axes)
+    in_axes = lm.input_axes(cfg, None_shape(cfg))
+    if not pod_axis:
+        return ({"params": p_sh, "opt": {"m": p_sh, "v": p_sh,
+                                         "count": None}, "step": None},
+                {k: shd.logical_sharding(a, mesh)
+                 for k, a in in_axes.items()})
+    p_sh = tree_map(lambda a: ("pod",) + tuple(a), p_sh)
+    return ({"params": p_sh, "opt": {"m": p_sh, "v": p_sh,
+                                     "count": ("pod",)},
+             "step": ("pod",), "counts": ()},
+            {k: ("pod", "data") + (None,) * (len(a) - 1)
+             for k, a in in_axes.items()})
+
+
 def _sync_metrics(loss, parts, ranks: int, group):
     """The loss and its parts averaged over the data ranks (equal on
     every rank after)."""
@@ -175,18 +244,25 @@ def make_single_pod_step(cfg: ModelConfig, tcfg: TrainConfig,
     "aux_loss"}), the state updated in place (the reference's metrics,
     plus the loss's two parts).  ``batch`` is the global batch; on a mesh
     of D data ranks (the ``pod`` and ``data`` axes) each rank trains its
-    B/D rows and the gradients are averaged over the ranks before AdamW,
-    so every rank holds the same state.  No mesh, or a one-rank mesh, is
-    the one-device step with no collective."""
+    B/D rows and the gradients are averaged over the ranks before AdamW.
+    With ``data`` > 1 the state is sharded over it (module docstring):
+    ``init_state`` keeps this rank's shard of each leaf as it draws it,
+    and ``StepFns.state_shardings`` holds the layouts.  No mesh, or a
+    one-rank mesh, is the one-device step with no collective."""
     ranks, index, group = _data_parallel(mesh, ("pod", "data"))
+    pods, _, pod_group = _data_parallel(mesh, ("pod",))
     tp = 1
     dev = resolve_device(device)
+    fsdp = shd.FSDP.over(mesh)
+    split = _split_leaves(cfg, tp, mesh, fsdp)
     opt = adamw(tcfg.lr, tcfg.betas[0], tcfg.betas[1], tcfg.eps,
                 tcfg.weight_decay, grad_clip=tcfg.grad_clip)
     sched = cosine_schedule(1.0, tcfg.warmup_steps, tcfg.total_steps)
+    state_sh, batch_sh = _state_layouts(cfg, tp, mesh, pod_axis=False)
 
     def init_state(seed: int):
-        params = lm.init_params(cfg, seed, tp, param_dtype, device=dev)
+        params = lm.init_params(cfg, seed, tp, param_dtype, device=dev,
+                                mesh=mesh if fsdp else None)
         return {"params": params, "opt": opt.init(params),
                 "step": torch.zeros((), dtype=torch.int32, device=dev)}
 
@@ -196,19 +272,19 @@ def make_single_pod_step(cfg: ModelConfig, tcfg: TrainConfig,
                            if ranks > 1 else slice(None))
         params = state["params"]
         loss, grads, parts = _loss_and_grads(cfg, params, batch, tp,
-                                             cfg.microbatch)
-        _mean_over(tree_leaves(grads), ranks, group)
+                                             cfg.microbatch, mesh)
+        _mean_grads(grads, split, ranks, group, pods, pod_group)
         loss, parts = _sync_metrics(loss, parts, ranks, group)
         lr_scale = sched(state["step"])
-        grad_norm = global_norm(grads)
+        grad_norm = global_norm(grads, fsdp and fsdp.group, split)
         new_params, new_opt = opt.step(params, grads, state["opt"],
-                                       lr_scale)
+                                       lr_scale, norm=grad_norm)
         metrics = {"loss": loss, "grad_norm": grad_norm,
                    "lr_scale": lr_scale, **parts}
         return ({"params": new_params, "opt": new_opt,
                  "step": state["step"] + 1}, metrics)
 
-    return StepFns(train_step, init_state, None, None)
+    return StepFns(train_step, init_state, state_sh, batch_sh)
 
 
 def None_shape(cfg):  # minimal train-kind shape token for input_axes
@@ -220,20 +296,24 @@ def None_shape(cfg):  # minimal train-kind shape token for input_axes
 # multi-pod FedAT step (pods as tiers)
 # ---------------------------------------------------------------------------
 
-def quantize_rows(x: torch.Tensor, bits: int):
+def quantize_rows(x: torch.Tensor, bits: int,
+                  amax: Optional[torch.Tensor] = None):
     """One pod's leaf -> (payload, row scales) on the wire, as the
     reference's ``_mix_leaf`` forms them: scales ``max|row| / qmax``
     (floored at 1e-30) per last-dim row, codes ``round(x / scale)``
     clipped to +-qmax.  ``bits`` 16/8 give int16/int8 codes; 4 with an
     even last dim packs two nibbles (code + 8) a byte, high nibble first;
     4 with an odd last dim gives int8 codes of qmax 7; 0 sends fp32 and
-    no scale (None)."""
+    no scale (None).  ``amax`` (the rows' max |x|, keepdim) stands in for
+    ``x``'s own when ``x`` is a shard of longer rows
+    (:func:`quantize_shards`)."""
     xf = x.to(torch.float32)
     if not bits:
         return xf, None
     qmax = 7.0 if bits == 4 else float((1 << (min(bits, 16) - 1)) - 1)
-    scale = torch.clamp_min(xf.abs().amax(dim=-1, keepdim=True) / qmax,
-                            1e-30)
+    if amax is None:
+        amax = xf.abs().amax(dim=-1, keepdim=True)
+    scale = torch.clamp_min(amax / qmax, 1e-30)
     q = torch.clamp(torch.round(xf / scale), -qmax, qmax)
     if bits == 4 and x.shape[-1] % 2 == 0:
         pairs = (q + 8.0).reshape(*q.shape[:-1], q.shape[-1] // 2, 2)
@@ -253,6 +333,27 @@ def dequantize_rows(payload: torch.Tensor, scale: Optional[torch.Tensor],
             *payload.shape[:-1], shape[-1])
         return q * scale
     return payload.to(torch.float32) * scale
+
+
+def quantize_shards(shards: List[torch.Tensor], bits: int,
+                    split_last: List[bool], group=None):
+    """:func:`quantize_rows` of each of a rank's leaves.  Where a leaf's
+    last dimension is split over the ranks of ``group`` (FSDP over
+    ``data``), its rows' amax is the max over the ranks (one
+    ``all_reduce`` MAX for every such leaf), so its codes and scales are
+    bitwise those of the whole rows."""
+    amax: List[Optional[torch.Tensor]] = [None] * len(shards)
+    idx = [i for i, s in enumerate(split_last) if s]
+    if bits and group is not None and idx:
+        local = [shards[i].to(torch.float32).abs().amax(dim=-1, keepdim=True)
+                 for i in idx]
+        buf = torch.cat([a.reshape(-1) for a in local])
+        dist.all_reduce(buf, op=dist.ReduceOp.MAX, group=group)
+        off = 0
+        for i, a in zip(idx, local):
+            amax[i] = buf[off:off + a.numel()].view(a.shape)
+            off += a.numel()
+    return [quantize_rows(x, bits, a) for x, a in zip(shards, amax)]
 
 
 def _as_bytes(t: torch.Tensor) -> torch.Tensor:
@@ -293,14 +394,16 @@ def make_fedat_step(cfg: ModelConfig, tcfg: TrainConfig, mesh,
     ``mesh`` needs a ``pod`` axis.  Each rank's state holds its pod slot
     (a leading pod dim of 1): ``params``, AdamW ``m``/``v``/``count`` and
     ``step``, plus the (n_pods,) update ``counts`` every rank keeps
-    whole.  ``train_step(state, batch)`` takes the batch pre-split
-    ``(n_pods, B/n_pods, ...)`` (:func:`split_batch_for_pods`); the rank
-    trains its pod's rows (B/n_pods/D of them on each of D data ranks,
-    gradients averaged over those), and every ``tcfg.fedat_sync_every``
-    steps mixes the pods at ``tcfg.fedat_compress_bits`` (Eq. 3).  Returns
-    (state, {"loss" (mean over pods), "ce_loss", "aux_loss", "synced",
-    "payload_bytes": this rank's bytes on the wire at a sync, payload and
-    scales, else 0})."""
+    whole; with ``data`` > 1 the params and moments are this rank's FSDP
+    shards of its pod's (module docstring).  ``train_step(state, batch)``
+    takes the batch pre-split ``(n_pods, B/n_pods, ...)``
+    (:func:`split_batch_for_pods`); the rank trains its pod's rows
+    (B/n_pods/D of them on each of D data ranks, gradients averaged over
+    those), and every ``tcfg.fedat_sync_every`` steps mixes the pods at
+    ``tcfg.fedat_compress_bits`` (Eq. 3), each rank its own shard.
+    Returns (state, {"loss" (mean over pods), "ce_loss", "aux_loss",
+    "synced", "payload_bytes": this rank's bytes on the wire at a sync,
+    payload and scales, else 0})."""
     if mesh is None or "pod" not in mesh.shape:
         raise ValueError("make_fedat_step needs a multi-pod mesh (a 'pod' "
                          "axis)")
@@ -312,13 +415,21 @@ def make_fedat_step(cfg: ModelConfig, tcfg: TrainConfig, mesh,
     d_ranks, d_index, d_group = _data_parallel(mesh, ("data",))
     tp = 1
     dev = resolve_device(device)
+    fsdp = shd.FSDP.over(mesh)
+    split = _split_leaves(cfg, tp, mesh, fsdp)
+    # a leaf whose last dimension is split: its rows span the data ranks
+    split_last = [shd.split_dim(shd.logical_sharding(a, mesh)) == len(a) - 1
+                  if fsdp else False for a in tree_leaves(
+                      lm.param_axes(cfg, tp))]
     opt = adamw(tcfg.lr, tcfg.betas[0], tcfg.betas[1], tcfg.eps,
                 tcfg.weight_decay, grad_clip=tcfg.grad_clip)
     sched = cosine_schedule(1.0, tcfg.warmup_steps, tcfg.total_steps)
     bits = int(tcfg.fedat_compress_bits)
+    state_sh, batch_sh = _state_layouts(cfg, tp, mesh, pod_axis=True)
 
     def init_state(seed: int):
-        params = lm.init_params(cfg, seed, tp, param_dtype, device=dev)
+        params = lm.init_params(cfg, seed, tp, param_dtype, device=dev,
+                                mesh=mesh if fsdp else None)
         stacked = tree_map(lambda a: a.unsqueeze(0), params)
         zeros = lambda a: torch.zeros_like(a, dtype=torch.float32)  # noqa
         return {"params": stacked,
@@ -332,9 +443,11 @@ def make_fedat_step(cfg: ModelConfig, tcfg: TrainConfig, mesh,
 
     def mix(params, weights) -> int:
         """Eq. 3 over the pods' dequantized payloads, written into this
-        rank's params in place; returns the bytes this rank sent."""
+        rank's params (its shards) in place; returns the bytes this rank
+        sent."""
         leaves = tree_leaves(params)
-        wire = [quantize_rows(x[0], bits) for x in leaves]
+        wire = quantize_shards([x[0] for x in leaves], bits, split_last,
+                               fsdp and fsdp.group)
         payloads = [p for p, _ in wire]
         scales = [s for _, s in wire if s is not None]
         full, full_sc = exchange_pods(payloads, scales, n_pods, pod_group,
@@ -365,10 +478,12 @@ def make_fedat_step(cfg: ModelConfig, tcfg: TrainConfig, mesh,
                      "v": tree_map(lambda a: a[0], state["opt"]["v"]),
                      "count": state["opt"]["count"][0]}
         loss, grads, parts = _loss_and_grads(cfg, params, local, tp,
-                                             cfg.microbatch)
-        _mean_over(tree_leaves(grads), d_ranks, d_group)
+                                             cfg.microbatch, mesh)
+        _mean_grads(grads, split, d_ranks, d_group)
+        norm = (global_norm(grads, fsdp.group, split)
+                if fsdp and tcfg.grad_clip is not None else None)
         _, new_opt = opt.step(params, grads, opt_state,
-                              sched(state["step"][0]))
+                              sched(state["step"][0]), norm=norm)
         del grads
         state["opt"]["count"][0] = new_opt["count"]
         loss, parts = _sync_metrics(loss, parts, d_ranks, d_group)
@@ -385,7 +500,7 @@ def make_fedat_step(cfg: ModelConfig, tcfg: TrainConfig, mesh,
         return ({"params": state["params"], "opt": state["opt"],
                  "step": step, "counts": counts}, metrics)
 
-    return StepFns(train_step, init_state, None, None)
+    return StepFns(train_step, init_state, state_sh, batch_sh)
 
 
 def split_batch_for_pods(batch, n_pods: int):

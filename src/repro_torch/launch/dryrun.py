@@ -18,11 +18,14 @@ The params are bf16, as the reference lowers them; every tensor is a
 ``meta``-device stand-in (shapes only).  A leaf's bytes on one device are
 its shape divided, dimension by dimension, by the mesh axes its logical
 axes resolve to (runtime/sharding.py ``device_bytes``; an uneven split
-padded up).  These are arithmetic: XLA's ``memory_analysis()`` and
-``cost_analysis()`` and the partitioned-HLO collective parse, which the
-reference reads from a compiled program, have no counterpart in torch, so
-temporaries, FLOPs and the collectives GSPMD would insert are not
-counted.  Writes ``<out>/dryrun_single.json`` / ``dryrun_multi.json``.
+padded up).  For params and AdamW state this is what a run holds: the
+trainer keeps each rank's FSDP shard of every leaf with an ``fsdp``
+dimension (core/steps.py; ``chip_smoke.py`` phase 28 checks a rank's
+bytes against this arithmetic).  The counts are still arithmetic: XLA's
+``memory_analysis()`` and ``cost_analysis()`` and the partitioned-HLO
+collective parse, which the reference reads from a compiled program,
+have no counterpart in torch, so temporaries, FLOPs and the collectives
+GSPMD would insert are not counted.  Writes ``<out>/dryrun_single.json`` / ``dryrun_multi.json``.
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch all \\

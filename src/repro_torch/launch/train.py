@@ -17,12 +17,22 @@ two pods over them, each pod a FedAT tier that mixes with the other every
 ``--fedat-sync-every`` steps at ``--fedat-bits`` (or the int width of
 ``--codec`` quantize8/quantize16); on one rank the mesh has no pod axis
 and the run is single-pod, the reference's rule.  Each rank draws the
-same global batch and trains its pod's (and data rank's) rows.  Rank 0
-writes the checkpoints of a single-pod run; under ``--multi-pod`` each
-pod's first data rank writes its pod's slot under ``<ckpt-dir>/pod<p>``.
-A restore (``--resume``, or the guarded runner after a failed step) is
-collective: the writers load one agreed step and broadcast it to their
-data ranks (:class:`RankCheckpoints`).
+same global batch and trains its pod's (and data rank's) rows.  With
+more than one data rank each holds its 1/D FSDP shard of the params and
+AdamW moments (core/steps.py), so a model whose state one card cannot
+hold trains over several: qwen2-7b at its 28 layers needs about 122 GB
+of fp32 params, moments and gradients whole, 30.47 GB a rank on 4
+ranks (arithmetic: runtime/sharding.py ``device_bytes``).
+
+Rank 0 writes the checkpoints of a single-pod run; under ``--multi-pod``
+each pod's first data rank writes its pod's slot under
+``<ckpt-dir>/pod<p>``.  The files are layout-free, as the reference's
+(which saves global arrays): whole leaves, gathered leaf by leaf from
+the data ranks' shards, so a checkpoint written on D ranks restores on
+any other number.  A restore (``--resume``, or the guarded runner after
+a failed step) is collective: the writers agree on one step, load it
+and send each leaf to their data ranks, each of which keeps its shard
+(:class:`RankCheckpoints`).
 
 Examples (CPU):
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-7b \\
@@ -30,6 +40,9 @@ Examples (CPU):
   PYTHONPATH=src python -m torch.distributed.run --nproc-per-node 2 \\
       -m repro_torch.launch.train --smoke --multi-pod --codec quantize8 \\
       --fedat-sync-every 2 --steps 4 --ckpt-every 0 --device cpu
+Sharded over 4 cards (nccl, one a rank):
+  PYTHONPATH=src python -m torch.distributed.run --nproc-per-node 4 \\
+      -m repro_torch.launch.train --arch qwen2-7b --steps 20
 """
 from __future__ import annotations
 
@@ -51,7 +64,8 @@ from repro_torch.core import steps as steps_mod
 from repro_torch.data.pipeline import TokenPipeline
 from repro_torch.device import resolve_device
 from repro_torch.launch import mesh as mesh_mod
-from repro_torch.optim.optimizers import tree_leaves
+from repro_torch.optim.optimizers import tree_map
+from repro_torch.runtime import sharding as shd
 from repro_torch.runtime.fault import GuardedRunner
 
 log = logging.getLogger("repro_torch.train")
@@ -68,6 +82,9 @@ class TrainResult:
     batch_seconds: List[float]
     runner_stats: Dict[str, int]
     state: Any
+    #: the state's layouts (the step's ``state_shardings``; None
+    #: without a mesh): ``sharding.FSDP.gather_tree`` makes it whole
+    layouts: Any = None
 
 
 def parser() -> argparse.ArgumentParser:
@@ -100,22 +117,33 @@ class RankCheckpoints:
     """The checkpoints of a run over the ranks of ``mesh``, with the
     :class:`CheckpointManager` calls the guarded runner makes.
 
-    The ranks of one data line hold the same state, and its first rank,
-    the writer, alone holds ``ckpt`` (``None`` on the others) and saves.
-    :meth:`latest_step` and :meth:`restore` are collective over the world,
-    so every rank calls them at the same step (the runner's injected
-    failures are drawn from the same seed on every rank): each writer
-    waits for its pending save, the writers agree on the newest step that
-    all of them hold (a min over the world), load it and broadcast it to
-    the rest of their data line.  On one rank they are the manager's
-    own."""
+    The first rank of each data line, the writer, alone holds ``ckpt``
+    (``None`` on the others) and writes.  With ``layouts`` (the step's
+    ``state_shardings``) splitting leaves over ``data`` > 1, :meth:`save`
+    is collective over the data line: every rank gathers the state leaf
+    by leaf and the writer keeps the whole leaves on the host, so the
+    files hold whole leaves whatever D was.  :meth:`latest_step` and
+    :meth:`restore` are collective over the world, so every rank calls
+    them at the same step (the runner's injected failures are drawn from
+    the same seed on every rank): each writer waits for its pending
+    save, the writers agree on the newest step that all of them hold (a
+    min over the world) and load it on the host, and each leaf goes to
+    the data line by a broadcast, every rank keeping its block of it.
+    On one rank they are the manager's own."""
 
-    def __init__(self, ckpt: Optional[CheckpointManager], mesh, device):
+    def __init__(self, ckpt: Optional[CheckpointManager], mesh, device,
+                 layouts: Any = None):
         self.ckpt = ckpt
         self.mesh = mesh
         self.device = device
+        self.layouts = layouts
+        self.fsdp = shd.FSDP.over(mesh) if layouts is not None else None
 
     def save(self, step: int, state: Any, blocking: bool = False) -> None:
+        if self.fsdp is not None:
+            state = self.fsdp.gather_tree(
+                state, self.layouts, (lambda t: t.detach().cpu())
+                if self.ckpt is not None else (lambda t: None))
         if self.ckpt is not None:
             self.ckpt.save(step, state, blocking=blocking)
 
@@ -137,12 +165,15 @@ class RankCheckpoints:
                            else self.ckpt.latest_step())
 
     def restore(self, like: Any):
+        """``like`` (the state this rank holds) with the agreed step's
+        values written into it in place; returns (state, step)."""
         if mesh_mod.world_size() == 1:
             return self.ckpt.restore(like)
-        state, step = like, None
+        host = tree_map(lambda _: None, like)   # leaves stay numpy
+        loaded, step = None, None
         if self.ckpt is not None:
             try:
-                state, step = self.ckpt.restore(like)
+                loaded, step = self.ckpt.restore(host)
             except FileNotFoundError:
                 pass
         agreed = self._agree(step)
@@ -150,12 +181,35 @@ class RankCheckpoints:
             raise FileNotFoundError("no checkpoint that every writer can "
                                     "restore")
         if self.ckpt is not None and step != agreed:
-            state, _ = self.ckpt.restore(like, step=agreed)
-        if self.mesh.shape["data"] > 1:
+            loaded, _ = self.ckpt.restore(host, step=agreed)
+        self._place(like, loaded, self.layouts)
+        return like, agreed
+
+    def _place(self, like, loaded, layouts) -> None:
+        """Each leaf of ``loaded`` (the writer's whole numpy leaves; None
+        on the other ranks) into ``like``: broadcast over the data line
+        when it has more than one rank, this rank's block kept."""
+        if isinstance(like, dict):
+            for k in sorted(like):
+                self._place(like[k], None if loaded is None else loaded[k],
+                            None if layouts is None else layouts[k])
+            return
+        d = self.mesh.shape.get("data", 1)
+        dim = shd.split_dim(layouts)
+        shape = list(like.shape)
+        if dim is not None:
+            shape[dim] *= d
+        if loaded is not None:
+            whole = torch.from_numpy(loaded).to(like.device, like.dtype)
+        else:
+            whole = torch.empty(shape, dtype=like.dtype, device=like.device)
+        if d > 1:
             group, ranks = self.mesh.group("data")
-            for leaf in tree_leaves(state):
-                dist.broadcast(leaf, src=ranks[0], group=group)
-        return state, agreed
+            dist.broadcast(whole, src=ranks[0], group=group)
+        if dim is not None:
+            n = like.shape[dim]
+            whole = whole.narrow(dim, self.mesh.coord("data") * n, n)
+        like.copy_(whole)
 
 
 def build(cfg, tcfg, mesh, multi_pod: bool, device=None):
@@ -196,7 +250,7 @@ def run(args: argparse.Namespace, cfg=None, shape=None) -> TrainResult:
         ckpt_dir = os.path.join(ckpt_dir, f"pod{mesh.coord('pod')}")
     ckpt = RankCheckpoints(
         CheckpointManager(ckpt_dir, keep=3) if mesh.coord("data") == 0
-        else None, mesh, dev)
+        else None, mesh, dev, fns.state_shardings)
 
     state = fns.init_state(args.seed)
     start = 0
@@ -243,7 +297,8 @@ def run(args: argparse.Namespace, cfg=None, shape=None) -> TrainResult:
              end - start, dt, dt / max(end - start, 1), runner.stats)
     steps = [b - a - d for a, b, d in zip([t0] + stamps, stamps, batch_s)]
     return TrainResult(losses, history, start, end, dt, steps,
-                       batch_s[:len(steps)], dict(runner.stats), state)
+                       batch_s[:len(steps)], dict(runner.stats), state,
+                       fns.state_shardings)
 
 
 def main(argv: Optional[List[str]] = None) -> List[float]:

@@ -53,16 +53,22 @@ def init_std(spec: PSpec) -> float:
 
 
 def init_from_specs(specs: Dict[str, Any], generator: torch.Generator,
-                    device: DeviceLike = None, dtype=torch.float32):
+                    device: DeviceLike = None, dtype=torch.float32,
+                    mesh=None):
     """Materialize a param tree from a spec tree on ``device``.
 
     Each leaf is drawn in place where it will live (``normal_`` on the
     device, from ``generator``, which must be a generator of that device),
     so a model of tens of GiB is never staged on the host nor held twice.
-    The draws come from another generator than the reference's
-    ``jax.random`` keys, so values differ; tests convert the reference's
-    params instead (models/convert.py).
+    With a ``mesh``, each leaf is cut to this rank's block of its layout
+    as soon as it is drawn (runtime/sharding.py ``local_shard``; the
+    draws are the same on every rank, in the same order), so a rank holds
+    its shards and at most one whole leaf at a time.  The draws come from
+    another generator than the reference's ``jax.random`` keys, so values
+    differ; tests convert the reference's params instead
+    (models/convert.py).
     """
+    from repro_torch.runtime import sharding as shd
     dev = resolve_device(device)
     out: Dict[str, Any] = {}
     for path, spec in iter_specs(specs):
@@ -75,6 +81,9 @@ def init_from_specs(specs: Dict[str, Any], generator: torch.Generator,
             t.normal_(0.0, init_std(spec), generator=generator)
             if dtype != torch.float32:
                 t = t.to(dtype)
+        if mesh is not None:
+            t = shd.local_shard(t, shd.logical_sharding(spec.axes, mesh),
+                                mesh)
         node = out
         for k in path[:-1]:
             node = node.setdefault(k, {})

@@ -17,6 +17,13 @@ families train from the zero state through the scans' autograd functions
 ``torch.utils.checkpoint`` when ``cfg.remat``, as the reference remats its
 scanned layer body.  Caches and states are written in place and
 returned.
+
+In a train step sharded over ``data`` (core/steps.py) the params are a
+rank's FSDP shards, wrapped by :func:`anchor_params`, and every family
+gathers them where it reads them: one layer's at a time inside the
+function its layer loop checkpoints (``runtime/sharding.py`` ``gather``),
+the embedding and head at their use.  Elsewhere they are whole tensors
+and the gathers are the identity.
 """
 from __future__ import annotations
 
@@ -31,6 +38,7 @@ from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import attention as attn
 from repro_torch.models import common, mamba2, rwkv6, transformer, zamba2
 from repro_torch.models.common import PSpec, index_tree, rms_norm
+from repro_torch.runtime import sharding as shd
 
 TRANSFORMER_FAMILIES = ("dense", "moe", "vlm", "audio")
 
@@ -53,12 +61,14 @@ def param_specs(cfg: ModelConfig, tp: int) -> Dict[str, Any]:
 
 
 def init_params(cfg: ModelConfig, seed: int, tp: int = 1,
-                dtype=torch.float32, device: DeviceLike = None):
+                dtype=torch.float32, device: DeviceLike = None, mesh=None):
     """Random params drawn on ``device`` from a generator of that device
-    seeded with ``seed`` (never staged on the host)."""
+    seeded with ``seed`` (never staged on the host); with a ``mesh``, this
+    rank's block of each leaf's layout (the same draws on every rank)."""
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
-    return common.init_from_specs(param_specs(cfg, tp), gen, dev, dtype)
+    return common.init_from_specs(param_specs(cfg, tp), gen, dev, dtype,
+                                  mesh)
 
 
 def param_axes(cfg: ModelConfig, tp: int):
@@ -66,9 +76,23 @@ def param_axes(cfg: ModelConfig, tp: int):
 
 
 def anchor_params(cfg: ModelConfig, params, tp: int):
-    """The reference pins every leaf to its logical sharding inside the
-    jitted step; a rank holds each leaf whole, so the params unchanged."""
-    return params
+    """The reference pins every leaf to its logical sharding under the
+    current mesh inside the jitted step, so that GSPMD gathers the FSDP
+    shards of one layer at a time.  Here ``params`` are this rank's
+    shards: under a mesh (``sharding.use_mesh``) with data ranks, each
+    leaf its layout splits over ``data`` is wrapped as a
+    :class:`~repro_torch.runtime.sharding.Sharded` of the mesh's
+    :class:`~repro_torch.runtime.sharding.FSDP`, and the model gathers it
+    where it reads it (``sharding.gather``): a layer's leaves inside the
+    function each layer loop checkpoints, so under remat the recompute
+    gathers again and no layer's whole weights outlive its block; the
+    embedding, head and frontend at their use.  Without a mesh, or with
+    one data rank, the params unchanged."""
+    fsdp = shd.FSDP.over(shd.current_mesh())
+    if fsdp is None:
+        return params
+    return fsdp.wrap(params, shd.tree_shardings(param_axes(cfg, tp),
+                                                fsdp.mesh))
 
 
 def abstract_params(cfg: ModelConfig, tp: int, dtype=torch.bfloat16):
@@ -82,7 +106,8 @@ def forward_train(cfg: ModelConfig, p, batch, tp: int):
         return transformer.forward_train(cfg, p, batch, tp)
     tokens = batch["tokens"]
     if cfg.family == "hybrid":
-        x = zamba2._run(cfg, p, p["embed"][tokens.long()], tp, "train")
+        x = zamba2._run(cfg, p, shd.gather(p["embed"])[tokens.long()], tp,
+                        "train")
         x = rms_norm(x, p["final_norm"], cfg.rms_eps)
     else:
         x = _rwkv_forward(cfg, p, tokens, None, tp, False)
@@ -102,14 +127,15 @@ def loss_fn(cfg: ModelConfig, p, batch, tp: int):
 # ---------------------------------------------------------------------------
 
 def _rwkv_train_layer(cfg, tp, x, lp):
-    return rwkv6.block(cfg, lp, x, None, tp, False)[0]
+    return rwkv6.block(cfg, shd.gather(lp), x, None, tp, False)[0]
 
 
 def _rwkv_forward(cfg, p, tokens, state, tp, single_token):
     """Runs every layer, writing ``state`` in place, or, with ``state``
     None, a training forward from the zero state (each layer checkpointed
-    under ``cfg.remat``); returns the final normed features."""
-    x = p["embed"][tokens.long()]
+    under ``cfg.remat``, its shards gathered inside); returns the final
+    normed features."""
+    x = shd.gather(p["embed"])[tokens.long()]
     remat = state is None and cfg.remat and torch.is_grad_enabled()
     for i in range(cfg.n_layers):
         lp = index_tree(p["layers"], i)
@@ -128,7 +154,8 @@ def _rwkv_loss(cfg, p, batch, tp):
     """rwkv6's loss: the zamba2 module's seq-chunked cross-entropy (the
     reference's sharing) over the training forward's features."""
     x = _rwkv_forward(cfg, p, batch["tokens"], None, tp, False)
-    return zamba2._chunked_ce(cfg, x, p["lm_head"], batch["tokens"], tp)
+    return zamba2._chunked_ce(cfg, x, shd.gather(p["lm_head"]),
+                              batch["tokens"], tp)
 
 
 def _rwkv_prefill(cfg, p, batch, tp, state):

@@ -32,6 +32,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_mod
 from repro_torch.models.common import PSpec, index_tree, rms_norm, swiglu
+from repro_torch.runtime import sharding as shd
 
 
 def _is_moe(cfg: ModelConfig) -> bool:
@@ -90,8 +91,10 @@ def _ffn(cfg: ModelConfig, tp: int, lp, h: torch.Tensor
 def _block_train(cfg: ModelConfig, tp: int, prefix_len: int,
                  x: torch.Tensor, positions: torch.Tensor, lp):
     """One layer, full-sequence.  x: (..., S, d); ``lp``'s leaves
-    broadcast against x's leading dims.  Returns (x, aux), aux None
+    broadcast against x's leading dims (a rank's FSDP shards are gathered
+    here, inside the checkpointed function).  Returns (x, aux), aux None
     without MoE."""
+    lp = shd.gather(lp)
     h = rms_norm(x, lp["ln1"], cfg.rms_eps)
     x = x + attn.full_attention(cfg, lp["attn"], h, positions, tp,
                                 prefix_len)
@@ -143,19 +146,19 @@ def embed_inputs(cfg: ModelConfig, p, batch: Dict[str, torch.Tensor], tp: int
     if cfg.family == "vlm":
         patches = _needs(cfg, batch, "patch_embeds",
                          "the (B, Np, d_model) image patch embeddings")
-        front = torch.matmul(patches, p["frontend_proj"])
-        tok = p["embed"][batch["tokens"].long()] * (d ** 0.5)
+        front = torch.matmul(patches, shd.gather(p["frontend_proj"]))
+        tok = shd.gather(p["embed"])[batch["tokens"].long()] * (d ** 0.5)
         x = torch.cat([front.to(tok.dtype), tok], dim=1)
         return x, patches.shape[1]
     if cfg.family == "audio":
         frames = _needs(cfg, batch, "frames",
                         "the (B, S, d_model) audio frame embeddings")
-        x = torch.matmul(frames, p["frontend_proj"])
+        x = torch.matmul(frames, shd.gather(p["frontend_proj"]))
         if "mask" in batch:
             x = torch.where(batch["mask"].bool()[..., None], p["mask_embed"],
                             x)
         return x, 0
-    return p["embed"][batch["tokens"].long()], 0
+    return shd.gather(p["embed"])[batch["tokens"].long()], 0
 
 
 def lm_head(cfg: ModelConfig, p, x: torch.Tensor) -> torch.Tensor:
@@ -225,7 +228,8 @@ def loss_fn(cfg: ModelConfig, p, batch, tp: int, loss_chunk: int = 512
     vp = cfg.padded_vocab(tp)
     labels, mask = _labels_and_mask(cfg, batch, B, S, prefix_len, x.device)
     C = min(loss_chunk, S)
-    head_w = p["embed"].T if cfg.tie_embeddings else p["lm_head"]
+    head_w = (shd.gather(p["embed"]).T if cfg.tie_embeddings
+              else shd.gather(p["lm_head"]))
     bias = None
     if vp > cfg.vocab_size:
         bias = torch.cat([

@@ -33,6 +33,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
 from repro_torch.models import mamba2
 from repro_torch.models.common import PSpec, index_tree, rms_norm, swiglu
+from repro_torch.runtime import sharding as shd
 
 
 def n_attn_apps(cfg: ModelConfig) -> int:
@@ -94,7 +95,7 @@ def _shared_block(cfg, sp, x, positions, tp, mode, kv_cache, pos=None):
 
 
 def _train_block(cfg: ModelConfig, tp: int, x, lp):
-    return mamba2.block(cfg, lp, x, None, tp, False)[0]
+    return mamba2.block(cfg, shd.gather(lp), x, None, tp, False)[0]
 
 
 def _run(cfg: ModelConfig, p, x, tp: int, mode: str,
@@ -103,13 +104,20 @@ def _run(cfg: ModelConfig, p, x, tp: int, mode: str,
     (B,S,d).  Serving writes every layer's state and every application's
     KV rows into ``cache`` in place; training takes no cache and writes
     nothing, each mamba2 block checkpointed under ``cfg.remat`` (the
-    reference remats the scanned block, not the shared one); returns x."""
+    reference remats the scanned block, not the shared one); returns x.
+    Under FSDP (a train step's shards) each mamba2 block gathers its
+    layer inside the checkpointed function, and the shared block is
+    gathered once: autograd sums its gradient over the applications
+    before the one reduce-scatter, and one whole copy lives (the
+    applications' matmuls would each save theirs if gathered each
+    time)."""
     every = cfg.attn_every
     single = mode == "decode"
     train = mode == "train"
     remat = train and cfg.remat and torch.is_grad_enabled()
     positions = None if single else torch.arange(
         x.shape[1], dtype=torch.int32, device=x.device)
+    shared = shd.gather(p["shared"])
     for g in range(n_attn_apps(cfg)):
         for j in range(g * every, (g + 1) * every):
             lp = index_tree(p["backbone"], j)
@@ -121,7 +129,7 @@ def _run(cfg: ModelConfig, p, x, tp: int, mode: str,
             else:
                 x, _ = mamba2.block(cfg, lp, x, index_tree(cache.mamba, j),
                                     tp, single)
-        x = _shared_block(cfg, p["shared"], x, positions, tp, mode,
+        x = _shared_block(cfg, shared, x, positions, tp, mode,
                           None if train else index_tree(cache.kv, g), pos)
     return x
 
@@ -130,10 +138,11 @@ def loss_fn(cfg: ModelConfig, p, batch, tp: int):
     """Next-token cross-entropy of a (B, S) ``tokens`` batch; returns
     (loss, {"ce_loss", "aux_loss"}) (aux 0: every family of the port logs
     both)."""
-    x = p["embed"][batch["tokens"].long()]
+    x = shd.gather(p["embed"])[batch["tokens"].long()]
     x = _run(cfg, p, x, tp, "train")
     x = rms_norm(x, p["final_norm"], cfg.rms_eps)
-    return _chunked_ce(cfg, x, p["lm_head"], batch["tokens"], tp)
+    return _chunked_ce(cfg, x, shd.gather(p["lm_head"]), batch["tokens"],
+                       tp)
 
 
 def _chunked_ce(cfg: ModelConfig, x: torch.Tensor, head_w: torch.Tensor,

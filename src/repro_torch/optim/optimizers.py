@@ -17,7 +17,10 @@ update, as in the reference.
 params and the moments in place, leaf by leaf, and returns them: a model
 of billions of parameters then holds one copy of each (the trainer's
 qwen2-7b-width state is 21.5 GB).  Each product is still formed before
-its sum, so the roundings are the reference's functional form's.
+its sum, so the roundings are the reference's functional form's.  The
+update is elementwise, so on a rank's FSDP shards (core/steps.py) it
+runs unchanged; the clip's norm is then :func:`global_norm` over the
+data group, passed to ``step``.
 """
 from __future__ import annotations
 
@@ -25,6 +28,7 @@ import math
 from typing import Any, Callable, NamedTuple, Optional, Tuple
 
 import torch
+import torch.distributed
 
 
 class Optimizer(NamedTuple):
@@ -84,10 +88,14 @@ def adamw(lr: float, b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
         return {"m": tree_map(zeros, params), "v": tree_map(zeros, params),
                 "count": _count(params)}
 
-    def step(params, grads, state, lr_scale=1.0):
+    def step(params, grads, state, lr_scale=1.0, norm=None):
+        """``norm``: the gradients' global norm for the clip when the
+        caller has it (a step sharded over data ranks sums its shards'
+        squares over them: :func:`global_norm`); computed here
+        otherwise."""
         scale = None
         if grad_clip is not None:
-            gnorm = global_norm(grads)
+            gnorm = global_norm(grads) if norm is None else norm
             scale = torch.clamp(grad_clip / (gnorm + 1e-12), max=1.0)
         count = state["count"] + 1
         cf = count.to(torch.float32)
@@ -116,14 +124,29 @@ def adam(lr: float, b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8
     return adamw(lr, b1, b2, eps, weight_decay=0.0)
 
 
-def global_norm(tree) -> torch.Tensor:
+def global_norm(tree, group=None, sharded=None) -> torch.Tensor:
     """sqrt of the sum over leaves (sorted-key order) of each leaf's
-    fp32 sum of squares."""
-    total = None
-    for leaf in tree_leaves(tree):
-        sq = leaf.float().square().sum()
-        total = sq if total is None else total + sq
-    return torch.sqrt(total)
+    fp32 sum of squares.  With a process ``group``, the leaves that
+    ``sharded`` (a same-structure tree of bools) marks are shards of
+    leaves split over the group's ranks: their squares are summed here
+    and over the ranks by one ``all_reduce``, and the other leaves, whole
+    and equal on every rank, are counted once."""
+    if group is None:
+        total = None
+        for leaf in tree_leaves(tree):
+            sq = leaf.float().square().sum()
+            total = sq if total is None else total + sq
+        return torch.sqrt(total)
+    parts = {True: [], False: []}
+    for leaf, s in zip(tree_leaves(tree), tree_leaves(sharded)):
+        parts[bool(s)].append(leaf.float().square().sum())
+    dev = tree_leaves(tree)[0].device
+    split = (torch.stack(parts[True]).sum() if parts[True]
+             else torch.zeros((), dtype=torch.float32, device=dev))
+    torch.distributed.all_reduce(split, group=group)
+    whole = (torch.stack(parts[False]).sum() if parts[False]
+             else torch.zeros((), dtype=torch.float32, device=dev))
+    return torch.sqrt(split + whole)
 
 
 # ---------------------------------------------------------------------------

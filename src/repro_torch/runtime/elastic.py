@@ -6,9 +6,9 @@ cross-tier weights renormalize (Eq. 3 is defined for any M).  This module
 handles the mechanical part:
 
   * ``reshard(tree, target)``: place a state tree for this rank on a new
-    mesh (each rank keeps its pod slots of a multi-pod FedAT state; every
-    other layout of the reference keeps leaves whole,
-    runtime/sharding.py) or on a device;
+    mesh (each rank keeps its pod slots of a multi-pod FedAT state; the
+    FSDP shards over ``data`` are cut by ``sharding.shard_tree`` with a
+    step's ``state_shardings``) or on a device;
   * ``shrink_pods / grow_pods``: adjust the pod-stacked leading dim of a
     multi-pod FedAT state (dropping a tier keeps the survivors' models;
     adding a tier bootstraps the newcomer from the Eq. 3 global model);

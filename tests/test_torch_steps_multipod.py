@@ -25,7 +25,8 @@ single-pod step, against the JAX reference (tests/test_steps_multipod.py).
 * ``make_single_pod_step`` on 2 data ranks within ``DP_ATOL`` of one
   rank after 2 steps (each rank's half batch, gradients averaged over the
   ranks: the mean re-associates the sum).  Measured 1.9e-8, the losses
-  equal.
+  equal.  The 2 ranks hold the state sharded over ``data`` (FSDP), each
+  its own half of every split leaf; the params gathered are compared.
 """
 import os
 import pickle
@@ -97,6 +98,7 @@ _RANK = textwrap.dedent("""
     from repro_torch.configs.registry import get_smoke_config
     from repro_torch.core import steps
     from repro_torch.launch import mesh as mesh_mod
+    from repro_torch.models import common
     from repro_torch.models.convert import params_from_numpy, params_to_numpy
     from repro_torch.optim.optimizers import tree_map
 
@@ -183,8 +185,15 @@ _RANK = textwrap.dedent("""
         s2, m2 = two.train_step(s2, b)
         l1.append(float(m1["loss"]))
         l2.append(float(m2["loss"]))
+    # the 2-rank state is sharded over data: the whole params gathered
+    from repro_torch.runtime import sharding as shd
+    whole = shd.FSDP.over(dp).gather_tree(s2["params"],
+                                          two.state_shardings["params"])
     out["dp"] = {"losses": [l1, l2], "params": [
-        params_to_numpy(s1["params"]), params_to_numpy(s2["params"])]}
+        params_to_numpy(s1["params"]), params_to_numpy(whole)],
+        "shards": params_to_numpy(s2["params"]),
+        "split": {k: shd.split_dim(v) for k, v in common.flatten_tree(
+            two.state_shardings["params"]).items()}}
     # the reference's single-pod test, on 2 data ranks
     g = get_smoke_config("granite-moe-3b-a800m")
     two = steps.make_single_pod_step(g, TrainConfig(lr=1e-3), dp,
@@ -390,10 +399,23 @@ def test_single_pod_step_on_two_data_ranks(runs):
     np.testing.assert_allclose(l2, l1, rtol=DP_ATOL)
     for x, y in zip(_leaves(r["params"][0]), _leaves(r["params"][1])):
         assert float(np.abs(x - y).max()) <= DP_ATOL
-    # both ranks hold the same state
-    for x, y in zip(_leaves(runs[1][0]["dp"]["params"][1]),
-                    _leaves(runs[1][1]["dp"]["params"][1])):
+    # both ranks gather the same state, each holding its own block of
+    # every leaf split over data and the rest whole
+    a, b = runs[1][0]["dp"], runs[1][1]["dp"]
+    for x, y in zip(_leaves(a["params"][1]), _leaves(b["params"][1])):
         assert np.array_equal(x, y)
+    from repro_torch.models.common import flatten_tree
+    whole = flatten_tree(a["params"][1])
+    for rank, r in enumerate((a, b)):
+        for name, shard in flatten_tree(r["shards"]).items():
+            dim = r["split"][name]
+            if dim is None:
+                assert np.array_equal(shard, whole[name])
+                continue
+            n = shard.shape[dim]
+            assert whole[name].shape[dim] == 2 * n
+            assert np.array_equal(shard, np.take(
+                whole[name], range(rank * n, (rank + 1) * n), axis=dim))
 
 
 def test_reshard_keeps_each_ranks_pod_slot(runs):

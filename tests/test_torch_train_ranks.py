@@ -1,13 +1,21 @@
-"""The trainer's checkpoints on 2 gloo ranks: failure injection and
+"""The trainer's checkpoints on gloo ranks: failure injection and
 ``--resume`` restore one agreed step on every rank.
 
 Each rank writes its checkpoints under a directory of its own (a host
 that cannot see the other's files): in a single-pod run only rank 0, the
 writer, saves, and rank 1 reads nothing from the disk; the state it
-restores is rank 0's, broadcast.  Under ``--multi-pod`` each rank writes
-its pod's slot, and the two writers agree on the newest step that both
-hold.  The runner's injected failures are drawn from ``--seed`` on every
-rank, so the ranks fail, restore and retry at the same steps.
+restores is rank 0's, each leaf broadcast and every rank keeping its
+FSDP shard.  Under ``--multi-pod`` each rank writes its pod's slot, and
+the two writers agree on the newest step that both hold.  The runner's
+injected failures are drawn from ``--seed`` on every rank, so the ranks
+fail, restore and retry at the same steps.
+
+The files are layout-free: a single-pod run on 2 ranks (each holding
+half of every split leaf) writes whole leaves, which restore on 1 and on
+4 ranks to the same params and moments, bit for bit, and a checkpoint
+written on 4 restores on 2 and on 1.  A guarded restore on 2 sharded
+ranks, a checkpoint every step, resumes to the uninterrupted run's
+losses within ``RESUME_RTOL`` (read: equal).
 """
 import json
 import os
@@ -29,6 +37,7 @@ COMMON = ["--smoke", "--device", "cpu", "--ckpt-every", "2", "--seed", "3"]
 #: and step 6 once (each restores step 4, so step 5 runs twice): 5
 #: failures, 3 restores, 7 steps run
 FAILURES = ["--inject-failure-rate", "0.3"]
+RESUME_RTOL = 1e-6
 
 _RANK = textwrap.dedent("""
     import json, os, sys
@@ -44,9 +53,18 @@ _RANK = textwrap.dedent("""
     args.ckpt_dir = os.path.join(args.ckpt_dir, f"host{rank}")
     try:
         res = train.run(args)
-        flat = torch.cat([x.reshape(-1).to(torch.float64)
-                          for x in tree_leaves(res.state["params"])])
-        torch.save(flat, out.format(rank) + ".pt")
+        # the state is sharded over the data ranks: gathered whole
+        from repro_torch.runtime import sharding as shd
+        mesh = mesh_mod.make_host_mesh(n_pods=2 if args.multi_pod else 1)
+        fsdp = shd.FSDP.over(mesh)
+        state = (res.state if fsdp is None else
+                 fsdp.gather_tree(res.state, res.layouts))
+        torch.save({k: torch.cat([x.reshape(-1).to(torch.float64)
+                                  for x in tree_leaves(t)])
+                    for k, t in (("params", state["params"]),
+                                 ("m", state["opt"]["m"]),
+                                 ("v", state["opt"]["v"]))},
+                   out.format(rank) + ".pt")
         with open(out.format(rank), "w") as f:
             json.dump({"losses": res.losses, "start": res.start_step,
                        "end": res.end_step, "stats": res.runner_stats}, f)
@@ -55,21 +73,22 @@ _RANK = textwrap.dedent("""
 """)
 
 
-def _ranks(tmp_path, argv, tag):
+def _ranks(tmp_path, argv, tag, world=2):
     out = str(tmp_path / f"{tag}_rank{{}}.json")
     store = tmp_path / f"store_{tag}"
     store.mkdir()
     res = mesh_mod.run_ranks(
-        ["-c", _RANK, out, *argv, "--ckpt-dir", str(tmp_path / "ck")], 2,
-        timeout=120, store_dir=str(store),
+        ["-c", _RANK, out, *argv, "--ckpt-dir", str(tmp_path / "ck")],
+        world, timeout=120, store_dir=str(store),
         env={"PYTHONPATH": os.path.join(REPO, "src"),
              "OMP_NUM_THREADS": "1"})
-    assert [rc for rc, _, _ in res] == [0, 0], [e[-3000:] for *_, e in res]
+    assert [rc for rc, _, _ in res] == [0] * world, \
+        [e[-3000:] for *_, e in res]
     docs = []
-    for r in range(2):
+    for r in range(world):
         with open(out.format(r)) as f:
             doc = json.load(f)
-        doc["params"] = torch.load(out.format(r) + ".pt")
+        doc.update(torch.load(out.format(r) + ".pt"))
         docs.append(doc)
     return docs
 
@@ -102,3 +121,63 @@ def test_two_ranks_restore_together(tmp_path, multi_pod):
         assert (r["start"], r["end"]) == (4, 6) and len(r["losses"]) == 2
     assert b[0]["losses"] == b[1]["losses"]
     assert torch.equal(b[0]["params"], b[1]["params"])
+
+
+def _one_rank_restore(tmp_path, steps):
+    """``--resume`` on one rank (no process group) from the writer's
+    directory: the whole state it restores, flat."""
+    from repro_torch.launch import train
+    from repro_torch.optim.optimizers import tree_leaves
+    args = train.parser().parse_args(
+        COMMON + ["--steps", str(steps), "--resume", "--ckpt-dir",
+                  str(tmp_path / "ck" / "host0")])
+    res = train.run(args)
+    assert (res.start_step, res.end_step) == (steps, steps)
+    return {k: torch.cat([x.reshape(-1).to(torch.float64)
+                          for x in tree_leaves(t)])
+            for k, t in (("params", res.state["params"]),
+                         ("m", res.state["opt"]["m"]),
+                         ("v", res.state["opt"]["v"]))}
+
+
+def _same_state(a, b):
+    return all(torch.equal(a[k], b[k]) for k in ("params", "m", "v"))
+
+
+def test_checkpoints_are_layout_free(tmp_path):
+    # written on 2 ranks, restored on 4 and on 1
+    two = _ranks(tmp_path, COMMON + ["--steps", "4"], "d2")
+    assert _same_state(two[0], two[1])
+    four = _ranks(tmp_path, COMMON + ["--steps", "4", "--resume"], "d4",
+                  world=4)
+    for r in four:
+        assert (r["start"], r["end"]) == (4, 4)
+        assert _same_state(r, two[0])
+    assert _same_state(_one_rank_restore(tmp_path, 4), two[0])
+    # and the reverse: 2 more steps written on 4, restored on 2 and on 1
+    four = _ranks(tmp_path, COMMON + ["--steps", "6", "--resume"], "d4b",
+                  world=4)
+    assert four[0]["start"] == 4 and not _same_state(four[0], two[0])
+    two = _ranks(tmp_path, COMMON + ["--steps", "6", "--resume"], "d2b")
+    for r in two:
+        assert (r["start"], r["end"]) == (6, 6)
+        assert _same_state(r, four[0])
+    assert _same_state(_one_rank_restore(tmp_path, 6), four[0])
+
+
+def test_guarded_restore_resumes_the_uninterrupted_losses(tmp_path):
+    """A checkpoint every step: each failure restores the step before it
+    and retries the same batch, so the run's losses are the uninterrupted
+    run's."""
+    argv = ["--smoke", "--device", "cpu", "--ckpt-every", "1", "--seed",
+            "3", "--steps", "6"]
+    a = _ranks(tmp_path, argv + FAILURES, "faulty")
+    assert a[0]["stats"]["failures"] == 5 and a[0]["stats"]["restores"] == 3
+    shutil.rmtree(tmp_path / "ck")
+    b = _ranks(tmp_path, argv, "clean")
+    assert b[0]["stats"]["failures"] == 0
+    for x, y in zip(a, b):
+        assert len(x["losses"]) == len(y["losses"]) == 6
+        for p, q in zip(x["losses"], y["losses"]):
+            assert abs(p - q) <= RESUME_RTOL * abs(q)
+        assert _same_state(x, y)
