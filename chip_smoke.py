@@ -35,8 +35,9 @@ only, never JAX or the reference package.  Phases:
    must launch the roundtrip and not the pair.
 6. Hold the flash attention kernel against its plain version (the
    materialised oracle) on the card: the reference's seven ATTN_CASES,
-   head dims 16 and 120, the qwen2-7b prefill shape and zamba2's shared
-   block (32 heads of 80), and the moe, audio and hybrid paths' shapes
+   head dims 16 and 120, the qwen2-7b prefill shape, zamba2's shared
+   block (32 heads of 80) and the trainer's microbatch (1 x 4096 tokens
+   at qwen2-7b's heads), and the moe, audio and hybrid paths' shapes
    (``PATH_ATTN_SHAPES``: granite and deepseek prefill waves, granite,
    hubert and zamba2 training microbatches, hubert's non-causal at hd
    80), in fp32 (max abs error 2e-5; the FFMA design)
@@ -47,7 +48,8 @@ only, never JAX or the reference package.  Phases:
    attention, S > T); a bf16 operand TMA cannot load must be refused.
    Time kernel, plain version and
    ``scaled_dot_product_attention`` (the yardstick, never called by the
-   port) at both serving shapes in both dtypes, beside the bound.
+   port) at both serving shapes and the trainer's in both dtypes, beside
+   the bound.
 7. Run the serving path: ``repro_torch.launch.serve`` at qwen2-7b full
    width (fp32 params drawn on the card, fp32 cache), 16 requests over 8
    slots, prompts up to 1024 tokens, 16 new tokens each, with the launch
@@ -116,7 +118,10 @@ only, never JAX or the reference package.  Phases:
     repeats step 3 with the same loss and writes no second checkpoint
     (only step 2's is left); flash backward launches = 3 layers x 8
     microbatches a step, forward twice that (remat); no failure caught by
-    the guarded runner.
+    the guarded runner.  Step 3's FLOPs, counted on meta tensors as the
+    dry-run counts a cell (``launch/dryrun.py`` ``step_flops``), over its
+    time: the achieved TFLOP/s and ``mfu``, its share of the card's fp32
+    peak ``FP32_OPS_PER_S`` (a reading, not a check).
 17. FedAT under the fault plane at phase 3's width (``FAULTS``: churn,
     two tier blackouts, poisoned uplinks, update clipping, engine
     snapshots every 2 updates; 8 updates): two runs through
@@ -259,6 +264,18 @@ only, never JAX or the reference package.  Phases:
     params within ``FSDP_LOSS_RTOL`` / ``FSDP_PARAM_ATOL`` of the one-rank
     run's; a rank's peak below the one-rank run's; state bytes, peaks,
     step seconds and the collectives' host seconds.
+29. Tier stacks laid over ``pod`` (``mesh.shard_tiers``), two runs of
+    ``SHARD_TIERS_UPDATES`` updates on ranks sharing the card over gloo
+    (``--rank-phase 29``), each against the same spec on one rank in
+    this process: phase 3's FedAT quantize8 with 4 tiers on (pod=2,
+    data=2), 4 ranks, and phase 20's 2 x 2 silo tree on (pod=2, data=1),
+    2 ranks.  Each rank holds only its pod's slots of the stack (2 of 4
+    tiers, 1 of 2 silos) and half its bytes; event times bitwise the
+    one-rank run's; the global model and the whole stack (gathered over
+    pod) within ``SHARDED_ROUND_ATOL`` of the one-rank run's; counts from
+    0 on each rank: the roundtrip launches of phases 26 and 20 a round,
+    one all_reduce over pod a round (Eq. 3) beside Eq. 4's over data;
+    events/s a rank and the pod all_reduce's host-clocked time.
 
 Any failed check exits non-zero.  The last three lines of standard output
 are the kernel report (JSON), the card's ``name, power.limit`` and
@@ -280,10 +297,18 @@ from pathlib import Path
 import numpy as np
 
 ROOT = Path(__file__).resolve().parent
-HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory rate (data sheet)
-FP32_OPS_PER_S = 67e12         # H100 SXM fp32 outside the tensor cores
-BF16_OPS_PER_S = 989e12        # H100 SXM bf16 tensor cores, dense
-TF32_OPS_PER_S = 495e12        # H100 SXM TF32 tensor cores, dense
+sys.path.insert(0, str(ROOT / "src"))
+if (ROOT / "src" / "repro_torch").is_dir():   # else main() says so
+    # the card's rates and the kernels' work, shared with the dry-run
+    from repro_torch.kernels.build import (  # noqa: E402
+        BF16_OPS_PER_S, FP32_OPS_PER_S, HBM_BYTES_PER_S, TF32_OPS_PER_S,
+        bound as _bound)
+    from repro_torch.kernels.flash_attention import (  # noqa: E402
+        attention_bound, attention_bwd_bound)
+    from repro_torch.kernels.rwkv6_scan import (  # noqa: E402
+        bwd_flops as wkv6_bwd_flops, flops as wkv6_flops)
+    from repro_torch.kernels.ssd import (  # noqa: E402
+        bwd_flops as ssd_bwd_flops, flops as ssd_flops)
 CARD_VS_CPU_RTOL = 1e-3        # see phase 4
 SERVE_LOGITS_RTOL = 1e-4       # see phase 8
 
@@ -900,6 +925,8 @@ BF16_ROUND_REL = 2.0 ** -8
 ATTN_SHAPES = {
     "qwen2-7b prefill": dict(B=8, S=1024, H=28, KV=4, hd=128),
     "zamba2-2.7b shared block": dict(B=8, S=1024, H=32, KV=32, hd=80),
+    # one 4096-token microbatch of the trainer (phase 16)
+    "qwen2-7b training": dict(B=1, S=4096, H=28, KV=4, hd=128),
 }
 #: the shapes the moe, audio and hybrid paths give the kernel (phases 21,
 #: 23 and 24), checked against the plain version here beside ATTN_CASES:
@@ -926,28 +953,6 @@ LSE_ATOL = 2e-5
 #: (HGMMA) and TMA tile loads (UTMALDG) the bf16 flash design must
 #: contain, and the mma.sync products (HMMA) of the chunk scans
 TC_OPCODES = ("HGMMA", "UTMALDG", "HMMA")
-
-
-def visible_pairs(S: int, T: int, causal: bool, window) -> int:
-    """(query, key) pairs the masks let through, per head."""
-    s = np.arange(S)
-    hi = np.minimum(s + 1, T) if causal else np.full(S, T)
-    lo = np.maximum(s - window + 1, 0) if window else np.zeros(S, int)
-    return int(np.maximum(hi - lo, 0).sum())
-
-
-def attention_bound(B, S, T, H, KV, hd, causal, window, dtype):
-    """Least time for one launch: each of q, k, v, o moved once, and
-    2 FLOP per multiply-add of QK^T and PV over the visible pairs."""
-    size = 4 if dtype == "float32" else 2
-    nbytes = size * (2 * B * S * H * hd + 2 * B * T * KV * hd)
-    flops = 4 * B * H * visible_pairs(S, T, causal, window) * hd
-    peak = FP32_OPS_PER_S if dtype == "float32" else BF16_OPS_PER_S
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / peak * 1e3
-    return {"bound_ms": max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "bytes": nbytes, "flops": flops}
 
 
 def event_time_ms(torch, fn, iters: int = 10) -> float:
@@ -1521,23 +1526,6 @@ def ssd_inputs(torch, g, B, S, H, P, N, dtype):
             rnd(B, S, N).to(dt), -rnd(B, S, H).abs(), rnd(B, H, P, N))
 
 
-def _bound(nbytes, flops, dtype):
-    """The bound at the card's rate for ``dtype`` outside the tensor cores
-    (fp32) or on them (bf16), and beside it ``tc_bound_ms``, the products
-    on the tensor cores as the scan kernels and the flash backward run
-    them: 3xTF32 (3x the operations at the TF32 rate) for fp32, the bf16
-    rate for bf16."""
-    peak = FP32_OPS_PER_S if dtype == "float32" else BF16_OPS_PER_S
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / peak * 1e3
-    t_tc = (3 * flops / TF32_OPS_PER_S if dtype == "float32"
-            else flops / BF16_OPS_PER_S) * 1e3
-    return {"bound_ms": max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "tc_bound_ms": max(t_bytes, t_tc),
-            "tc_bound_by": "bytes" if t_bytes >= t_tc else "operations",
-            "bytes": nbytes, "flops": flops}
-
-
 def wkv_bound(B, S, H, N, dtype):
     """Least time for one launch: r, k, v, y (dtype) and logw (f32) moved
     once, the state read and written once; operations of the chunked form
@@ -1549,8 +1537,8 @@ def wkv_bound(B, S, H, N, dtype):
     nbytes = (4 * size + 4) * B * S * H * N + 8 * B * H * N * N + 4 * H * N
     C = BOUND_CHUNK
     pairs = C * (C - 1) // 2
-    fma = 2 * C * N * N + 2 * pairs * N + 2 * C * N
-    flops = B * H * (-(-S // C)) * (2 * fma + pairs * N + 2 * C * N)
+    flops = (wkv6_flops(B, S, H, N, C)
+             + B * H * (-(-S // C)) * (pairs * N + 2 * C * N))
     return _bound(nbytes, flops, dtype)
 
 
@@ -1567,8 +1555,8 @@ def ssd_bound(B, S, H, P, N, dtype):
               + 8 * B * H * P * N)
     C = BOUND_CHUNK
     vis = C * (C + 1) // 2
-    per_head = 2 * (2 * C * P * N + vis * P) + vis + 2 * C
-    flops = B * (-(-S // C)) * (H * per_head + 2 * vis * N)
+    flops = (ssd_flops(B, S, H, P, N, C)
+             + B * (-(-S // C)) * H * (vis + 2 * C))
     return _bound(nbytes, flops, dtype)
 
 
@@ -2088,21 +2076,6 @@ BWD_SHAPES = {
 }
 
 
-def attention_bwd_bound(B, S, T, H, KV, hd, causal, window, dtype):
-    """Least time for one backward: q, k, v, o, dO and lse read once, dq,
-    dk, dv written once, and the 5 products of the recompute backward
-    (S, dP, dV, dK, dQ: 2.5x the forward's 2) over the visible pairs: fp32
-    at the FFMA rate, bf16 at the bf16 tensor-core rate; beside it
-    ``tc_bound_ms``, the products as the kernels run them on the tensor
-    cores: 3xTF32 for fp32 (3x the operations at the TF32 rate), bf16 as
-    ``bound_ms``."""
-    size = 4 if dtype == "float32" else 2
-    nbytes = (size * (4 * B * S * H * hd + 4 * B * T * KV * hd)
-              + 4 * B * H * S)
-    flops = 10 * B * H * visible_pairs(S, T, causal, window) * hd
-    return _bound(nbytes, flops, dtype)
-
-
 def _grad_errs(got, want):
     return [float((a.float() - b.float()).abs().max()
                   / b.float().abs().max().clamp_min(1e-30))
@@ -2614,6 +2587,12 @@ def run_trainer(torch, kernels):
         check(all(counts_b[k] == v for k, v in per_step.items()),
               f"resumed trainer launches {counts_b}, expected {per_step}")
         step3 = prof["step3"]
+        # the step's products, counted on meta tensors as the dry-run
+        # counts a cell (launch/dryrun.py step_flops)
+        from repro_torch.launch import dryrun
+        flops = dryrun.step_flops(cfg, shape)
+        step_flops = sum(flops.values())
+        achieved = step_flops / step3["step_s"]
         d = abs(b.losses[0] - step3["loss"])
         check(b.metrics[0]["lr_scale"] == step3["lr_scale"],
               f"resumed step 3 lr_scale {b.metrics[0]['lr_scale']} vs "
@@ -2631,7 +2610,10 @@ def run_trainer(torch, kernels):
             "wall_s": wall_a, "resume_wall_s": wall_b,
             "launches": counts_a, "expected_launches": want,
             "resume_launches": counts_b, "peak_mem_bytes": peak,
-            "runner_stats": a.runner_stats, "profile": prof})
+            "runner_stats": a.runner_stats, "profile": prof,
+            "step_flops": step_flops, "step_flops_by_op": flops,
+            "achieved_tflops": achieved / 1e12,
+            "mfu": achieved / FP32_OPS_PER_S})
         log(f"phase 16: trainer at qwen2-7b widths ({n_params} params: "
             f"{cfg.n_layers} of 28 layers, d_model {cfg.d_model}, GQA "
             f"{cfg.n_heads}/{cfg.n_kv_heads}, hd {cfg.head_dim}, d_ff "
@@ -2639,7 +2621,10 @@ def run_trainer(torch, kernels):
             f"256 x 4096 tokens, microbatch {mb}, remat, fp32 AdamW): "
             f"losses {out['losses']}, grad_norms {out['grad_norms']}; "
             f"steps 1-2 and a checkpoint in {wall_a:.1f} s; step 3 "
-            f"{step3['step_s']:.3f} s; resumed from step 2: step 3 loss "
+            f"{step3['step_s']:.3f} s: {step_flops:.4g} FLOP (meta count), "
+            f"{achieved / 1e12:.2f} TFLOP/s, mfu {achieved / FP32_OPS_PER_S:.4f} "
+            f"of the fp32 peak {FP32_OPS_PER_S / 1e12:.0f} TFLOP/s; resumed "
+            f"from step 2: step 3 loss "
             f"{b.losses[0]} (|diff| {d:.3g}) in {wall_b:.1f} s with its "
             f"restore (no checkpoint written); peak {peak / 2**30:.2f} GiB; launches "
             f"{counts_a} (resume {counts_b}); runner {a.runner_stats}")
@@ -4124,13 +4109,12 @@ def scan_bwd_bound(kind, B, S, H, N, P=None):
     chunks = -(-S // C)
     if kind == "wkv6":
         nbytes = 4 * (9 * B * S * H * N + 2 * B * H * N * N + 2 * H * N)
-        fma = 4 * C * N * N + 2 * vis * N + 3 * pairs * N
-        flops = B * H * chunks * (2 * fma + pairs * N)
+        flops = wkv6_bwd_flops(B, S, H, N, C) + B * H * chunks * pairs * N
     else:
         nbytes = 4 * (4 * B * S * H * P + 4 * B * S * N + 2 * B * S * H
                       + 2 * B * H * P * N)
-        fma = 4 * C * P * N + 2 * vis * P + 2 * vis * N
-        flops = B * chunks * (H * (2 * fma + vis + 2 * C) + 2 * vis * N)
+        flops = (ssd_bwd_flops(B, S, H, P, N, C)
+                 + B * chunks * H * (vis + 2 * C))
     return _bound(nbytes, flops, "float32")
 
 
@@ -4624,7 +4608,8 @@ class _Collectives:
             out = real(t, *a, **k)
             torch.cuda.synchronize()
             self.calls[name].append((time.perf_counter() - t0,
-                                     t.numel() * t.element_size()))
+                                     t.numel() * t.element_size(),
+                                     k.get("group")))
             return out
         return call
 
@@ -5301,11 +5286,211 @@ def run_fsdp(torch, kernels):
     return info
 
 
+# ---------------------------------------------------------------------------
+# phase 29: tier stacks laid over pod (shard_tiers)
+# ---------------------------------------------------------------------------
+
+#: run 1: phase 3's FedAT quantize8 with 4 tiers on (pod=2, data=2), 4
+#: ranks sharing the card; run 2: phase 20's 2 x 2 silo tree on (pod=2,
+#: data=1), 2 ranks.  4 updates each, as phase 26
+SHARD_TIERS_RUNS = {
+    4: dict(FULL, **{"tiers.n_tiers": 4, "mesh.n_pods": 2}),
+    2: dict(TOPOLOGY, **{"mesh.n_pods": 2}),
+}
+SHARD_TIERS_UPDATES = 4
+
+
+def _shard_tiers_spec(api, world: int, mesh: bool):
+    over = dict(SHARD_TIERS_RUNS[world],
+                **{"engine.total_updates": SHARD_TIERS_UPDATES})
+    if not mesh:
+        over.pop("mesh.n_pods")
+    else:
+        over.update({"mesh.kind": "host", "mesh.shard_tiers": True})
+    return api.ExperimentSpec().with_overrides(over)
+
+
+def rank_phase29(torch, out_fmt: str) -> None:
+    """One rank of phase 29 (started by :func:`run_shard_tiers`): the run
+    of ``SHARD_TIERS_RUNS[world]``, its round times, collectives and
+    launches, the slots this rank holds and the whole stack gathered."""
+    import torch.distributed as dist
+    from repro_torch import api, kernels
+    from repro_torch.launch import mesh as mesh_mod
+    dev = mesh_mod.init_from_env(torch.device("cuda"))
+    world = mesh_mod.world_size()
+    run = api.build(_shard_tiers_spec(api, world, True), device=dev)
+    env, ex = run.env, run.env.executor()
+    topo = env.topology is not None
+    name = "fedat_topology_round" if topo else "fedat_round"
+    round_s = []
+    orig = getattr(ex, name)
+
+    def timed_round(*a, **k):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = orig(*a, **k)
+        torch.cuda.synchronize()
+        round_s.append(time.perf_counter() - t0)
+        return res
+
+    setattr(ex, name, timed_round)
+    kernels.reset_launch_counts()
+    with _Collectives(torch) as coll:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = run.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    s = run.strategy
+    held = {k: v for k, v in s.tier_models.items()}
+    whole = ex.whole_tiers(s.tier_models, len(s.counts))
+    rank = mesh_mod.rank()
+    np.save(_rank_out(out_fmt, rank).with_suffix(".w.npy"),
+            flat(s.global_params()).numpy())
+    np.save(_rank_out(out_fmt, rank).with_suffix(".t.npy"),
+            flat(whole).numpy())
+    pod = [c for c in coll.calls["all_reduce"] if c[2] is ex._pod_group]
+    out = {"rank": rank, "world": world, "backend": dist.get_backend(),
+           "mesh": dict(env.mesh.shape), "slots": list(s.slots),
+           "held_rows": int(next(iter(held.values())).shape[0]),
+           "stack_bytes": sum(v.numel() * v.element_size()
+                              for v in held.values()),
+           "whole_stack_bytes": sum(v.numel() * v.element_size()
+                                    for v in whole.values()),
+           "launches": kernels.launch_counts(), "rounds": len(round_s),
+           "round_s": round_s, "wall_s": wall,
+           "events_per_s": len(round_s) / wall, "times": res.metrics.times,
+           "acc": res.metrics.acc, "collectives": {
+               n: len(c) for n, c in coll.calls.items()},
+           "pod_all_reduces": len(pod),
+           "pod_all_reduce_s": [c[0] for c in pod],
+           "pod_all_reduce_bytes": [c[1] for c in pod],
+           "keys": sorted(map(str, ex.trace_counts))}
+    _rank_out(out_fmt, rank).write_text(json.dumps(out))
+    mesh_mod.shutdown()
+
+
+def run_shard_tiers(torch, api):
+    """Phase 29: the tier stack laid over ``pod`` on ranks sharing the
+    card over gloo, each run against the one-rank run in this process:
+    every rank holds only its pod's slots (4 tiers over 2 pods: 2 each;
+    2 silos over 2 pods: 1 each), event times bitwise, the whole tier
+    (silo) stack and the global model within phase 26's pin."""
+    import shutil
+    from repro_torch.launch import mesh as mesh_mod
+    work = ROOT / "build" / "chip_smoke_ranks"
+    out = {}
+    for world in SHARD_TIERS_RUNS:
+        shutil.rmtree(work, ignore_errors=True)
+        work.mkdir(parents=True)
+        fmt = str(work / "p29_rank{}.json")
+        t0 = time.perf_counter()
+        res = mesh_mod.run_ranks([str(ROOT / "chip_smoke.py"),
+                                  "--rank-phase", "29", "--rank-out", fmt],
+                                 world, timeout=600, store_dir=str(work))
+        ranks_s = time.perf_counter() - t0
+        for r, (rc, so, se) in enumerate(res):
+            check(rc == 0, f"phase 29: rank {r} of {world} exited {rc}: "
+                           f"{se[-3000:]}")
+        ranks = [json.loads(_rank_out(fmt, r).read_text())
+                 for r in range(world)]
+        w = [np.load(_rank_out(fmt, r).with_suffix(".w.npy"))
+             for r in range(world)]
+        tiers = [np.load(_rank_out(fmt, r).with_suffix(".t.npy"))
+                 for r in range(world)]
+        run = api.build(_shard_tiers_spec(api, world, False), device="cuda")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        one = run.run().metrics
+        torch.cuda.synchronize()
+        one_eps = SHARD_TIERS_UPDATES / (time.perf_counter() - t0)
+        w_one = flat(run.strategy.global_params()).numpy()
+        t_one = flat(run.strategy.tier_models).numpy()
+        M = len(run.strategy.counts)
+        topo = run.env.topology is not None
+        pods, data = 2, world // 2
+        per = M // pods
+        for r, info in enumerate(ranks):
+            p = r // data
+            check(info["mesh"] == {"pod": pods, "data": data, "model": 1}
+                  and info["backend"] == "gloo",
+                  f"phase 29: rank {r}: mesh {info['mesh']}, backend "
+                  f"{info['backend']}")
+            check(info["slots"] == list(range(p * per, (p + 1) * per))
+                  and info["held_rows"] == per
+                  and info["stack_bytes"] * pods
+                  == info["whole_stack_bytes"],
+                  f"phase 29: rank {r} holds slots {info['slots']} "
+                  f"({info['held_rows']} rows, {info['stack_bytes']} of "
+                  f"{info['whole_stack_bytes']} B); pod {p} owns "
+                  f"{list(range(p * per, (p + 1) * per))}")
+            check(info["times"] == one.times,
+                  f"phase 29: rank {r} event times {info['times']} vs the "
+                  f"one-rank run's {one.times}")
+            rounds = info["rounds"]
+            want = {k: 0 for k in info["launches"]}
+            want["roundtrip"] = (TOPOLOGY_LAUNCHES if topo else 2) * rounds
+            check(info["launches"] == want,
+                  f"phase 29: rank {r} launches {info['launches']}, "
+                  f"expected {want}")
+            # a round: Eq. 4's all_reduce over data (when D > 1) and Eq. 3's
+            # over pod; the gather of the stack at the end is broadcasts
+            check(info["pod_all_reduces"] == rounds
+                  and info["collectives"]["all_reduce"]
+                  == rounds * (1 + (data > 1)),
+                  f"phase 29: rank {r} collectives {info['collectives']}, "
+                  f"{info['pod_all_reduces']} over pod for {rounds} rounds")
+        check(all(np.array_equal(w[0], x) for x in w)
+              and all(np.array_equal(tiers[0], x) for x in tiers),
+              f"phase 29 ({world} ranks): the ranks disagree on the models")
+        w_diff = float(np.abs(w[0] - w_one).max())
+        t_diff = float(np.abs(tiers[0] - t_one).max())
+        check(w_diff <= SHARDED_ROUND_ATOL and t_diff <= SHARDED_ROUND_ATOL,
+              f"phase 29 ({world} ranks): global model {w_diff}, tier "
+              f"stack {t_diff} from the one-rank run's (bound "
+              f"{SHARDED_ROUND_ATOL})")
+        pod_s = [s for info in ranks for s in info["pod_all_reduce_s"]]
+        key = "topology" if topo else "fedat"
+        out[key] = {
+            "ranks": ranks, "ranks_wall_s": ranks_s, "world": world,
+            "events_per_s": [r["events_per_s"] for r in ranks],
+            "one_rank_events_per_s": one_eps,
+            "pod_all_reduce_ms_median": 1e3 * float(np.median(pod_s)),
+            "pod_all_reduce_bytes": ranks[0]["pod_all_reduce_bytes"][0],
+            "stack_bytes_per_rank": ranks[0]["stack_bytes"],
+            "whole_stack_bytes": ranks[0]["whole_stack_bytes"],
+            "global_maxdiff": w_diff, "tiers_maxdiff": t_diff,
+            "bitwise": bool(w_diff == 0.0 and t_diff == 0.0)}
+        o = out[key]
+        log(f"phase 29: {'the 2 x 2 silo tree' if topo else 'FedAT quantize8 with 4 tiers'} "
+            f"on (pod={pods}, data={data}) with shard_tiers, {world} ranks "
+            f"sharing the card (gloo): slots "
+            f"{[r['slots'] for r in ranks]}, {o['stack_bytes_per_rank']} B "
+            f"of the {o['whole_stack_bytes']} B stack a rank; "
+            f"{ranks[0]['rounds']} rounds, event times bitwise the one-rank "
+            f"run's; global model within {w_diff:.3g} and the stack within "
+            f"{t_diff:.3g} of the one-rank run's (bound "
+            f"{SHARDED_ROUND_ATOL}; bitwise: {o['bitwise']}); "
+            f"{o['events_per_s']} events/s a rank (one rank here "
+            f"{one_eps:.4f}); the pod all_reduce of "
+            f"{o['pod_all_reduce_bytes']} B: "
+            f"{o['pod_all_reduce_ms_median']:.3f} ms median, host-clocked "
+            f"around a synchronise; the ranks ran {ranks_s:.1f} s with "
+            f"their start")
+        shutil.rmtree(work, ignore_errors=True)
+        del run
+        api.clear_env_cache()
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="also write every number as JSON here")
-    ap.add_argument("--rank-phase", choices=["26", "27", "28"],
-                    help=argparse.SUPPRESS)  # one rank of phase 26-28
+    ap.add_argument("--rank-phase", choices=["26", "27", "28", "29"],
+                    help=argparse.SUPPRESS)  # one rank of phase 26-29
     ap.add_argument("--rank-out", help=argparse.SUPPRESS)
     args = ap.parse_args()
     t_start = time.perf_counter()
@@ -5318,8 +5503,8 @@ def main() -> None:
              f"{Path(__file__).name}")
     sys.path.insert(0, str(ROOT / "src"))
     if args.rank_phase:
-        {"26": rank_phase26, "27": rank_phase27,
-         "28": rank_phase28}[args.rank_phase](torch, args.rank_out)
+        {"26": rank_phase26, "27": rank_phase27, "28": rank_phase28,
+         "29": rank_phase29}[args.rank_phase](torch, args.rank_out)
         return
     from repro_torch import api, kernels, serve
     from repro_torch.api import cli
@@ -5482,14 +5667,19 @@ def main() -> None:
     # phase 28: the trainer sharded over data, counts from 0 per rank
     t28 = time.perf_counter()
     fsdp = run_fsdp(torch, kernels)
+    gc.collect()
+    torch.cuda.empty_cache()
+    # phase 29: tier stacks laid over pod, counts from 0 per rank
+    t29 = time.perf_counter()
+    shard_tiers = run_shard_tiers(torch, api)
     seconds.update({"phase_25": t26 - t25, "phase_26": t27 - t26,
-                    "phase_27": t28 - t27,
-                    "phase_28": time.perf_counter() - t28,
+                    "phase_27": t28 - t27, "phase_28": t29 - t28,
+                    "phase_29": time.perf_counter() - t29,
                     "script": time.perf_counter() - t_start})
-    log(f"phases 25-28 took {seconds['phase_25']:.1f} / "
+    log(f"phases 25-29 took {seconds['phase_25']:.1f} / "
         f"{seconds['phase_26']:.1f} / {seconds['phase_27']:.1f} / "
-        f"{seconds['phase_28']:.1f} s; the script so far "
-        f"{seconds['script']:.1f} s")
+        f"{seconds['phase_28']:.1f} / {seconds['phase_29']:.1f} s; the "
+        f"script so far {seconds['script']:.1f} s")
 
     src = "src/repro_torch/kernels/csrc/polyline_codec.cu"
     # the main path's lossy step: B1a and B1b fused, per stacked uplink
@@ -5530,6 +5720,8 @@ def main() -> None:
     # tensor-core design) and zamba2's hd 80 ride along
     f32, bf16 = (flash[d]["shapes"]["qwen2-7b prefill"]
                  for d in ("float32", "bfloat16"))
+    tr32, tr16 = (flash[d]["shapes"]["qwen2-7b training"]
+                  for d in ("float32", "bfloat16"))
     z32, z16 = (flash[d]["shapes"]["zamba2-2.7b shared block"]
                 for d in ("float32", "bfloat16"))
     report.append({
@@ -5549,6 +5741,11 @@ def main() -> None:
         "hd80_library_ms": z32["library_ms"], "hd80_bf16_ms": z16["ms"],
         "hd80_bf16_bound_ms": z16["bound_ms"],
         "hd80_bf16_library_ms": z16["library_ms"],
+        "train_ms": tr32["ms"], "train_plain_ms": tr32["plain_ms"],
+        "train_bound_ms": tr32["bound_ms"],
+        "train_library_ms": tr32["library_ms"],
+        "train_bf16_ms": tr16["ms"], "train_bf16_bound_ms": tr16["bound_ms"],
+        "train_bf16_library_ms": tr16["library_ms"],
         "train_launches": trainer["launches"]["flash_attention"],
         "multipod_launches_per_rank": [
             r["launches"]["flash_attention"] for r in multipod["ranks"]],
@@ -5698,7 +5895,8 @@ def main() -> None:
             "recurrent_training_card_vs_cpu": recurrent_train_agree,
             "scan_bwd": scan_bwd, "mesh_d1": mesh_d1,
             "sharded_round": sharded, "multipod": multipod,
-            "fsdp": fsdp, "seconds": seconds}, indent=2))
+            "fsdp": fsdp, "shard_tiers": shard_tiers,
+            "seconds": seconds}, indent=2))
     print(json.dumps({"kernels": report}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

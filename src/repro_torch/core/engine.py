@@ -20,9 +20,10 @@ updates through checkpoint/ckpt.py, and ``resume=True`` replays the rest
 of a killed run bitwise.
 
 On a mesh of several ranks every rank runs this loop with the same draws,
-so the metrics are equal on every rank; only rank 0 writes the snapshots
-(``launch/mesh.py`` ``is_writer``), and a resume reads the same snapshot
-on every rank.
+so the metrics are equal on every rank; every rank takes the snapshots
+(a tier stack laid over ``pod`` is gathered whole), only rank 0 writes
+them (``launch/mesh.py`` ``is_writer``), and a resume reads the same
+snapshot on every rank.
 """
 from __future__ import annotations
 
@@ -259,9 +260,12 @@ def run_engine(env: SimEnv, strategy: ServerStrategy, cfg: EngineConfig,
                                "bytes_down": ctx.bytes_down})
             if cfg.retier_every and ctx.t_global % cfg.retier_every == 0:
                 env.retier(ctx.rng, cfg.retier_drift)
-            if (mgr is not None and ctx.t_global % every == 0
-                    and mesh_mod.is_writer()):
-                mgr.save(ctx.t_global, _engine_snapshot(ctx, strategy, env))
+            if mgr is not None and ctx.t_global % every == 0:
+                # every rank snapshots (a tier stack laid over pod is
+                # gathered, a collective); the writer saves
+                snap = _engine_snapshot(ctx, strategy, env)
+                if mesh_mod.is_writer():
+                    mgr.save(ctx.t_global, snap)
     finally:
         if mgr is not None:
             mgr.wait()

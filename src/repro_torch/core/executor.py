@@ -59,6 +59,21 @@ bodies take all K slots: no collective, the single-device keys.  D > 1
 matches the single-device trajectory within a tolerance only: the sum
 over ranks re-associates Eq. 4, and the uplink codec groups its blocks
 per rank.
+
+**Tier stacks over ``pod``** (``SimConfig.shard_tiers`` on a mesh with a
+``pod`` axis of P > 1, where the reference pins the stack to the pod axis:
+the client-sharded FedAT round and the topology round).  Each rank holds
+its pod's slots of the (M, ...) tier (or silo) stack
+(:meth:`RoundExecutor.tier_slots`, the rule ``"tiers": "pod"``), and the
+strategy allocates only those.  A round writes the new tier model on the
+ranks that own its slot (every rank has it whole after Eq. 4's
+``all_reduce``); Eq. 3 takes the fp32 products summed over a rank's own
+slots, and one ``all_reduce`` over the pod group completes it, as
+:meth:`_intra_average` completes Eq. 4 over ``data``.  When P does not
+divide M the stack stays whole on every rank, as the reference's
+``with_sharding_constraint`` leaves it (five tiers over two pods).  The
+per-silo ``dispatch`` stack stays whole.  Snapshots gather the stack
+(:meth:`RoundExecutor.whole_tiers`), so they restore under any pod count.
 """
 from __future__ import annotations
 
@@ -70,6 +85,7 @@ import torch.distributed as dist
 
 from repro_torch.core import aggregation
 from repro_torch.core import steps as fl_steps
+from repro_torch.runtime import sharding as shd
 
 Params = Dict[str, torch.Tensor]
 PermSource = Callable[[int, int, int], torch.Tensor]
@@ -103,6 +119,12 @@ class RoundExecutor:
             self._shard = slice(r * k, (r + 1) * k)
             self._dtag = (f"data{self.D}",)
             self._group = self.mesh.group("data")[0]
+        #: lay the (M, ...) tier stack over the mesh's pod axis (the
+        #: reference's condition: the flag, a mesh, and pod > 1)
+        self.shard_tiers = (bool(env.sc.shard_tiers) and self.mesh is not None
+                            and self.mesh.shape.get("pod", 1) > 1)
+        if self.shard_tiers:
+            self._pod_group, self._pod_ranks = self.mesh.group("pod")
         self.streaming = bool(env.streaming)
         self._tag: Tuple[str, ...] = ("stream",) if self.streaming else ()
         #: step key -> 1 for each round-body configuration that ran
@@ -220,6 +242,20 @@ class RoundExecutor:
         sharding, ``stream`` on the streaming plane)."""
         self.trace_counts.setdefault(key + self._tag, 1)
 
+    @staticmethod
+    def _sum_over(sums: Params, group) -> Params:
+        """In place: one ``all_reduce`` over ``group`` of all the leaves'
+        fp32 partial sums (a flat buffer in sorted-key order)."""
+        keys = sorted(sums)
+        buf = torch.cat([sums[k].reshape(-1) for k in keys])
+        dist.all_reduce(buf, group=group)
+        off = 0
+        for k in keys:
+            n = sums[k].numel()
+            sums[k] = buf[off:off + n].reshape(sums[k].shape)
+            off += n
+        return sums
+
     def _intra_average(self, client_params: Params, w_intra: np.ndarray
                        ) -> Params:
         """Eq. 4 over this rank's clients ``w_intra[self._shard]``: the
@@ -233,15 +269,70 @@ class RoundExecutor:
             client_params, self._weights(w_intra[self._shard]),
             dtype=torch.float32)
         if self.D > 1:
-            keys = sorted(sums)
-            buf = torch.cat([sums[k].reshape(-1) for k in keys])
-            dist.all_reduce(buf, group=self._group)
-            off = 0
-            for k in keys:
-                n = sums[k].numel()
-                sums[k] = buf[off:off + n].reshape(sums[k].shape)
-                off += n
+            self._sum_over(sums, self._group)
         return {k: v.to(client_params[k].dtype) for k, v in sums.items()}
+
+    # ------------------------------------------------------------------
+    # the tier stack's layout (shard_tiers)
+    # ------------------------------------------------------------------
+    def tier_slots(self, M: int) -> range:
+        """The slots of the (M, ...) tier stack this rank holds: its pod's
+        block where the reference pins the stack to ``pod``
+        (``shard_tiers``, in the client-sharded FedAT round and the
+        topology round; ``sharding.tier_slots``), else all M."""
+        if self.shard_tiers and (self.D > 1 or self.topo is not None):
+            return shd.tier_slots(self.mesh, M)
+        return range(M)
+
+    def _write_slot(self, stack: Params, m: int, model: Params,
+                    slots: range) -> None:
+        """Slot ``m`` of the stack <- ``model``, on the ranks that hold
+        it."""
+        if m in slots:
+            for k, v in model.items():
+                stack[k][m - slots.start] = v
+
+    def _cross_average(self, stack: Params, cross_weights, slots: range
+                       ) -> Params:
+        """Eq. 3 over the stack.  Whole: the weighted average.  Laid over
+        ``pod``: the fp32 products summed over this rank's slots, one
+        ``all_reduce`` over the pod group, cast back to each leaf's
+        dtype."""
+        if len(slots) == len(cross_weights):
+            return aggregation.weighted_average(stack,
+                                                self._weights(cross_weights))
+        w = np.asarray(cross_weights, np.float32)[slots.start:slots.stop]
+        sums = aggregation.weighted_average(stack, self._weights(w),
+                                            dtype=torch.float32)
+        self._sum_over(sums, self._pod_group)
+        return {k: v.to(stack[k].dtype) for k, v in sums.items()}
+
+    def whole_tiers(self, stack: Params, M: int) -> Params:
+        """The whole (M, ...) stack from this rank's slots: one gather of
+        every leaf's rows over the pod group (the stack itself when it is
+        whole)."""
+        if len(self.tier_slots(M)) == M:
+            return stack
+        keys = sorted(stack)
+        rows = shd.all_gather_rows(
+            torch.cat([stack[k].reshape(-1) for k in keys]),
+            self._pod_group, self._pod_ranks, self.mesh.coord("pod"),
+            self.mesh.backend == "nccl")
+        out, off = {}, 0
+        for k in keys:
+            n = stack[k].numel()
+            out[k] = rows[:, off:off + n].reshape(
+                (M,) + tuple(stack[k].shape[1:]))
+            off += n
+        return out
+
+    def local_tiers(self, stack: Params, M: int) -> Params:
+        """This rank's slots of the whole (M, ...) ``stack``."""
+        slots = self.tier_slots(M)
+        if len(slots) == M:
+            return stack
+        return {k: v[slots.start:slots.stop].clone()
+                for k, v in stack.items()}
 
     def _refuse_gate_sharded(self) -> None:
         if self.D > 1:
@@ -280,11 +371,10 @@ class RoundExecutor:
                                   perms[self._shard])
         tier_model = self._intra_average(codec.lossy(client_params),
                                          aggregation.client_weights_host(ns))
-        for k, v in tier_model.items():
-            tier_models[k][m] = v
-        w_global = aggregation.weighted_average(
-            tier_models, self._weights(cross_weights))
-        return w_global, tier_models
+        slots = self.tier_slots(len(cross_weights))
+        self._write_slot(tier_models, m, tier_model, slots)
+        return self._cross_average(tier_models, cross_weights, slots), \
+            tier_models
 
     def fedat_topology_round(self, w_global: Params, silo_models: Params,
                              dispatch: Params, s: int, ids_edges,
@@ -342,10 +432,9 @@ class RoundExecutor:
             silo_model = {k: silo_model[k]
                           + lam32 * (w_global[k] - w_stale[k])
                           for k in silo_model}
-        for k, v in silo_model.items():
-            silo_models[k][s] = v
-        w_new = aggregation.weighted_average(
-            silo_models, self._weights(cross_weights))
+        slots = self.tier_slots(len(cross_weights))
+        self._write_slot(silo_models, s, silo_model, slots)
+        w_new = self._cross_average(silo_models, cross_weights, slots)
         for k, v in w_new.items():
             dispatch[k][s] = v
         return w_new, silo_models, dispatch

@@ -51,6 +51,7 @@ rounds.
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
@@ -77,6 +78,180 @@ class StepFns:
     init_state: Callable
     state_shardings: Any
     batch_shardings: Any
+
+
+# ---------------------------------------------------------------------------
+# the collectives of a step
+# ---------------------------------------------------------------------------
+
+#: the bytes of the metrics a step averages over ranks: the loss,
+#: ``ce_loss`` and ``aux_loss`` in fp32
+_METRIC_BYTES = 12
+
+
+def _itemsize(dtype: torch.dtype) -> int:
+    return torch.empty((), dtype=dtype).element_size()
+
+
+def _gathered(spec, axis: str = "data"):
+    """A resolved layout with ``axis`` dropped: the leaf as a gather over
+    that axis leaves it."""
+    out = []
+    for ax in spec or ():
+        if isinstance(ax, tuple):
+            ax = tuple(a for a in ax if a != axis)
+            ax = ax[0] if len(ax) == 1 else (ax or None)
+        elif ax == axis:
+            ax = None
+        out.append(ax)
+    return tuple(out)
+
+
+def sync_buffers(cfg: ModelConfig, tp: int, mesh, bits: int
+                 ) -> Tuple[int, int]:
+    """(payload, scales): the bytes of the two buffers one device sends at
+    a cross-pod sync (:func:`exchange_pods`): each param leaf quantized
+    per last-dim row (:func:`quantize_rows`: int16/int8 codes, int4
+    packed two a byte along the last dim when it is even, fp32 at 0 bits)
+    in the leaf's own layout, and one fp32 scale a row (none at 0
+    bits)."""
+    pay = sc = 0
+    for _, spec in common.iter_specs(lm.param_specs(cfg, tp)):
+        shape = tuple(spec.shape)
+        lay = shd.logical_sharding(spec.axes, mesh)
+        if not bits:
+            pay += shd.device_bytes(shape, 4, lay, mesh)
+            continue
+        if bits == 4 and shape[-1] % 2 == 0:
+            pay += shd.device_bytes(shape[:-1] + (shape[-1] // 2,), 1, lay,
+                                    mesh)
+        else:
+            pay += shd.device_bytes(shape, 1 if bits <= 8 else 2, lay, mesh)
+        sc += shd.device_bytes(shape[:-1] + (1,), 4, lay[:-1] + (None,),
+                               mesh)
+    return pay, sc
+
+
+def collective_plan(cfg: ModelConfig, tcfg: TrainConfig, mesh,
+                    multi_pod: bool = False, param_dtype=torch.float32,
+                    tp: int = 1) -> Tuple[Tuple[str, str, int, int], ...]:
+    """The collectives one train step calls on ``mesh`` (a shape-only mesh
+    too), each as (op, mesh axes of its group, calls, bytes of a call's
+    buffer a device), under the reference's op names.
+
+    * FSDP over ``data`` (D > 1): each :func:`lm.fsdp_groups` entry with a
+      leaf split over ``data`` is an ``all-gather`` of the group's whole
+      leaves in ``param_dtype`` (:meth:`FSDP.all_gather`'s (D, n) buffer)
+      and, in the backward, a ``reduce-scatter`` of their fp32 gradients,
+      once a microbatch (``cfg.microbatch``).
+    * An ``all-reduce`` over the data-parallel ranks of each whole leaf's
+      gradient (fp32 with microbatches, else ``param_dtype``) and of the
+      metrics, over ``data`` of the clip's squared norm; a single-pod step
+      on a mesh with pods also sums each shard's gradient over ``pod``.
+    * ``multi_pod`` (make_fedat_step), at a step that syncs: the rows'
+      amax of the leaves whose last dim is split (an ``all-reduce``), the
+      pod exchange (:func:`exchange_pods`: a ``broadcast`` from each pod
+      of the payload and of the scales), and every step the metrics over
+      ``pod``.
+
+    Both steps check their FSDP counters against this after every step;
+    the dry-run (launch/dryrun.py) reports it."""
+    if mesh is None:
+        return ()
+    D, P = mesh.shape.get("data", 1), mesh.shape.get("pod", 1)
+    specs = dict(common.iter_specs(lm.param_specs(cfg, tp)))
+    lay = {path: shd.logical_sharding(s.axes, mesh)
+           for path, s in specs.items()}
+    split = {path: D > 1 and shd.split_dim(lay[path]) is not None
+             for path in specs}
+    k = max(cfg.microbatch or 1, 1)
+    plan = []
+    for key, layer, gathers, scatters in lm.fsdp_groups(cfg):
+        n = 0
+        for path, s in specs.items():
+            if path[0] != key or not split[path]:
+                continue
+            shape, l = tuple(s.shape), lay[path]
+            if layer is not None:
+                shape, l = shape[1:], l[1:]
+            n += shd.device_bytes(shape, 1, _gathered(l), mesh)
+        if n:
+            plan.append(("all-gather", ("data",), k * gathers,
+                         n * _itemsize(param_dtype)))
+            plan.append(("reduce-scatter", ("data",), k * scatters, 4 * n))
+    dp = tuple(a for a in ("pod", "data") if mesh.shape.get(a, 1) > 1
+               and not (multi_pod and a == "pod"))
+    if dp:
+        gsize = 4 if k > 1 else _itemsize(param_dtype)
+        for path, s in specs.items():
+            if not split[path]:
+                plan.append(("all-reduce", dp, 1, shd.device_bytes(
+                    s.shape, gsize, lay[path], mesh)))
+            elif not multi_pod and P > 1:
+                plan.append(("all-reduce", ("pod",), 1, shd.device_bytes(
+                    s.shape, gsize, lay[path], mesh)))
+        if D > 1 and (not multi_pod or tcfg.grad_clip is not None):
+            plan.append(("all-reduce", ("data",), 1, 4))
+        plan.append(("all-reduce", dp, 1, _METRIC_BYTES))
+    if multi_pod:
+        bits = int(tcfg.fedat_compress_bits)
+        rows = sum(shd.device_bytes(tuple(s.shape[:-1]) + (1,), 4,
+                                    lay[path][:-1] + (None,), mesh)
+                   for path, s in specs.items()
+                   if split[path] and shd.split_dim(lay[path])
+                   == len(s.shape) - 1)
+        if bits and rows:
+            plan.append(("all-reduce", ("data",), 1, rows))
+        if P > 1:
+            pay, sc = sync_buffers(cfg, tp, mesh, bits)
+            plan += [("broadcast", ("pod",), P, pay),
+                     ("broadcast", ("pod",), P, sc),
+                     ("all-reduce", ("pod",), 1, _METRIC_BYTES)]
+    return tuple(plan)
+
+
+def fsdp_stats(plan) -> Dict[str, int]:
+    """What :class:`~repro_torch.runtime.sharding.FSDP`'s ``stats`` count
+    over one step of ``plan``."""
+    out = {"gathers": 0, "reduce_scatters": 0, "gather_bytes": 0,
+           "reduce_scatter_bytes": 0}
+    for op, _, calls, nbytes in plan:
+        key = {"all-gather": "gather", "reduce-scatter": "reduce_scatter"
+               }.get(op)
+        if key:
+            out[key + "s"] += calls
+            out[key + "_bytes"] += calls * nbytes
+    return out
+
+
+def wire_bytes(plan, mesh) -> Dict[str, float]:
+    """The bytes a device puts on the wire for each op of ``plan``, by
+    runtime/hlo.py's formulas over an axis of n devices: (n-1)/n of a
+    gather's result, of a reduce-scatter's operand and of a broadcast's
+    buffer (P broadcasts are the bytes of an all-gather), 2 (n-1)/n of an
+    all-reduce's buffer (a ring: reduce-scatter, then all-gather)."""
+    out: Dict[str, float] = {}
+    for op, axes, calls, nbytes in plan:
+        n = math.prod(mesh.shape[a] for a in axes)
+        frac = (n - 1) / n * (2 if op == "all-reduce" else 1)
+        out[op] = out.get(op, 0.0) + calls * frac * nbytes
+    return out
+
+
+def _check_plan(fsdp: Optional[shd.FSDP], before: Dict[str, int],
+                plan) -> None:
+    """The step's FSDP counters moved exactly as :func:`collective_plan`
+    says (a gather it does not know of would leave the dry-run's
+    collectives wrong)."""
+    if fsdp is None:
+        return
+    got = {k: fsdp.stats[k] - before[k] for k in before}
+    want = fsdp_stats(plan)
+    if got != want:
+        raise RuntimeError(
+            f"this step's FSDP collectives {got} differ from "
+            f"collective_plan's {want}: lm.fsdp_groups no longer lists "
+            f"what the model gathers")
 
 
 def _loss_and_grads(cfg: ModelConfig, params, batch, tp: int,
@@ -259,6 +434,7 @@ def make_single_pod_step(cfg: ModelConfig, tcfg: TrainConfig,
                 tcfg.weight_decay, grad_clip=tcfg.grad_clip)
     sched = cosine_schedule(1.0, tcfg.warmup_steps, tcfg.total_steps)
     state_sh, batch_sh = _state_layouts(cfg, tp, mesh, pod_axis=False)
+    plan = collective_plan(cfg, tcfg, mesh, False, param_dtype, tp)
 
     def init_state(seed: int):
         params = lm.init_params(cfg, seed, tp, param_dtype, device=dev,
@@ -267,6 +443,7 @@ def make_single_pod_step(cfg: ModelConfig, tcfg: TrainConfig,
                 "step": torch.zeros((), dtype=torch.int32, device=dev)}
 
     def train_step(state, batch):
+        before = dict(fsdp.stats) if fsdp else None
         n = len(next(iter(batch.values())))
         batch = _to_device(batch, dev, _rank_rows(n, index, ranks)
                            if ranks > 1 else slice(None))
@@ -281,6 +458,7 @@ def make_single_pod_step(cfg: ModelConfig, tcfg: TrainConfig,
                                        lr_scale, norm=grad_norm)
         metrics = {"loss": loss, "grad_norm": grad_norm,
                    "lr_scale": lr_scale, **parts}
+        _check_plan(fsdp, before, plan)
         return ({"params": new_params, "opt": new_opt,
                  "step": state["step"] + 1}, metrics)
 
@@ -426,6 +604,7 @@ def make_fedat_step(cfg: ModelConfig, tcfg: TrainConfig, mesh,
     sched = cosine_schedule(1.0, tcfg.warmup_steps, tcfg.total_steps)
     bits = int(tcfg.fedat_compress_bits)
     state_sh, batch_sh = _state_layouts(cfg, tp, mesh, pod_axis=True)
+    plan = collective_plan(cfg, tcfg, mesh, True, param_dtype, tp)
 
     def init_state(seed: int):
         params = lm.init_params(cfg, seed, tp, param_dtype, device=dev,
@@ -469,6 +648,7 @@ def make_fedat_step(cfg: ModelConfig, tcfg: TrainConfig, mesh,
         return full.shape[1] + 4 * full_sc.shape[1]
 
     def train_step(state, batch):
+        before = dict(fsdp.stats) if fsdp else None
         n = len(next(iter(batch.values()))[pod])
         local = {k: v[pod] for k, v in batch.items()}
         local = _to_device(local, dev, _rank_rows(n, d_index, d_ranks)
@@ -497,6 +677,7 @@ def make_fedat_step(cfg: ModelConfig, tcfg: TrainConfig, mesh,
         loss, parts = _sync_metrics(loss, parts, n_pods, pod_group)
         metrics = {"loss": loss, **parts, "synced": float(synced),
                    "payload_bytes": float(sent)}
+        _check_plan(fsdp, before, plan)
         return ({"params": state["params"], "opt": state["opt"],
                  "step": step, "counts": counts}, metrics)
 

@@ -25,6 +25,11 @@ to ``link_bytes`` while the engine Metrics keep the flat client-link
 semantics.  A silo trains from the global model it fetched when its round
 was dispatched, and ``topology.compensation`` corrects that staleness
 before Eq. 3.
+
+**Tier stacks over ``pod``** (``shard_tiers``, core/executor.py): the
+strategy holds only this rank's slots of the tier (or silo) stack
+(``executor.tier_slots``); the update counts, ``tier_alive`` and the Eq. 3
+weights stay whole on the host, and snapshots hold the whole stack.
 """
 from __future__ import annotations
 
@@ -69,7 +74,10 @@ class FedATStrategy(ServerStrategy):
             self._bind_topology(env)
             return
         M = env.tm.n_tiers
-        self.tier_models = {k: torch.stack([v] * M)
+        self._ex = env.executor()
+        #: the stack's slots this rank holds (all M unless shard_tiers)
+        self.slots = self._ex.tier_slots(M)
+        self.tier_models = {k: torch.stack([v] * len(self.slots))
                             for k, v in env.params0.items()}   # (M, ...)
         # update counts stay on the host: the Eq. 3 weights are computed
         # there (aggregation.cross_tier_weights_host)
@@ -89,7 +97,9 @@ class FedATStrategy(ServerStrategy):
         per-silo dispatch stack, the per-link codec triple with its
         wire-ratio and byte ledgers, and the link-delay rng stream."""
         S = self.topo.n_silos
-        self.tier_models = {k: torch.stack([v] * S)
+        self._ex = env.executor()
+        self.slots = self._ex.tier_slots(S)
+        self.tier_models = {k: torch.stack([v] * len(self.slots))
                             for k, v in env.params0.items()}   # silo stack
         # dispatch[s] = the global model silo s last fetched; staleness
         # for the compensation term is measured against it
@@ -307,7 +317,7 @@ class FedATStrategy(ServerStrategy):
         m = actor[1]
         self.tier_alive[m] = True
         self.tier_models = elastic.bootstrap_tier(
-            self.tier_models, self.w_global, m)
+            self.tier_models, self.w_global, m, self.slots)
         self.counts[m] = 0
         alive = env.alive(now)
         if self.topo is not None:
@@ -326,9 +336,12 @@ class FedATStrategy(ServerStrategy):
 
     # -- crash-resume ---------------------------------------------------
     def snapshot(self):
+        """The whole tier stack (gathered over ``pod`` under
+        ``shard_tiers``: a collective, so every rank snapshots), so a
+        snapshot restores under any pod count."""
+        whole = self._ex.whole_tiers(self.tier_models, len(self.counts))
         dev = {"w_global": {k: v.clone() for k, v in self.w_global.items()},
-               "tier_models": {k: v.clone()
-                               for k, v in self.tier_models.items()}}
+               "tier_models": {k: v.clone() for k, v in whole.items()}}
         host = {"counts": self.counts.copy(), "ratio": self._ratio,
                 "tier_alive": self.tier_alive.copy()}
         if self.topo is not None:
@@ -340,7 +353,8 @@ class FedATStrategy(ServerStrategy):
 
     def restore(self, dev, host) -> None:
         self.w_global = dev["w_global"]
-        self.tier_models = dev["tier_models"]
+        self.tier_models = self._ex.local_tiers(dev["tier_models"],
+                                                len(self.counts))
         self.counts = np.asarray(host["counts"], np.int64)
         self._ratio = host["ratio"]
         self.tier_alive = np.asarray(host["tier_alive"], bool)

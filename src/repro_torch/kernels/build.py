@@ -16,7 +16,9 @@ returns, and the launch count of each kernel, which
 :func:`launch_counts` gathers over every library.  :func:`bwd_operands`
 and :func:`check_states` are the operand checks that the two chunk
 scans' backward wrappers (kernels/rwkv6_scan.py, kernels/ssd.py) share
-before they launch.
+before they launch.  :func:`bound` is the least time the card could take
+for a launch's bytes and products, at the H100's rates below; each
+kernel module counts its own products (``flops``).
 """
 from __future__ import annotations
 
@@ -36,6 +38,12 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+#: the card's rates: NVIDIA H100 SXM data sheet, dense (no sparsity)
+HBM_BYTES_PER_S = 3.35e12      # device memory
+FP32_OPS_PER_S = 67e12         # fp32 outside the tensor cores
+BF16_OPS_PER_S = 989e12        # bf16 tensor cores
+TF32_OPS_PER_S = 495e12        # TF32 tensor cores
 
 #: source stem -> what its build did: {"path", "seconds", "log"}
 #: (seconds 0 and an empty log when an earlier build was reused)
@@ -207,3 +215,20 @@ def check_states(name: str, states, want, device, what: str) -> None:
                                              tuple(states.shape))
         raise ValueError(f"{name} on the card reads {what}: pass the float32 "
                          f"{want} tensor, got {got}")
+
+
+def bound(nbytes: int, flops: int, dtype: str) -> dict:
+    """The least time for moving ``nbytes`` and computing ``flops`` at the
+    card's rate for ``dtype`` outside the tensor cores (fp32) or on them
+    (bf16), and beside it ``tc_bound_ms``, the products on the tensor
+    cores as the scan kernels and the flash backward run them: 3xTF32 (3x
+    the operations at the TF32 rate) for fp32, the bf16 rate for bf16."""
+    peak = FP32_OPS_PER_S if dtype == "float32" else BF16_OPS_PER_S
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / peak * 1e3
+    t_tc = (3 * flops / TF32_OPS_PER_S if dtype == "float32"
+            else flops / BF16_OPS_PER_S) * 1e3
+    return {"bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "tc_bound_ms": max(t_bytes, t_tc),
+            "tc_bound_by": "bytes" if t_bytes >= t_tc else "operations",
+            "bytes": nbytes, "flops": flops}

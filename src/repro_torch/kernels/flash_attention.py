@@ -42,6 +42,7 @@ from __future__ import annotations
 import ctypes
 from typing import Optional
 
+import numpy as np
 import torch
 
 from repro_torch.kernels import build as kbuild
@@ -120,7 +121,7 @@ def _check_operands(q, k, v) -> None:
         raise ValueError(f"flash_attention takes float32 or bfloat16 q, k, v "
                          f"of one dtype, got {q.dtype}, {k.dtype}, {v.dtype}")
     if not (q.device == k.device == v.device) or q.device.type not in (
-            "cpu", "cuda"):
+            "cpu", "cuda", "meta"):
         raise ValueError(f"flash_attention: q, k, v must be on one cpu or "
                          f"cuda device, got {q.device}, {k.device}, "
                          f"{v.device}")
@@ -197,6 +198,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     log-sum-exp, (B, H, S), -inf for a row that sees no key.  No gradient:
     :class:`FlashAttention` is the differentiable form."""
     _check_operands(q, k, v)
+    if q.device.type == "meta":
+        out, lse = torch.ops.repro_torch.attention(q, k, v, causal, window, 0)
+        return (out, lse) if return_lse else out
     if q.device.type == "cpu":
         return ref.blocked_attention(q, k, v, causal=causal, window=window,
                                      return_lse=return_lse)
@@ -253,6 +257,9 @@ def flash_attention_backward(q: torch.Tensor, k: torch.Tensor,
         raise ValueError(f"flash_attention_backward: only must be one of "
                          f"{sorted(BWD_KERNELS)}, on CUDA tensors; got "
                          f"{only!r} on {q.device}")
+    if q.device.type == "meta":
+        return torch.ops.repro_torch.attention_backward(
+            q, k, v, out, lse, dout, causal, window, 0)
     if q.device.type == "cpu":
         return ref.blocked_attention_backward(q, k, v, out, lse, dout,
                                               causal=causal, window=window)
@@ -317,3 +324,53 @@ class FlashAttention(torch.autograd.Function):
         dq, dk, dv = flash_attention_backward(
             q, k, v, out, lse, dout, causal=ctx.causal, window=ctx.window)
         return dq, dk, dv, None, None
+
+
+# --- the work of a call -------------------------------------------------------
+
+def visible_pairs(S: int, T: int, causal: bool, window: Optional[int],
+                  prefix_len: int = 0) -> int:
+    """(query, key) pairs the masks let through, per head: causal (key
+    t <= s, or t below ``prefix_len``), windowed (s - t < window), keys
+    below T."""
+    s = np.arange(S, dtype=np.int64)
+    hi = np.minimum(s + 1, T) if causal else np.full(S, T, np.int64)
+    if causal and prefix_len:
+        hi = np.maximum(hi, min(prefix_len, T))
+    lo = (np.maximum(s - window + 1, 0) if window
+          else np.zeros(S, np.int64))
+    return int(np.maximum(hi - lo, 0).sum())
+
+
+def flops(B: int, S: int, T: int, H: int, hd: int, causal: bool,
+          window: Optional[int], prefix_len: int = 0) -> int:
+    """The forward's products (a multiply-add counts 2): QK^T and PV over
+    the visible pairs, as the kernel computes them."""
+    return 4 * B * H * visible_pairs(S, T, causal, window, prefix_len) * hd
+
+
+def bwd_flops(B: int, S: int, T: int, H: int, hd: int, causal: bool,
+              window: Optional[int], prefix_len: int = 0) -> int:
+    """The backward's 5 products (S recomputed, dP, dV, dK, dQ) over the
+    visible pairs: 2.5x the forward's 2."""
+    return 10 * B * H * visible_pairs(S, T, causal, window, prefix_len) * hd
+
+
+def attention_bound(B, S, T, H, KV, hd, causal, window, dtype) -> dict:
+    """Least time for one forward launch: each of q, k, v, o moved once,
+    and :func:`flops` (at the fp32 or bf16 rate; ``kbuild.bound``)."""
+    size = 4 if dtype == "float32" else 2
+    nbytes = size * (2 * B * S * H * hd + 2 * B * T * KV * hd)
+    b = kbuild.bound(nbytes, flops(B, S, T, H, hd, causal, window), dtype)
+    return {k: b[k] for k in ("bound_ms", "bound_by", "bytes", "flops")}
+
+
+def attention_bwd_bound(B, S, T, H, KV, hd, causal, window, dtype) -> dict:
+    """Least time for one backward: q, k, v, o, dO and lse read once, dq,
+    dk, dv written once, and :func:`bwd_flops`: fp32 at the FFMA rate,
+    bf16 at the bf16 tensor-core rate; beside it ``tc_bound_ms``."""
+    size = 4 if dtype == "float32" else 2
+    nbytes = (size * (4 * B * S * H * hd + 4 * B * T * KV * hd)
+              + 4 * B * H * S)
+    return kbuild.bound(nbytes, bwd_flops(B, S, T, H, hd, causal, window),
+                        dtype)

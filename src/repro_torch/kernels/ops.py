@@ -23,6 +23,10 @@ contract on top of them from a zero state (wkv6 as one batch row of BH
 heads, read through strides; ssd as BH batch rows of one head, since B
 and C come per row), and need no padding: the kernels mask the ragged
 last chunk, and their CPU path pads it.
+
+Every entry point takes ``meta`` tensors (the dry-run's stand-ins) through
+its plain version, shapes only (``ref.py``'s meta ops), so a step can be
+traced and its FLOPs counted without a card.
 """
 from __future__ import annotations
 
@@ -33,7 +37,7 @@ import torch
 
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import polyline_codec as codec
-from repro_torch.kernels import rwkv6_scan
+from repro_torch.kernels import ref, rwkv6_scan
 from repro_torch.kernels import ssd as ssd_mod
 from repro_torch.kernels.flash_attention import flash_attention  # noqa: F401
 from repro_torch.kernels.ref import blocked_attention  # noqa: F401
@@ -73,6 +77,10 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if impl not in ATTENTION_IMPLS:
         raise ValueError(f"unknown attention impl {impl!r}; expected one of "
                          f"{ATTENTION_IMPLS}")
+    if q.device.type == "meta":
+        # shape-only: the plain version behind one op a call, counted by
+        # the kernel's products (ref.py's meta ops), whatever the impl
+        return ref.MetaAttention.apply(q, k, v, causal, window, prefix_len)
     if impl == "auto":
         impl = default_attention_impl(q)
     if impl == "kernel":

@@ -117,11 +117,15 @@ def _block_span(s0: int, s1: int, T: int, causal: bool,
 
 
 def _block_mask(s0: int, s1: int, lo: int, hi: int, causal: bool,
-                window: Optional[int], prefix_len: int = 0):
+                window: Optional[int], prefix_len: int = 0,
+                device: Optional[torch.device] = None):
     """(s1 - s0, hi - lo) bool visibility of a block, or None when every
-    key of the span is visible to every row."""
-    qpos = torch.arange(s0, s1)[:, None]
-    kpos = torch.arange(lo, hi)[None, :]
+    key of the span is visible to every row.  Built on the host, or on
+    ``device`` when it is ``meta`` (shapes only: the mask is kept, as
+    nothing there can be read)."""
+    dev = device if device is not None and device.type == "meta" else None
+    qpos = torch.arange(s0, s1, device=dev)[:, None]
+    kpos = torch.arange(lo, hi, device=dev)[None, :]
     mask = None
     if causal:
         m = qpos >= kpos
@@ -131,7 +135,7 @@ def _block_mask(s0: int, s1: int, lo: int, hi: int, causal: bool,
     if window is not None:
         m = (qpos - kpos) < window
         mask = m if mask is None else (mask & m)
-    if mask is not None and bool(mask.all()):
+    if mask is not None and dev is None and bool(mask.all()):
         return None
     return mask
 
@@ -167,7 +171,8 @@ def blocked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         ki = k[:, lo:hi].float()                          # (B, t, KV, hd)
         vi = v[:, lo:hi].float()
         logits = torch.einsum("bckgd,btkd->bckgt", qi, ki)
-        mask = _block_mask(s0, s1, lo, hi, causal, window, prefix_len)
+        mask = _block_mask(s0, s1, lo, hi, causal, window, prefix_len,
+                           q.device)
         if mask is not None:
             mask = mask.to(q.device)[None, :, None, None, :]
             logits = torch.where(mask, logits, NEG_INF)
@@ -189,7 +194,8 @@ def blocked_attention_backward(q: torch.Tensor, k: torch.Tensor,
                                v: torch.Tensor, out: torch.Tensor,
                                lse: torch.Tensor, dout: torch.Tensor,
                                causal: bool = True,
-                               window: Optional[int] = None, block: int = 64
+                               window: Optional[int] = None, block: int = 64,
+                               prefix_len: int = 0
                                ) -> Tuple[torch.Tensor, torch.Tensor,
                                           torch.Tensor]:
     """The gradient of :func:`blocked_attention` in the arithmetic of the
@@ -197,8 +203,9 @@ def blocked_attention_backward(q: torch.Tensor, k: torch.Tensor,
     forward's ``lse`` (B, H, S), D = rowsum(dO o O), dS = P (dO V^T - D),
     then dQ = scale dS K, dK = scale dS^T Q and dV = P^T dO, the last two
     summed over the G query heads of each KV head.  fp32 inside; a row
-    whose ``lse`` is -inf (it sees no key) contributes nothing.  Returns
-    (dq, dk, dv) in the dtypes of q, k, v."""
+    whose ``lse`` is -inf (it sees no key) contributes nothing.  The
+    masks are :func:`blocked_attention`'s, the prefix-LM one included.
+    Returns (dq, dk, dv) in the dtypes of q, k, v."""
     B, S, H, hd = q.shape
     T, KV = k.shape[1], k.shape[2]
     G = H // KV
@@ -212,7 +219,7 @@ def blocked_attention_backward(q: torch.Tensor, k: torch.Tensor,
     for s0 in range(0, S, C):
         s1 = min(s0 + C, S)
         c = s1 - s0
-        lo, hi = _block_span(s0, s1, T, causal, window)
+        lo, hi = _block_span(s0, s1, T, causal, window, prefix_len)
         if hi <= lo:
             continue
         qi = q[:, s0:s1].float().reshape(B, c, KV, G, hd)
@@ -222,7 +229,8 @@ def blocked_attention_backward(q: torch.Tensor, k: torch.Tensor,
         li = lse_s[:, s0:s1].reshape(B, c, KV, G, 1)
         live = torch.isfinite(li)
         keep = live
-        mask = _block_mask(s0, s1, lo, hi, causal, window)
+        mask = _block_mask(s0, s1, lo, hi, causal, window, prefix_len,
+                           q.device)
         if mask is not None:
             keep = keep & mask.to(q.device)[None, :, None, None, :]
         p = torch.where(keep, torch.exp(logits - torch.where(live, li, 0.0)),
@@ -638,3 +646,100 @@ def ssd_chunked_backward(x: torch.Tensor, Bm: torch.Tensor, Cm: torch.Tensor,
     dx, dB, dC, dda = ssd_chunk_grads(x, Bm, Cm, da, states, dstates, dy,
                                       chunk)
     return dx, dB.sum(2), dC.sum(2), dda, dh0
+
+
+# --- meta tensors: shape-only routes -----------------------------------------
+#
+# A ``meta`` tensor (the dry-run's stand-ins, launch/dryrun.py) takes each
+# kernel's plain version, as a CPU tensor does, through one op of the
+# ``repro_torch`` operator library: ``attention`` and ``attention_backward``
+# (the flash forward with its log-sum-exp, and its backward; any causal,
+# window or prefix-LM mask), ``wkv6`` / ``wkv6_backward`` and ``ssd`` /
+# ``ssd_backward`` (the chunk scans from a state, and their backward).  The
+# ops are registered for the Meta key only: a CPU tensor keeps the plain
+# functions, a CUDA tensor the kernel.  So
+# ``torch.utils.flop_counter.FlopCounterMode`` sees one op a kernel call,
+# and the dry-run counts each by the products the kernel computes (each
+# kernel module's ``flops``), not by the products of the plain version
+# (the blocked attention multiplies whole blocks past the mask; the scans'
+# plain chunk is the model's, not the kernel's).  As nothing is computed
+# on meta, the plain versions take the whole sequence as one block or
+# chunk there: the same function, in a few ops a call rather than a few a
+# block.
+
+_LIB = torch.library.Library("repro_torch", "DEF")
+_LIB.define("attention(Tensor q, Tensor k, Tensor v, bool causal, "
+            "int? window, int prefix_len) -> (Tensor, Tensor)")
+_LIB.define("attention_backward(Tensor q, Tensor k, Tensor v, Tensor out, "
+            "Tensor lse, Tensor dout, bool causal, int? window, "
+            "int prefix_len) -> (Tensor, Tensor, Tensor)")
+_LIB.define("wkv6(Tensor r, Tensor k, Tensor v, Tensor logw, Tensor u, "
+            "Tensor state) -> (Tensor, Tensor)")
+_LIB.define("wkv6_backward(Tensor r, Tensor k, Tensor v, Tensor logw, "
+            "Tensor u, Tensor state0, Tensor dy, Tensor? dstate) "
+            "-> (Tensor, Tensor, Tensor, Tensor, Tensor, Tensor)")
+_LIB.define("ssd(Tensor x, Tensor Bm, Tensor Cm, Tensor da, Tensor h) "
+            "-> (Tensor, Tensor)")
+_LIB.define("ssd_backward(Tensor x, Tensor Bm, Tensor Cm, Tensor da, "
+            "Tensor h0, Tensor dy, Tensor? dh) "
+            "-> (Tensor, Tensor, Tensor, Tensor, Tensor)")
+
+
+def _meta_attention(q, k, v, causal, window, prefix_len):
+    return blocked_attention(q, k, v, causal=causal, window=window,
+                             block=q.shape[1], prefix_len=prefix_len,
+                             return_lse=True)
+
+
+def _meta_attention_backward(q, k, v, out, lse, dout, causal, window,
+                             prefix_len):
+    return blocked_attention_backward(q, k, v, out, lse, dout, causal=causal,
+                                      window=window, block=q.shape[1],
+                                      prefix_len=prefix_len)
+
+
+def _meta_wkv6(r, k, v, logw, u, state):
+    return wkv6_chunked(r, k, v, logw, u, state, r.shape[1])
+
+
+def _meta_wkv6_backward(r, k, v, logw, u, state0, dy, dstate):
+    return wkv6_chunked_backward(r, k, v, logw, u, state0, dy, dstate,
+                                 r.shape[1])
+
+
+def _meta_ssd(x, Bm, Cm, da, h):
+    return ssd_chunked(x, Bm, Cm, da, h, x.shape[1])
+
+
+def _meta_ssd_backward(x, Bm, Cm, da, h0, dy, dh):
+    return ssd_chunked_backward(x, Bm, Cm, da, h0, dy, dh, x.shape[1])
+
+
+for _name, _fn in (("attention", _meta_attention),
+                   ("attention_backward", _meta_attention_backward),
+                   ("wkv6", _meta_wkv6),
+                   ("wkv6_backward", _meta_wkv6_backward),
+                   ("ssd", _meta_ssd), ("ssd_backward", _meta_ssd_backward)):
+    _LIB.impl(_name, _fn, "Meta")
+
+
+class MetaAttention(torch.autograd.Function):
+    """Differentiable attention on meta tensors: ``attention`` forward,
+    ``attention_backward`` backward (a checkpointed block's recompute runs
+    the forward op again)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool, window: Optional[int],
+                prefix_len: int):
+        out, lse = torch.ops.repro_torch.attention(q, k, v, causal, window,
+                                                   prefix_len)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.mask = (causal, window, prefix_len)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        return (*torch.ops.repro_torch.attention_backward(
+            q, k, v, out, lse, dout, *ctx.mask), None, None, None)
+

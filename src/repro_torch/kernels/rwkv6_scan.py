@@ -125,9 +125,9 @@ def _check_operands(r, k, v, logw, u, state) -> None:
         raise ValueError(f"wkv6: logw and u must be floating point, got "
                          f"{logw.dtype}, {u.dtype}")
     devs = {t.device for t in (r, k, v, logw, u, state)}
-    if len(devs) != 1 or r.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"wkv6: every operand must be on one cpu or cuda "
-                         f"device, got {sorted(map(str, devs))}")
+    if len(devs) != 1 or r.device.type not in ("cpu", "cuda", "meta"):
+        raise ValueError(f"wkv6: every operand must be on one cpu, cuda or "
+                         f"meta device, got {sorted(map(str, devs))}")
     if min(B, S, H, N) < 1:
         raise ValueError(f"wkv6: empty operands {tuple(r.shape)}")
 
@@ -154,8 +154,11 @@ def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                 f"tensor {(B, H, n_chunks(S), N, N)} beside CUDA operands, "
                 f"got {chunk_states.dtype} {tuple(chunk_states.shape)} on "
                 f"{chunk_states.device}")
-    if r.device.type == "cpu":
-        y, new = ref.wkv6_chunked(r, k, v, logw, u, state, chunk)
+    if r.device.type in ("cpu", "meta"):
+        # the plain version (shapes only on meta: ref.py's meta ops)
+        y, new = (torch.ops.repro_torch.wkv6(r, k, v, logw, u, state)
+                  if r.device.type == "meta" else
+                  ref.wkv6_chunked(r, k, v, logw, u, state, chunk))
         state.copy_(new)
         return y.to(r.dtype)
     B, S, H, N = r.shape
@@ -292,6 +295,9 @@ def wkv6_backward(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"dstate {(B, H, N, N)} on {r.device}, got "
                          f"{tuple(dy.shape)} and "
                          f"{None if dstate is None else tuple(dstate.shape)}")
+    if r.device.type == "meta":
+        return torch.ops.repro_torch.wkv6_backward(r, k, v, logw, u, state0,
+                                                   dy, dstate)
     if r.device.type == "cpu":
         return ref.wkv6_chunked_backward(r, k, v, logw, u, state0, dy,
                                          dstate, chunk)
@@ -338,3 +344,24 @@ class WKV6(torch.autograd.Function):
                               chunk_states=states, chunk=ctx.chunk)
         return (*(g.to(t.dtype) for g, t in zip(
             grads, (r, k, v, logw, u, state0))), None)
+
+
+def flops(B: int, S: int, H: int, N: int, chunk: int = KERNEL_CHUNK) -> int:
+    """The forward's products in the chunked form (a multiply-add counts
+    2), per chunk and head: (r exp(cum_prev)) S and the state update (C
+    N^2 multiply-adds each), the strictly-lower pairwise decayed products
+    and their product with v (C(C-1)/2 N each), the bonus (2 C N)."""
+    C, nc = chunk, -(-S // chunk)
+    pairs = C * (C - 1) // 2
+    return 2 * B * H * nc * (2 * C * N * N + 2 * pairs * N + 2 * C * N)
+
+
+def bwd_flops(B: int, S: int, H: int, N: int,
+              chunk: int = KERNEL_CHUNK) -> int:
+    """The backward's products, per chunk and head: the four (C, N) x
+    (N, N) products (v dS^T, dy S^T, kd dS, rd^T dy), the lower triangle
+    of dy v^T and of A^T dy ((C(C-1)/2 + C) N each), and for the
+    strictly-lower pairs A and the two pairwise sums of dr and dk."""
+    C, nc = chunk, -(-S // chunk)
+    pairs, vis = C * (C - 1) // 2, C * (C + 1) // 2
+    return 2 * B * H * nc * (4 * C * N * N + 2 * vis * N + 3 * pairs * N)

@@ -124,9 +124,10 @@ def _check_operands(x, Bm, Cm, da, h) -> None:
         raise ValueError(f"ssd_scan: da must be floating point, got "
                          f"{da.dtype}")
     devs = {t.device for t in (x, Bm, Cm, da, h)}
-    if len(devs) != 1 or x.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"ssd_scan: every operand must be on one cpu or "
-                         f"cuda device, got {sorted(map(str, devs))}")
+    if len(devs) != 1 or x.device.type not in ("cpu", "cuda", "meta"):
+        raise ValueError(f"ssd_scan: every operand must be on one cpu, "
+                         f"cuda or meta device, got "
+                         f"{sorted(map(str, devs))}")
     if min(B, S, H, P, N) < 1:
         raise ValueError(f"ssd_scan: empty operands {tuple(x.shape)}, "
                          f"{tuple(Bm.shape)}")
@@ -154,8 +155,11 @@ def ssd_scan(x: torch.Tensor, Bm: torch.Tensor, Cm: torch.Tensor,
                 f"tensor {want} beside CUDA operands, got "
                 f"{chunk_states.dtype} {tuple(chunk_states.shape)} on "
                 f"{chunk_states.device}")
-    if x.device.type == "cpu":
-        y, new = ref.ssd_chunked(x, Bm, Cm, da, h, chunk)
+    if x.device.type in ("cpu", "meta"):
+        # the plain version (shapes only on meta: ref.py's meta ops)
+        y, new = (torch.ops.repro_torch.ssd(x, Bm, Cm, da, h)
+                  if x.device.type == "meta" else
+                  ref.ssd_chunked(x, Bm, Cm, da, h, chunk))
         h.copy_(new)
         return y.to(x.dtype)
     B, S, H, P = x.shape
@@ -288,6 +292,8 @@ def ssd_backward(x: torch.Tensor, Bm: torch.Tensor, Cm: torch.Tensor,
                          f"{(B, H, P, N)} on {x.device}, got "
                          f"{tuple(dy.shape)} and "
                          f"{None if dh is None else tuple(dh.shape)}")
+    if x.device.type == "meta":
+        return torch.ops.repro_torch.ssd_backward(x, Bm, Cm, da, h0, dy, dh)
     if x.device.type == "cpu":
         return ref.ssd_chunked_backward(x, Bm, Cm, da, h0, dy, dh, chunk)
     kbuild.check_states(
@@ -333,3 +339,27 @@ class SSDScan(torch.autograd.Function):
                              chunk_states=states, chunk=ctx.chunk)
         return (*(g.to(t.dtype) for g, t in zip(
             grads, (x, Bm, Cm, da, h0))), None)
+
+
+def flops(B: int, S: int, H: int, P: int, N: int,
+          chunk: int = KERNEL_CHUNK) -> int:
+    """The forward's products in the chunked form (a multiply-add counts
+    2): per chunk and head C.h and the state update (C P N multiply-adds
+    each) and the visible decayed C.B products with x (C(C+1)/2 P); C.B
+    itself once per batch row and chunk (C(C+1)/2 N: B and C are shared
+    by the heads)."""
+    C, nc = chunk, -(-S // chunk)
+    vis = C * (C + 1) // 2
+    return 2 * B * nc * (H * (2 * C * P * N + vis * P) + vis * N)
+
+
+def bwd_flops(B: int, S: int, H: int, P: int, N: int,
+              chunk: int = KERNEL_CHUNK) -> int:
+    """The backward's products: per chunk and head the four (C, P) x (P,
+    N)-sized products (B dh^T, dye h, xd dh, dye^T C), the lower triangles
+    of dy x^T and M^T dy (P) and of dG^T C and dG B (N); C B^T once per
+    batch row."""
+    C, nc = chunk, -(-S // chunk)
+    vis = C * (C + 1) // 2
+    return 2 * B * nc * (H * (4 * C * P * N + 2 * vis * P + 2 * vis * N)
+                         + vis * N)

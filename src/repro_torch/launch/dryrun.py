@@ -1,5 +1,5 @@
-"""Multi-pod dry-run: every (arch x shape x mesh) cell's bytes on one
-device of the production meshes.
+"""Multi-pod dry-run: every (arch x shape x mesh) cell's bytes, FLOPs and
+collectives on one device of the production meshes.
 
 The port of ``repro/launch/dryrun.py``.  For each applicable cell
 (configs/shapes.py ``applicable``, every registered arch x shape, on the
@@ -21,11 +21,35 @@ axes resolve to (runtime/sharding.py ``device_bytes``; an uneven split
 padded up).  For params and AdamW state this is what a run holds: the
 trainer keeps each rank's FSDP shard of every leaf with an ``fsdp``
 dimension (core/steps.py; ``chip_smoke.py`` phase 28 checks a rank's
-bytes against this arithmetic).  The counts are still arithmetic: XLA's
-``memory_analysis()`` and ``cost_analysis()`` and the partitioned-HLO
-collective parse, which the reference reads from a compiled program,
-have no counterpart in torch, so temporaries, FLOPs and the collectives
-GSPMD would insert are not counted.  Writes ``<out>/dryrun_single.json`` / ``dryrun_multi.json``.
+bytes against this arithmetic).  Temporaries and the peak a step reaches
+are not counted (the reference reads them from XLA's
+``memory_analysis()``).
+
+The command line also gives each cell (:func:`cell_costs`):
+
+  * ``cost.flops``: one train step (forward, backward, and the forward
+    recomputed under remat), or one prefill or decode call, traced on
+    ``meta`` tensors under ``torch.utils.flop_counter.FlopCounterMode``
+    at the model's own widths (tp = 1, as the port runs it), divided by
+    the mesh's devices: the work split evenly over data x model, each
+    product counted once (the reference's ``cost_analysis()`` counts
+    each device's partitioned program, elementwise ops included).  The
+    kernels, one op a call on meta tensors (kernels/ref.py), count the
+    products they compute (:data:`FLOP_FORMULAS`): attention over its
+    visible (query, key) pairs, the chunk scans in their chunked form at
+    the kernels' chunk; the rest is every matmul-class op.  Counted once per
+    (arch, shape) and shared by both meshes.  XLA's ``bytes accessed``
+    has no counterpart and is left out.
+  * ``collectives`` and ``collective_bytes_per_device``, for a train
+    cell: the collectives of the port's step on the mesh
+    (core/steps.py ``collective_plan``, the plan the sharded step checks
+    its own counters against), under the reference's op names, counted a
+    step (a multi-pod cell: a step that syncs), and the bytes a device
+    puts on the wire by runtime/hlo.py's ``(n-1)/n`` formulas.  The port
+    runs no tensor parallelism across ranks, so nothing over ``model`` is
+    counted.  A serving cell runs no collective in the port, and says so.
+
+Writes ``<out>/dryrun_single.json`` / ``dryrun_multi.json``.
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch all \\
@@ -41,9 +65,11 @@ import traceback
 from typing import Any, Dict, Optional
 
 import torch
+from torch.utils.flop_counter import FlopCounterMode
 
-from repro_torch.configs import SHAPES, applicable, registry
+from repro_torch.configs import SHAPES, TrainConfig, applicable, registry
 from repro_torch.core import steps as steps_mod
+from repro_torch.kernels import flash_attention, rwkv6_scan, ssd
 from repro_torch.launch.mesh import make_production_mesh
 from repro_torch.models import common, lm
 from repro_torch.runtime import sharding as shd
@@ -57,30 +83,115 @@ def _itemsize(dtype: torch.dtype) -> int:
 
 
 def sync_bytes(cfg, tp: int, mesh) -> Dict[str, int]:
-    """Bytes one device sends at a cross-pod sync, per payload width:
-    each param leaf quantized per last-dim row (core/steps.py
-    ``quantize_rows``: int16/int8 codes, int4 packed two a byte along
-    the last dim when it is even, fp32 at 0 bits) in the leaf's own
-    layout, plus one fp32 scale a row."""
-    out = {}
-    for bits in SYNC_BITS:
-        total = 0
-        for _, spec in common.iter_specs(lm.param_specs(cfg, tp)):
-            shape = tuple(spec.shape)
-            lay = shd.logical_sharding(spec.axes, mesh)
-            if not bits:
-                total += shd.device_bytes(shape, 4, lay, mesh)
-                continue
-            if bits == 4 and shape[-1] % 2 == 0:
-                pay = shd.device_bytes(shape[:-1] + (shape[-1] // 2,), 1,
-                                       lay, mesh)
-            else:
-                pay = shd.device_bytes(shape, 1 if bits <= 8 else 2, lay,
-                                       mesh)
-            rows = shd.device_bytes(shape[:-1] + (1,), 4,
-                                    lay[:-1] + (None,), mesh)
-            total += pay + rows
-        out[str(bits)] = total
+    """Bytes one device sends at a cross-pod sync, per payload width: the
+    quantized rows and their scales (core/steps.py ``sync_buffers``)."""
+    return {str(bits): sum(steps_mod.sync_buffers(cfg, tp, mesh, bits))
+            for bits in SYNC_BITS}
+
+
+#: (arch, shape, overrides) -> the step's FLOPs by op (counted once for
+#: both meshes)
+_FLOPS: Dict[tuple, Dict[str, int]] = {}
+
+
+# FlopCounterMode's custom_mapping for the kernels' meta ops: each takes
+# the op's arguments as the counter passes them (tensors as their shapes)
+
+
+def _attention_flops(q, k, v, causal, window, prefix_len, *a, **kw) -> int:
+    B, S, H, hd = q
+    return flash_attention.flops(B, S, k[1], H, hd, causal, window,
+                                 prefix_len)
+
+
+def _attention_bwd_flops(q, k, v, out, lse, dout, causal, window,
+                         prefix_len, *a, **kw) -> int:
+    B, S, H, hd = q
+    return flash_attention.bwd_flops(B, S, k[1], H, hd, causal, window,
+                                     prefix_len)
+
+
+def _ssd_flops(x, Bm, *a, **kw) -> int:
+    return ssd.flops(*x, Bm[-1])
+
+
+def _ssd_bwd_flops(x, Bm, *a, **kw) -> int:
+    return ssd.bwd_flops(*x, Bm[-1])
+
+
+FLOP_FORMULAS = {
+    torch.ops.repro_torch.attention: _attention_flops,
+    torch.ops.repro_torch.attention_backward: _attention_bwd_flops,
+    torch.ops.repro_torch.wkv6: lambda r, *a, **kw: rwkv6_scan.flops(*r),
+    torch.ops.repro_torch.wkv6_backward:
+        lambda r, *a, **kw: rwkv6_scan.bwd_flops(*r),
+    torch.ops.repro_torch.ssd: _ssd_flops,
+    torch.ops.repro_torch.ssd_backward: _ssd_bwd_flops,
+}
+
+
+def step_flops(cfg, shape) -> Dict[str, int]:
+    """FLOPs of one step of ``cfg`` at ``shape`` by op (FlopCounterMode's
+    names; :data:`FLOP_FORMULAS` for the kernels), traced on meta
+    tensors at tp = 1: a train step's forward and the gradient of its
+    loss with respect to every param (the forward recomputed under
+    remat), a prefill, or one decode call."""
+    tp = 1
+    p = lm.abstract_params(cfg, tp, torch.float32)
+    batch = lm.input_specs(cfg, shape)
+    with FlopCounterMode(display=False,
+                         custom_mapping=FLOP_FORMULAS) as fc:
+        if shape.kind == "train":
+            flat = common.flatten_tree(p)
+            leaves = [x.requires_grad_(True) for x in flat.values()]
+            loss, _ = lm.loss_fn(cfg, common.unflatten_tree(
+                dict(zip(flat, leaves))), batch, tp)
+            torch.autograd.grad(loss, leaves, allow_unused=True)
+        else:
+            cache = lm.abstract_cache(cfg, shape.global_batch,
+                                      shape.seq_len, tp)
+            with torch.no_grad():
+                if shape.kind == "prefill":
+                    lm.serve_prefill(cfg, p, batch, tp, cache)
+                else:
+                    lm.serve_step(cfg, p, batch["tokens"], batch["pos"], tp,
+                                  cache)
+    return {str(op): int(n)
+            for op, n in fc.get_flop_counts().get("Global", {}).items()}
+
+
+def cell_costs(arch: str, shape_name: str, multi_pod: bool,
+               fedat_bits: int = 8, overrides=None) -> Dict[str, Any]:
+    """A cell's ``cost`` (FLOPs a device, and the total by op) and, for a
+    train cell, its collectives (module docstring)."""
+    cfg = registry.get_config(arch)
+    if overrides:
+        cfg = cfg.replace(**overrides)
+    shape = SHAPES[shape_name]
+    key = (arch, shape_name, tuple(sorted((overrides or {}).items())))
+    if key not in _FLOPS:
+        _FLOPS[key] = step_flops(cfg, shape)
+    by_op = _FLOPS[key]
+    mesh = make_production_mesh(multi_pod=multi_pod)
+    total = sum(by_op.values())
+    out = {"cost": {"flops": total / mesh.size, "flops_total": total,
+                    "flops_by_op": dict(by_op)}}
+    if shape.kind != "train":
+        out.update(collectives=None, collective_bytes_per_device=None,
+                   collectives_note="the port serves a model on one device: "
+                                    "no collective")
+        return out
+    tcfg = TrainConfig(fedat_enabled=multi_pod,
+                       fedat_compress_bits=fedat_bits)
+    plan = steps_mod.collective_plan(cfg, tcfg, mesh, multi_pod,
+                                     torch.bfloat16, mesh.shape["model"])
+    counts: Dict[str, int] = {}
+    for op, _, calls, _ in plan:
+        counts[op] = counts.get(op, 0) + calls
+    wire = steps_mod.wire_bytes(plan, mesh)
+    out.update(collectives=counts,
+               collective_bytes_per_device=sum(wire.values()),
+               collective_bytes_by_op=wire)
     return out
 
 
@@ -151,7 +262,8 @@ def compile_cell(arch: str, shape_name: str, multi_pod: bool,
                  rules_override=None) -> Dict[str, Any]:
     """One cell's per-device bytes by part and in all
     (``peak_bytes_per_device``; no temporaries), and for a multi-pod
-    train cell the bytes a device sends a sync at each width."""
+    train cell the bytes a device sends a sync at each width
+    (:func:`cell_costs` adds its FLOPs and collectives)."""
     t0 = time.perf_counter()
     parts, meta = lower_cell(arch, shape_name, multi_pod, fedat_bits,
                              overrides, rules_override)
@@ -197,6 +309,9 @@ def main(argv=None):
                 try:
                     r = compile_cell(arch, shape, multi, args.fedat_bits,
                                      rules_override=rules)
+                    if not r.get("skipped"):
+                        r.update(cell_costs(arch, shape, multi,
+                                            args.fedat_bits))
                 except Exception:
                     failures += 1
                     print(f"[dryrun] FAILED {arch} {shape} {tag}",
@@ -207,8 +322,14 @@ def main(argv=None):
                 results.append(r)
                 if "peak_bytes_per_device" in r:
                     gib = r["peak_bytes_per_device"] / 2**30
+                    extra = ""
+                    if "cost" in r:
+                        coll = r["collective_bytes_per_device"]
+                        extra = (f" flops/dev={r['cost']['flops']:.3e}"
+                                 + ("" if coll is None else
+                                    f" coll/dev={coll / 2**20:9.1f}MiB"))
                     print(f"[dryrun] {arch:22s} {shape:12s} {tag:6s} "
-                          f"bytes/dev={gib:7.2f}GiB", flush=True)
+                          f"bytes/dev={gib:7.2f}GiB{extra}", flush=True)
         with open(os.path.join(args.out, f"dryrun_{tag}.json"), "w") as f:
             json.dump([r for r in results
                        if r.get("mesh") == tag or r.get("skipped")], f,

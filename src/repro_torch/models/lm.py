@@ -95,6 +95,35 @@ def anchor_params(cfg: ModelConfig, params, tp: int):
                                                 fsdp.mesh))
 
 
+def fsdp_groups(cfg: ModelConfig):
+    """The groups of params a training forward gathers
+    (``sharding.gather``), in order, one entry a ``gather`` call: (path,
+    layer or None, gathers, reduce-scatters) per forward and backward.
+    ``path`` names a top-level subtree; ``layer`` an entry of its stacked
+    leading dim.  A layer checkpointed under ``cfg.remat`` is gathered
+    again by its recompute and reduce-scattered once; a tied embedding is
+    gathered twice (the input and the head).  Each entry is one
+    collective each way when its group holds a leaf split over ``data``
+    (core/steps.py ``collective_plan`` counts them)."""
+    if cfg.family in TRANSFORMER_FAMILIES:
+        front = {"vlm": ["frontend_proj", "embed"],
+                 "audio": ["frontend_proj"]}.get(cfg.family, ["embed"])
+        stack, n = "layers", cfg.n_layers
+        remat = cfg.remat and cfg.scan_layers
+        head = ["embed" if cfg.tie_embeddings else "lm_head"]
+    elif cfg.family == "hybrid":
+        # the shared block is gathered once, before the layers
+        front, stack, remat = ["embed", "shared"], "backbone", cfg.remat
+        n = zamba2.n_attn_apps(cfg) * cfg.attn_every
+        head = ["lm_head"]
+    else:
+        front, stack, n, remat = ["embed"], "layers", cfg.n_layers, cfg.remat
+        head = ["lm_head"]
+    return ([(k, None, 1, 1) for k in front]
+            + [(stack, i, 1 + bool(remat), 1) for i in range(n)]
+            + [(k, None, 1, 1) for k in head])
+
+
 def abstract_params(cfg: ModelConfig, tp: int, dtype=torch.bfloat16):
     return common.shapes_from_specs(param_specs(cfg, tp), dtype)
 

@@ -17,7 +17,7 @@ handles the mechanical part:
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Sequence
+from typing import Any, Dict, Optional, Sequence
 
 import numpy as np
 import torch
@@ -125,10 +125,16 @@ def masked_cross_weights(counts: np.ndarray,
 
 def bootstrap_tier(tier_models: Dict[str, torch.Tensor],
                    w_global: Dict[str, torch.Tensor],
-                   m: int) -> Dict[str, torch.Tensor]:
+                   m: int, slots: Optional[range] = None
+                   ) -> Dict[str, torch.Tensor]:
     """A returning (post-blackout) tier restarts from the current global
     model: slot ``m`` of the (M, ...)-stacked tier models is overwritten
-    in place with ``w_global``, in the stack's dtype."""
-    for k, s in tier_models.items():
-        s[m] = w_global[k].to(s.dtype)
+    in place with ``w_global``, in the stack's dtype.  ``slots`` are the
+    slots this rank's stack holds (a tier stack laid over ``pod``; None =
+    all): a rank that does not hold ``m`` writes nothing."""
+    slots = range(len(next(iter(tier_models.values())))) \
+        if slots is None else slots
+    if m in slots:
+        for k, s in tier_models.items():
+            s[m - slots.start] = w_global[k].to(s.dtype)
     return tier_models

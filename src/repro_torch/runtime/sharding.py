@@ -22,7 +22,10 @@ stay the identity under :func:`shard`: a rank's batch rows are already
 its own.  The other places where the reference's program needs values to
 cross ranks are explicit collectives too: the client-sharded round's sum
 over ``data`` (core/executor.py) and the multi-pod step's exchange over
-``pod`` (core/steps.py).
+``pod`` (core/steps.py).  A tier-model stack laid over ``pod`` (the rule
+``"tiers": "pod"``, ``shard_tiers``) keeps this rank's block of slots
+(:func:`tier_slots`, :func:`local_shard`'s blocks) and is made whole by
+:func:`all_gather_rows`, the gather FSDP's all-gather runs on too.
 
 Physical mesh axes (see :mod:`repro_torch.launch.mesh`):
   * ``pod``   — FedAT tier axis (multi-pod mesh only)
@@ -239,6 +242,41 @@ def local_shard(x: torch.Tensor, spec: Optional[Spec], mesh
     return x.clone() if cut else x
 
 
+def tier_slots(mesh, M: int) -> range:
+    """The slots of an (M, ...) tier-model stack this rank holds under
+    the rule ``"tiers": "pod"``: its pod's block of :func:`local_shard`
+    (pod p of P holds ``[p*M/P, (p+1)*M/P)``).  The whole range without a
+    pod axis, and when P does not divide M: the reference's
+    ``with_sharding_constraint`` then leaves the whole stack on every
+    device, with no error."""
+    spec = logical_sharding(("tiers",), mesh)
+    k = shard_factors(spec, mesh)[0] if spec else 1
+    if k == 1 or M % k:
+        return range(M)
+    idx = local_shard(torch.arange(M), spec, mesh)
+    return range(int(idx[0]), int(idx[-1]) + 1)
+
+
+def all_gather_rows(flat: torch.Tensor, group, ranks: Sequence[int],
+                    index: int, nccl: bool) -> torch.Tensor:
+    """(n,) on each rank of ``group`` (``ranks`` in group order, this
+    rank at ``index``) -> (len(ranks), n), rank j's in row j: one
+    ``all_gather_into_tensor`` under nccl; under gloo, which takes CUDA
+    tensors in ``broadcast`` and ``all_reduce`` only, a broadcast from
+    each rank."""
+    buf = torch.empty((len(ranks), flat.numel()), dtype=flat.dtype,
+                      device=flat.device)
+    if nccl:
+        dist.all_gather_into_tensor(buf.view(-1), flat.contiguous(),
+                                    group=group)
+    else:
+        for p, src in enumerate(ranks):
+            if p == index:
+                buf[p].copy_(flat)
+            dist.broadcast(buf[p], src=src, group=group)
+    return buf
+
+
 def shard_tree(tree, specs, mesh):
     """:func:`local_shard` over a tree of dicts and its same-structure
     tree of layouts (a leaf with layout None kept as it is)."""
@@ -314,14 +352,8 @@ class FSDP:
             raise ValueError("an FSDP gather takes leaves of one dtype, got "
                              f"{sorted({str(s.dtype) for s in shards})}")
         flat = torch.cat([s.reshape(-1) for s in shards])
-        buf = torch.empty((D, flat.numel()), dtype=dtype, device=flat.device)
-        if self.nccl:
-            dist.all_gather_into_tensor(buf.view(-1), flat, group=self.group)
-        else:
-            for p, src in enumerate(self.ranks):
-                if p == self.index:
-                    buf[p].copy_(flat)
-                dist.broadcast(buf[p], src=src, group=self.group)
+        buf = all_gather_rows(flat, self.group, self.ranks, self.index,
+                              self.nccl)
         del flat
         out, off = [], 0
         for s, d in zip(shards, dims):
