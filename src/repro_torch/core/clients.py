@@ -15,6 +15,10 @@ The per-epoch shuffles arrive as an explicit ``(K, E, cap)`` integer
 tensor of permutations (the reference draws them with
 ``jax.random.permutation`` inside the step; the executor supplies them —
 core/executor.py).
+
+Spans (spans.py): ``client.update`` around the whole update, and in each
+local step ``client.gather`` (the batch index), ``client.fwd`` (the loss
+and the prox term), ``client.bwd`` (autograd) and ``client.opt`` (Adam).
 """
 from __future__ import annotations
 
@@ -22,6 +26,8 @@ from typing import Callable, Dict, Tuple
 
 import numpy as np
 import torch
+
+from repro_torch import spans
 
 Params = Dict[str, torch.Tensor]
 
@@ -40,6 +46,10 @@ def make_client_update(model, local_epochs: int = 3, batch_size: int = 10,
 
     def update(global_params: Params, batch: Dict[str, torch.Tensor],
                perms: torch.Tensor) -> Tuple[Params, torch.Tensor]:
+        with spans.span("client.update"):
+            return _update(global_params, batch, perms)
+
+    def _update(global_params, batch, perms):
         K, cap = batch["y"].shape
         if perms.shape != (K, local_epochs, cap):
             raise ValueError(f"perms must be (K={K}, E={local_epochs}, "
@@ -60,12 +70,13 @@ def make_client_update(model, local_epochs: int = 3, batch_size: int = 10,
         for e in range(local_epochs):
             ces = []
             for i in range(n_batches):
-                idx = perms[:, e, i * batch_size:(i + 1) * batch_size]
-                xb = batch["x"][rows, idx]
-                yb = batch["y"][rows, idx]
-                mb = batch["mask"][rows, idx]
-                p = {k: params[k].requires_grad_(True) for k in keys}
-                with torch.enable_grad():
+                with spans.span("client.gather"):
+                    idx = perms[:, e, i * batch_size:(i + 1) * batch_size]
+                    xb = batch["x"][rows, idx]
+                    yb = batch["y"][rows, idx]
+                    mb = batch["mask"][rows, idx]
+                with spans.span("client.fwd"), torch.enable_grad():
+                    p = {k: params[k].requires_grad_(True) for k in keys}
                     ce = model.loss(p, xb, yb, mb)            # (K,)
                     obj = ce
                     if prox_lambda:
@@ -73,6 +84,7 @@ def make_client_update(model, local_epochs: int = 3, batch_size: int = 10,
                             (p[k] - g[k]).square().flatten(1).sum(dim=1)
                             for k in keys)
                         obj = ce + 0.5 * prox_lambda * prox
+                with spans.span("client.bwd"), torch.enable_grad():
                     grads = torch.autograd.grad(obj.sum(),
                                                 [p[k] for k in keys])
                 ces.append(ce.detach())
@@ -81,7 +93,7 @@ def make_client_update(model, local_epochs: int = 3, batch_size: int = 10,
                 c1 = float(np.float32(1) - np.float32(0.9) ** np.float32(cnt))
                 c2 = float(np.float32(1)
                            - np.float32(0.999) ** np.float32(cnt))
-                with torch.no_grad():
+                with spans.span("client.opt"), torch.no_grad():
                     for k, gr in zip(keys, grads):
                         m[k] = 0.9 * m[k] + 0.1 * gr
                         v[k] = 0.999 * v[k] + 0.001 * gr.square()

@@ -19,6 +19,11 @@ metrics, byte counters, tier map) is checkpointed every N committed
 updates through checkpoint/ckpt.py, and ``resume=True`` replays the rest
 of a killed run bitwise.
 
+Spans (spans.py): ``engine.event`` around each pop and the strategy's
+reaction to it (the root of a request), ``engine.eval`` around each
+periodic evaluation (``eval.accuracy`` inside, core/simulation.py) and its
+record.
+
 On a mesh of several ranks every rank runs this loop with the same draws,
 so the metrics are equal on every rank; every rank takes the snapshots
 (a tier stack laid over ``pod`` is gathered whole), only rank 0 writes
@@ -35,6 +40,7 @@ from typing import Any, Optional
 
 import numpy as np
 
+from repro_torch import spans
 from repro_torch.core import faults as faults_mod
 from repro_torch.core import tiering
 from repro_torch.core.scheduler import EventQueue, Metrics
@@ -238,21 +244,24 @@ def run_engine(env: SimEnv, strategy: ServerStrategy, cfg: EngineConfig,
             ctx.faults.schedule(ctx.q)
     try:
         while ctx.t_global < cfg.total_updates and len(ctx.q):
-            now, actor = ctx.q.pop()
-            if ctx.faults is not None and faults_mod.is_fault_event(actor):
-                out = strategy.on_fault(env, ctx, now, actor)
-            else:
-                out = strategy.on_event(env, ctx, now, actor)
+            with spans.span("engine.event"):
+                now, actor = ctx.q.pop()
+                if (ctx.faults is not None
+                        and faults_mod.is_fault_event(actor)):
+                    out = strategy.on_fault(env, ctx, now, actor)
+                else:
+                    out = strategy.on_event(env, ctx, now, actor)
             if out is Outcome.DISCARD:
                 continue
             ctx.t_global += 1
             if (out is not Outcome.SKIP_ROUND
                     and (ctx.t_global % cfg.eval_every == 0
                          or ctx.t_global == cfg.total_updates)):
-                acc, var = env.evaluate(strategy.global_params())
-                strategy.on_eval(env, ctx)
-                ctx.metrics.record(now, ctx.t_global, acc, var,
-                                   ctx.bytes_up, ctx.bytes_down)
+                with spans.span("engine.eval"):
+                    acc, var = env.evaluate(strategy.global_params())
+                    strategy.on_eval(env, ctx)
+                    ctx.metrics.record(now, ctx.t_global, acc, var,
+                                       ctx.bytes_up, ctx.bytes_down)
                 if on_record is not None:
                     on_record({"time": now, "round": ctx.t_global,
                                "acc": acc, "acc_var": var,

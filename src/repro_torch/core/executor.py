@@ -37,6 +37,13 @@ returns the ``(n_slots, E, cap)`` permutations; the default draws them
 from a CPU ``torch.Generator`` seeded with ``seed`` (the same permutations
 on any device), and tests substitute the reference's own key path.
 
+**Spans** (spans.py): ``fedat.round`` around each FedAT round, gated or
+not, with the children ``round.perms`` (the draw and its upload),
+``round.data``, ``codec.down``, ``client.update`` (core/clients.py),
+``codec.up``, ``round.eq4`` and ``round.eq3``, in that order; with tracing
+on, the counters ``client.slots`` and ``client.real_samples``
+(:meth:`RoundExecutor._count_samples`).
+
 Execution is eager.  The Eq. 4 / Eq. 3 weight vectors are computed on the
 host (numpy twins in core/aggregation.py) and uploaded per event.  The
 tier-model stack is updated in place (the strategy owns it).
@@ -83,6 +90,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from repro_torch import spans
 from repro_torch.core import aggregation
 from repro_torch.core import steps as fl_steps
 from repro_torch.runtime import sharding as shd
@@ -168,9 +176,30 @@ class RoundExecutor:
                          for _ in range(sc.local_epochs)])
             for _ in range(n_slots)])
 
-    def _perms(self, seed: int, n_live: int, n_slots: int) -> torch.Tensor:
-        return self.perm_source(seed, n_live, n_slots).to(
-            self.device, torch.int64)
+    def _perms(self, seed: int, n_live: int, n_slots: int,
+               ns: Optional[np.ndarray] = None) -> torch.Tensor:
+        """The round's permutations on the device.  With the slots' sample
+        counts ``ns`` and tracing on, first counts the round's sample
+        slots and the real samples among them, from the permutations as
+        the source gave them (on the host, for the default source)."""
+        perms = self.perm_source(seed, n_live, n_slots)
+        if ns is not None and spans.on():
+            self._count_samples(perms, ns[:n_live])
+        return perms.to(self.device, torch.int64)
+
+    def _count_samples(self, perms: torch.Tensor, n_real: np.ndarray
+                       ) -> None:
+        """Counters ``client.slots`` (the K x E x visited slots a round
+        trains) and ``client.real_samples`` (the live clients' real
+        samples among them: of the first ``cap // batch * batch`` slots
+        of each shuffle, those below the client's size hold its rows)."""
+        sc = self.env.sc
+        visited = self.env.client_cap // sc.batch_size * sc.batch_size
+        spans.count("client.slots", self.K * sc.local_epochs * visited)
+        lim = torch.as_tensor(n_real.astype(np.int64),
+                              device=perms.device)[:, None, None]
+        live = perms[:len(n_real), :, :visited]
+        spans.count("client.real_samples", int((live < lim).sum()))
 
     def _round_data(self, pid: np.ndarray, rows: slice = slice(None)
                     ) -> Dict[str, torch.Tensor]:
@@ -356,25 +385,41 @@ class RoundExecutor:
         :class:`~repro_torch.core.steps.UpdateGate`) selects the gated
         body, ``poison`` its (K,) bool uplink-poison mask (None = none).
         """
-        if gate is not None:
-            return self._fedat_round_gated(
-                w_global, tier_models, m, ids, seed, codec=codec,
-                use_prox=use_prox, cross_weights=cross_weights, gate=gate,
-                poison=poison)
+        with spans.span("fedat.round"):
+            if gate is not None:
+                return self._fedat_round_gated(
+                    w_global, tier_models, m, ids, seed, codec=codec,
+                    use_prox=use_prox, cross_weights=cross_weights,
+                    gate=gate, poison=poison)
+            return self._fedat_round(w_global, tier_models, m, ids, seed,
+                                     codec=codec, use_prox=use_prox,
+                                     cross_weights=cross_weights)
+
+    def _fedat_round(self, w_global: Params, tier_models: Params, m: int,
+                     ids: np.ndarray, seed: int, *, codec, use_prox: bool,
+                     cross_weights) -> Tuple[Params, Params]:
+        """The ungated FedAT round."""
         self._key("fedat", codec.name, use_prox, *self._dtag)
         pid, ns = self._pad_ids(ids)
-        perms = self._perms(seed, len(ids), self.K)
+        with spans.span("round.perms"):
+            perms = self._perms(seed, len(ids), self.K, ns)
         update = (self.env.update_fn if use_prox
                   else self.env.update_fn_noprox)
-        w_sent = codec.lossy(w_global)
-        client_params, _ = update(w_sent, self._round_data(pid, self._shard),
-                                  perms[self._shard])
-        tier_model = self._intra_average(codec.lossy(client_params),
-                                         aggregation.client_weights_host(ns))
-        slots = self.tier_slots(len(cross_weights))
-        self._write_slot(tier_models, m, tier_model, slots)
-        return self._cross_average(tier_models, cross_weights, slots), \
-            tier_models
+        with spans.span("round.data"):
+            batch = self._round_data(pid, self._shard)
+        with spans.span("codec.down"):
+            w_sent = codec.lossy(w_global)
+        client_params, _ = update(w_sent, batch, perms[self._shard])
+        with spans.span("codec.up"):
+            client_params = codec.lossy(client_params)
+        with spans.span("round.eq4"):
+            tier_model = self._intra_average(
+                client_params, aggregation.client_weights_host(ns))
+        with spans.span("round.eq3"):
+            slots = self.tier_slots(len(cross_weights))
+            self._write_slot(tier_models, m, tier_model, slots)
+            w_new = self._cross_average(tier_models, cross_weights, slots)
+        return w_new, tier_models
 
     def fedat_topology_round(self, w_global: Params, silo_models: Params,
                              dispatch: Params, s: int, ids_edges,
@@ -488,19 +533,26 @@ class RoundExecutor:
         self._refuse_gate_sharded()
         self._key("fedat", codec.name, use_prox, "gate", gate.clip_norm)
         pid, ns = self._pad_ids(ids)
-        perms = self._perms(seed, len(ids), self.K)
+        with spans.span("round.perms"):
+            perms = self._perms(seed, len(ids), self.K, ns)
         update = (self.env.update_fn if use_prox
                   else self.env.update_fn_noprox)
-        w_sent = codec.lossy(w_global)
-        client_params, _ = update(w_sent, self._round_data(pid), perms)
-        client_params = codec.lossy(client_params)
-        client_params, w_ok, any_ok = self._gated_uplink(
-            client_params, ns, w_sent, gate, poison)
-        tier_model = aggregation.weighted_average(client_params, w_ok)
-        for k, v in tier_model.items():
-            tier_models[k][m] = torch.where(any_ok, v, tier_models[k][m])
-        w_global = aggregation.weighted_average(
-            tier_models, self._weights(cross_weights))
+        with spans.span("round.data"):
+            batch = self._round_data(pid)
+        with spans.span("codec.down"):
+            w_sent = codec.lossy(w_global)
+        client_params, _ = update(w_sent, batch, perms)
+        with spans.span("codec.up"):
+            client_params = codec.lossy(client_params)
+        with spans.span("round.eq4"):
+            client_params, w_ok, any_ok = self._gated_uplink(
+                client_params, ns, w_sent, gate, poison)
+            tier_model = aggregation.weighted_average(client_params, w_ok)
+        with spans.span("round.eq3"):
+            for k, v in tier_model.items():
+                tier_models[k][m] = torch.where(any_ok, v, tier_models[k][m])
+            w_global = aggregation.weighted_average(
+                tier_models, self._weights(cross_weights))
         return w_global, tier_models
 
     def _fedavg_round_gated(self, w: Params, ids: np.ndarray, seed: int, *,

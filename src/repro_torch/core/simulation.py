@@ -16,7 +16,8 @@ streaming population plane, which uploads one K-client batch a round
 (core/executor.py).  The initial model comes from a ``torch.Generator``
 seeded with ``seed``, or is injected (``params0=``, e.g. the reference's
 as numpy; a nested tree, the LM's, is flattened to the model's flat
-keys).
+keys).  :meth:`SimEnv.evaluate` records the span ``eval.accuracy``
+(spans.py) around the per-client forward and its read-back.
 """
 from __future__ import annotations
 
@@ -26,6 +27,7 @@ from typing import Any, Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch import spans
 from repro_torch.core import faults as faults_mod
 from repro_torch.core import population as population_mod
 from repro_torch.core import tiering
@@ -338,7 +340,9 @@ class SimEnv:
         if self._test_dev is None:  # upload the test stack once
             self._test_dev = self.upload(self.test)
         t = self._test_dev
-        accs = self.eval_fn(params, t["x"], t["y"], t["mask"]).cpu().numpy()
+        with spans.span("eval.accuracy"):
+            accs = self.eval_fn(params, t["x"], t["y"],
+                                t["mask"]).cpu().numpy()
         weights = self.test["mask"].sum(1)
         glob = float((accs * weights).sum() / weights.sum())
         return glob, float(np.var(accs))

@@ -224,9 +224,10 @@ def test_port_mirrors_reference_paths():
     ref = ROOT / "src" / "repro"
     for f in PORT.rglob("*.py"):
         rel = f.relative_to(PORT)
-        if rel.name in ("__init__.py", "device.py", "convert.py", "build.py"):
+        if rel.name in ("__init__.py", "device.py", "convert.py", "build.py",
+                        "spans.py"):
             continue   # packages, and the port's own device policy, weight
-            # converter and nvcc build of the CUDA kernels
+            # converter, nvcc build of the CUDA kernels and span tracer
         assert (ref / rel).exists(), rel
     assert (PORT / "kernels" / "csrc" / "polyline_codec.cu").exists()
     assert (PORT / "kernels" / "csrc" / "flash_attention.cu").exists()
