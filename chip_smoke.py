@@ -22,12 +22,23 @@ only, never JAX or the reference package.  Phases:
    the pair, the plain version, an empty kernel (the launch floor), a
    yardstick that is not bitwise (amax and
    ``fake_quantize_per_channel_affine``) and the bytes bound, and log its
-   grid, CTAs per SM and waves.
+   grid, CTAs per SM and waves.  Then hold the CNN's conv-block kernels
+   (``csrc/cnn_block.cu``: im2col, col2im, bias + ReLU + 2x2 max-pool and
+   its backward) bitwise against the composite ops of ``kernels/ref.py``
+   and autograd through them, at the main path's shapes (K=10 clients x
+   10 images, 32x32x3 -> 16 -> 8, channels 3/32/64 into 32/64/64), on
+   random operands and on ties, signed zeros and NaNs; and time each
+   at the benchmark cell's shapes (``fedat_cnn_k100``: K=100 x 50 images)
+   beside its plain version (a backward's: autograd's backward through
+   the composite) and its bytes bound.
 3. Run the FedAT path: FedAT with ``transport.codec=quantize8`` through
    ``repro_torch.api.build(spec).run()`` on the card, the paper CNN at
    CIFAR-10 shape (100 clients, K=10, 3 local epochs, 10 updates), with
    the kernel launch counts set to 0 just before and read just after:
-   exactly one roundtrip launch a link (2 a round) and no pair launch.
+   exactly one roundtrip launch a link (2 a round) and no pair launch;
+   3 im2col, 3 pool, 2 col2im and 3 pool_bwd launches a local step, and
+   3 im2col and 3 pool a forward of the evals.  Later phases that run
+   the CNN check its launches are whole conv blocks.
    Then profile one round: the codec's device time and launches in it.
 4. Hold the card against the CPU: the same small FedAT quantize8 run from
    the same params0 and permutations on both devices.
@@ -670,6 +681,145 @@ def time_roundtrip(torch, pc, ref, dev, params_shapes, K, bits=8):
 
 
 # ---------------------------------------------------------------------------
+# phase 2, the CNN's conv block (csrc/cnn_block.cu)
+# ---------------------------------------------------------------------------
+
+CNN_KERNELS = ("im2col", "col2im", "pool", "pool_bwd")
+CELL_K, CELL_B = 100, 50       # the benchmark cell fedat_cnn_k100
+
+
+def cnn_layer_shapes(hw: int, widths=(32, 64, 64), C: int = 3):
+    """(H, W, C, O) of the paper CNN's three conv blocks on hw x hw x C."""
+    shapes = []
+    for O in widths:
+        shapes.append((hw, hw, C, O))
+        hw, C = hw // 2, O
+    return shapes
+
+
+def cnn_block_inputs(torch, dev, g, K, B, H, W, C, O, ties=False):
+    """One block's operands: the input x, the patches' gradient gp, the
+    product y, the bias b and the pooled gradient gy.  ``ties``: y on a
+    half-integer grid (equal window values, -0.0 from rounding), b of
+    +0 and -0, and a NaN every 997 values."""
+    def rnd(*shape):
+        return torch.randn(*shape, device=dev, generator=g)
+    x, gp = rnd(K, B, H, W, C), rnd(K, B, H, W, 9 * C)
+    y, b, gy = rnd(K, B, H, W, O), 0.1 * rnd(K, O), rnd(K, B, H // 2,
+                                                         W // 2, O)
+    if ties:
+        y = torch.round(2 * y) / 2
+        b = torch.where(b < 0, -0.0, 0.0)
+        y.view(-1)[::997] = float("nan")
+    return x, gp, y, b, gy
+
+
+def check_cnn_block(torch, cb, ref, dev, K, B, hw):
+    """Each conv-block wrapper bitwise against the composite ops of
+    kernels/ref.py (forward) and autograd's backward through them, at the
+    main path's shapes."""
+    g = torch.Generator(device=dev).manual_seed(3)
+    n = 0
+    for li, (H, W, C, O) in enumerate(cnn_layer_shapes(hw), start=1):
+        for ties in (False, True):
+            x, gp, y, b, gy = cnn_block_inputs(torch, dev, g, K, B, H, W, C,
+                                               O, ties)
+            what = (f"layer {li} ({K}x{B}x{H}x{W}x{C} -> {O}"
+                    f"{', ties' if ties else ''})")
+            check(bits_equal(cb.im2col(x, 3, 3), ref.im2col(x, 3, 3)),
+                  f"phase 2: im2col differs from the composite, {what}")
+            xs = x.clone().requires_grad_()
+            want, = torch.autograd.grad(ref.im2col(xs, 3, 3), xs, gp)
+            check(bits_equal(cb.im2col_backward(gp, 3, 3), want),
+                  f"phase 2: col2im differs from autograd, {what}")
+            ys, bs = y.clone().requires_grad_(), b.clone().requires_grad_()
+            pooled = ref.bias_relu_pool(ys, bs)
+            out, mask = cb.bias_relu_pool(y, b, True)
+            check(bits_equal(out, pooled.detach())
+                  and bits_equal(cb.bias_relu_pool(y, b, False)[0], out),
+                  f"phase 2: pool differs from the composite, {what}")
+            dy, db = cb.bias_relu_pool_backward(gy, mask, H, W)
+            want_dy, want_db = torch.autograd.grad(pooled, [ys, bs], gy)
+            check(bits_equal(dy, want_dy) and bits_equal(db, want_db),
+                  f"phase 2: pool_bwd differs from autograd, {what}")
+            n += 4
+    torch.cuda.synchronize()
+    log(f"phase 2: {n} conv-block kernel/composite comparisons bitwise "
+        f"equal (K={K}, B={B}, {hw}x{hw}x3; random, and ties, signed "
+        f"zeros and NaNs)")
+    return {"comparisons": n, "K": K, "B": B, "hw": hw, "bitwise": True}
+
+
+def time_cnn_block(torch, cb, ref, dev, K=CELL_K, B=CELL_B, hw=32,
+                   iters=20):
+    """Each conv-block kernel's device time at the benchmark cell's shapes
+    beside its plain version's (the composite ops; for a backward,
+    autograd's backward through them) and its bytes bound; pool_bwd's
+    time is the wrapper's, the bias gradient's ATen sum included, as in
+    the plain version's."""
+    g = torch.Generator(device=dev).manual_seed(4)
+    rows = []
+    for li, (H, W, C, O) in enumerate(cnn_layer_shapes(hw), start=1):
+        x, gp, y, b, gy = cnn_block_inputs(torch, dev, g, K, B, H, W, C, O)
+        N = K * B
+        xs = x.clone().requires_grad_()
+        patches = ref.im2col(xs, 3, 3)
+        ys, bs = y.clone().requires_grad_(), b.clone().requires_grad_()
+        pooled = ref.bias_relu_pool(ys, bs)
+        _, mask = cb.bias_relu_pool(y, b, True)
+        cases = [
+            ("im2col", lambda: cb.im2col(x, 3, 3),
+             lambda: ref.im2col(x, 3, 3), cb.nbytes("im2col", N, H, W, C)),
+            ("pool", lambda: cb.bias_relu_pool(y, b, True),
+             lambda: ref.bias_relu_pool(y, b),
+             cb.nbytes("pool", N, H, W, C, O)),
+            ("pool_bwd", lambda: cb.bias_relu_pool_backward(gy, mask, H, W),
+             lambda: torch.autograd.grad(pooled, [ys, bs], gy,
+                                         retain_graph=True),
+             cb.nbytes("pool_bwd", N, H, W, C, O))]
+        if li > 1:      # the images take no gradient
+            cases.append((
+                "col2im", lambda: cb.im2col_backward(gp, 3, 3),
+                lambda: torch.autograd.grad(patches, xs, gp,
+                                            retain_graph=True),
+                cb.nbytes("col2im", N, H, W, C)))
+        for name, kern, plain, nbytes in cases:
+            # plain, kernel, kernel, plain: the order cancels drift
+            p1 = event_time_ms(torch, plain, iters)
+            k1 = event_time_ms(torch, kern, iters)
+            k2 = event_time_ms(torch, kern, iters)
+            p2 = event_time_ms(torch, plain, iters)
+            bound = nbytes / HBM_BYTES_PER_S * 1e3
+            row = {"layer": li, "kernel": name, "shape": [K, B, H, W, C, O],
+                   "ms": min(k1, k2), "plain_ms": min(p1, p2),
+                   "bound_ms": bound, "bytes": nbytes,
+                   "roofline_pct": 100.0 * bound / min(k1, k2),
+                   "runs_ms": [k1, k2], "plain_runs_ms": [p1, p2]}
+            rows.append(row)
+            log(f"phase 2: {name} layer {li} ({K}x{B}x{H}x{W}x{C} -> {O}): "
+                f"kernel {row['ms']:.4f} ms (runs {k1:.4f}/{k2:.4f}), "
+                f"plain {row['plain_ms']:.4f} ms, bound {bound:.4f} ms "
+                f"({nbytes} B at 3.35 TB/s, {row['roofline_pct']:.1f}%)")
+        del x, gp, y, b, gy, xs, patches, ys, bs, pooled, mask, cases
+        torch.cuda.empty_cache()
+    return rows
+
+
+def split_cnn_launches(counts, what: str):
+    """``counts`` without the conv-block kernels, once those are checked
+    to be whole CNN passes on the card: 3 im2col and 3 pool a forward, 2
+    col2im and 3 pool_bwd a backward, and at least one forward."""
+    c = {k: counts.get(k, 0) for k in CNN_KERNELS}
+    bwd = c["pool_bwd"] // 3
+    check(c["pool"] > 0 and c["im2col"] == c["pool"] and c["pool"] % 3 == 0
+          and c["pool_bwd"] == 3 * bwd and c["col2im"] == 2 * bwd
+          and c["pool"] >= c["pool_bwd"],
+          f"{what}: conv-block launches {c} are not whole CNN forwards "
+          f"(3 im2col, 3 pool) and backwards (2 col2im, 3 pool_bwd)")
+    return {k: n for k, n in counts.items() if k not in CNN_KERNELS}
+
+
+# ---------------------------------------------------------------------------
 # phases 3-5: the slice
 # ---------------------------------------------------------------------------
 
@@ -720,6 +870,19 @@ def run_main_path(torch, api, pc, dev):
         return out
 
     ex.fedat_round = timed_round
+    # the evals' conv-block launches, apart from the local steps'
+    eval_launches = dict.fromkeys(CNN_KERNELS, 0)
+    orig_eval = env.eval_fn
+
+    def counted_eval(*a, **k):
+        before = pc.launch_counts()
+        out = orig_eval(*a, **k)
+        for kern, n in pc.launch_counts().items():
+            if kern in eval_launches:
+                eval_launches[kern] += n - before[kern]
+        return out
+
+    env.eval_fn = counted_eval
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     pc.reset_launch_counts()
@@ -729,6 +892,7 @@ def run_main_path(torch, api, pc, dev):
     wall = time.perf_counter() - t0
     counts = pc.launch_counts()
     del ex.fedat_round
+    env.eval_fn = orig_eval
     peak = torch.cuda.max_memory_allocated()
 
     w = run.strategy.global_params()
@@ -747,15 +911,26 @@ def run_main_path(torch, api, pc, dev):
     # 2 lossy steps (downlink + uplink) per committed round, one launch each
     expect = 2 * rounds
     check(rounds == 10, f"{rounds} FedAT rounds ran, expected 10")
+    steps = (env.train["y"].shape[1] // env.sc.batch_size) \
+        * env.sc.local_epochs
+    # a local step: 3 conv blocks forward, 3 backward (the images' needs
+    # no col2im); an eval's forward: 3 blocks, no mask, no backward
+    S, E = rounds * steps, eval_launches["pool"] // 3
+    cnn_want = {"im2col": 3 * (S + E), "col2im": 2 * S, "pool": 3 * (S + E),
+                "pool_bwd": 3 * S}
+    check(eval_launches == {"im2col": 3 * E, "col2im": 0, "pool": 3 * E,
+                            "pool_bwd": 0} and E > 0,
+          f"the evals launched {eval_launches}, expected 3 im2col and 3 "
+          f"pool a forward and no backward")
     check(counts == {"compress": 0, "decompress": 0, "roundtrip": expect,
                      "flash_attention": 0, "flash_attention_bwd": 0,
                      "wkv6": 0, "wkv6_bwd_dstate": 0, "wkv6_bwd": 0,
-                     "ssd": 0, "ssd_bwd_dstate": 0, "ssd_bwd": 0},
+                     "ssd": 0, "ssd_bwd_dstate": 0, "ssd_bwd": 0,
+                     **cnn_want},
           f"launch counts {counts}, expected {expect} roundtrip launches "
-          f"(2 links x {rounds} rounds, {n_leaves} leaves a launch) and no "
-          f"other")
-    steps = (env.train["y"].shape[1] // env.sc.batch_size) \
-        * env.sc.local_epochs
+          f"(2 links x {rounds} rounds, {n_leaves} leaves a launch), "
+          f"{cnn_want} conv-block launches ({S} local steps, {E} eval "
+          f"forwards) and no other")
     info = {
         "spec_hash": res.spec_hash, "rounds": rounds, "wall_s": wall,
         "events_per_s": rounds / wall,
@@ -766,6 +941,7 @@ def run_main_path(torch, api, pc, dev):
         "bytes_up": m.bytes_up[-1], "bytes_down": m.bytes_down[-1],
         "peak_mem_bytes": peak, "launches": counts, "n_params": n_params,
         "client_cap": int(env.train["y"].shape[1]),
+        "local_steps": S, "eval_forwards": E,
     }
     log(f"phase 3: FedAT quantize8 full width: {rounds} rounds in "
         f"{wall:.3f} s ({info['events_per_s']:.4f} events/s, "
@@ -2864,11 +3040,12 @@ def run_faults(torch, api, kernels, SimEnv, dev, phase3_events_per_s):
                               run1.strategy.tier_models),
               "phase 17: two uninterrupted runs on the card disagree")
         committed = fired["gated_rounds"]
-        check(counts == {"compress": 0, "decompress": 0,
-                         "roundtrip": 2 * committed, "flash_attention": 0,
-                         "flash_attention_bwd": 0, "wkv6": 0,
-                         "wkv6_bwd_dstate": 0, "wkv6_bwd": 0, "ssd": 0,
-                         "ssd_bwd_dstate": 0, "ssd_bwd": 0}
+        check(split_cnn_launches(counts, "phase 17")
+              == {"compress": 0, "decompress": 0,
+                  "roundtrip": 2 * committed, "flash_attention": 0,
+                  "flash_attention_bwd": 0, "wkv6": 0,
+                  "wkv6_bwd_dstate": 0, "wkv6_bwd": 0, "ssd": 0,
+                  "ssd_bwd_dstate": 0, "ssd_bwd": 0}
               and committed == 8,
               f"phase 17: launch counts {counts} for {committed} gated "
               f"rounds, expected 2 roundtrip launches a round")
@@ -3216,10 +3393,11 @@ def run_population(torch, api, kernels, SimEnv, dev):
     check(all(bool(torch.isfinite(v).all())
               for v in run.strategy.w_global.values()),
           "phase 19: non-finite global model")
-    check(counts == {"compress": 0, "decompress": 0, "roundtrip": 2 * rounds,
-                     "flash_attention": 0, "flash_attention_bwd": 0,
-                     "wkv6": 0, "wkv6_bwd_dstate": 0, "wkv6_bwd": 0,
-                     "ssd": 0, "ssd_bwd_dstate": 0, "ssd_bwd": 0},
+    check(split_cnn_launches(counts, "phase 19")
+          == {"compress": 0, "decompress": 0, "roundtrip": 2 * rounds,
+              "flash_attention": 0, "flash_attention_bwd": 0,
+              "wkv6": 0, "wkv6_bwd_dstate": 0, "wkv6_bwd": 0,
+              "ssd": 0, "ssd_bwd_dstate": 0, "ssd_bwd": 0},
           f"phase 19: launch counts {counts}, expected {2 * rounds} "
           f"roundtrip launches and no other")
     check(len(mat_s) == len(data_s) == rounds,
@@ -3479,11 +3657,12 @@ def run_topology(torch, api, kernels, SimEnv, dev):
           f"phase 20: accuracies {m.acc}")
     check(all(bool(torch.isfinite(v).all()) for v in st.w_global.values()),
           "phase 20: non-finite global model")
-    check(counts == {"compress": 0, "decompress": 0,
-                     "roundtrip": TOPOLOGY_LAUNCHES * rounds,
-                     "flash_attention": 0, "flash_attention_bwd": 0,
-                     "wkv6": 0, "wkv6_bwd_dstate": 0, "wkv6_bwd": 0,
-                     "ssd": 0, "ssd_bwd_dstate": 0, "ssd_bwd": 0},
+    check(split_cnn_launches(counts, "phase 20")
+          == {"compress": 0, "decompress": 0,
+              "roundtrip": TOPOLOGY_LAUNCHES * rounds,
+              "flash_attention": 0, "flash_attention_bwd": 0,
+              "wkv6": 0, "wkv6_bwd_dstate": 0, "wkv6_bwd": 0,
+              "ssd": 0, "ssd_bwd_dstate": 0, "ssd_bwd": 0},
           f"phase 20: launch counts {counts}, expected "
           f"{TOPOLOGY_LAUNCHES} roundtrip launches x {rounds} silo rounds "
           f"and no other")
@@ -4791,9 +4970,11 @@ def run_sharded_round(torch, api, phase3_events_per_s: float):
               and info["backend"] == "gloo",
               f"phase 26: rank {r}: world {info['world']}, data axis "
               f"{info['data_axis']}, backend {info['backend']}")
-        want = {k: 0 for k in info["launches"]}
+        launches = split_cnn_launches(info["launches"],
+                                      f"phase 26: rank {r}")
+        want = {k: 0 for k in launches}
         want["roundtrip"] = 2 * info["rounds"]
-        check(info["launches"] == want,
+        check(launches == want,
               f"phase 26: rank {r} launches {info['launches']}, expected "
               f"{want} (one roundtrip a link a round)")
         check(info["collectives"]["all_reduce"] == info["rounds"]
@@ -5429,9 +5610,11 @@ def run_shard_tiers(torch, api):
                   f"phase 29: rank {r} event times {info['times']} vs the "
                   f"one-rank run's {one.times}")
             rounds = info["rounds"]
-            want = {k: 0 for k in info["launches"]}
+            launches = split_cnn_launches(info["launches"],
+                                          f"phase 29: rank {r}")
+            want = {k: 0 for k in launches}
             want["roundtrip"] = (TOPOLOGY_LAUNCHES if topo else 2) * rounds
-            check(info["launches"] == want,
+            check(launches == want,
                   f"phase 29: rank {r} launches {info['launches']}, "
                   f"expected {want}")
             # a round: Eq. 4's all_reduce over data (when D > 1) and Eq. 3's
@@ -5510,6 +5693,7 @@ def main() -> None:
     from repro_torch.api import cli
     from repro_torch.core.simulation import SimEnv
     from repro_torch.kernels import build as kbuild
+    from repro_torch.kernels import cnn_block
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ops as kops
     from repro_torch.kernels import polyline_codec as pc, ref
@@ -5551,6 +5735,13 @@ def main() -> None:
     times = time_kernels(torch, pc, ref, dev, shapes, K)
     rt_check = compare_roundtrip(torch, pc, ref, dev, shapes, K)
     rt_times = time_roundtrip(torch, pc, ref, dev, shapes, K)
+    # phase 2, the CNN's conv block: held at the main path's shapes, timed
+    # at the benchmark cell's
+    cnn_check = check_cnn_block(torch, cnn_block, ref, dev, K,
+                                FULL["engine.batch_size"],
+                                FULL["data.image_hw"])
+    cnn_times = time_cnn_block(torch, cnn_block, ref, dev)
+    torch.cuda.empty_cache()
 
     # phase 3: the FedAT path, counts from 0 (the profile runs after)
     main_path, run = run_main_path(torch, api, kernels, dev)
@@ -5870,6 +6061,41 @@ def main() -> None:
                 launches_per_step=recurrent_train[arch][
                     "launches_per_step"][name],
                 **t["passes"][name], **extra))
+    # C1 and C2, the CNN's conv-block glue around its unchanged products:
+    # times summed over a training step's launches at the benchmark cell's
+    # shapes (K=100 x 50 images), launches from phase 3's run
+    steps = main_path["local_steps"]
+
+    def step_sum(kernel, key):
+        return sum(r[key] for r in cnn_times if r["kernel"] == kernel)
+
+    for name, fwd, bwd, line, note in (
+            ("cnn_im2col", "im2col", "col2im", "src/repro/models/cnn.py:20",
+             "C1: the patches of the conv's im2col (the composite pads, "
+             "takes nine slices and concatenates them) and their gradient "
+             "(a gather-sum in autograd's order)"),
+            ("cnn_bias_relu_pool", "pool", "pool_bwd",
+             "src/repro/models/cnn.py:41",
+             "C2: bias + ReLU + 2x2 max-pool, a one-byte mask under grad, "
+             "and its backward from the mask (bwd_ms includes the bias "
+             "gradient's ATen sum)")):
+        report.append({
+            "name": name, "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/cnn_block.cu",
+            "replaces": line, "replaces_note": note,
+            "ms_is": "a training step's launches at fedat_cnn_k100's "
+                     "shapes (K=100, B=50, 32x32x3), summed over the layers",
+            "launches": main_path["launches"][fwd],
+            "launches_per_step": 3,
+            "bwd_launches": main_path["launches"][bwd],
+            "bwd_launches_per_step": main_path["launches"][bwd] // steps,
+            "max_abs_err": 0.0, "bitwise": cnn_check["bitwise"],
+            "ms": step_sum(fwd, "ms"), "plain_ms": step_sum(fwd, "plain_ms"),
+            "bound_ms": step_sum(fwd, "bound_ms"), "bound_by": "bytes",
+            "library_ms": None, "bwd_ms": step_sum(bwd, "ms"),
+            "bwd_plain_ms": step_sum(bwd, "plain_ms"),
+            "bwd_bound_ms": step_sum(bwd, "bound_ms"),
+            "layers": [r for r in cnn_times if r["kernel"] in (fwd, bwd)]})
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps({
@@ -5877,6 +6103,7 @@ def main() -> None:
             "cuda": torch.version.cuda, "build_s": build_s,
             "kernels": report, "kernel_times": times,
             "roundtrip_check": rt_check, "roundtrip_times": rt_times,
+            "cnn_block_check": cnn_check, "cnn_block_times": cnn_times,
             "main_path": main_path, "card_vs_cpu": agree,
             "baselines": base, "flash": flash, "serving": serving,
             "serving_card_vs_cpu": serve_agree, "wkv6": wkv, "ssd": ssd,

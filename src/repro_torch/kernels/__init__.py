@@ -23,10 +23,16 @@
     Its gradient is ``ssd.SSDScan`` (backward ``csrc/ssd_bwd.cu``).
     Neither scan function is re-exported here: ``ssd`` names the module.
     Both backwards check their operands through ``build``.
+  * :mod:`cnn_block` — the CNN's conv-block glue (CUDA C++,
+    ``csrc/cnn_block.cu``): ``Im2col`` (the patches, and a gather-sum
+    backward) and ``BiasReluPool`` (bias + ReLU + 2x2 max-pool, and its
+    backward from a one-byte mask), the autograd Functions around each
+    conv's product in models/cnn.py, bit for bit the composite ops.
   * :mod:`ref` — the plain PyTorch versions each kernel is held against.
 
 Kernels are compiled at first launch (kernels/build.py), never at import.
 """
+from repro_torch.kernels import cnn_block  # noqa: F401
 from repro_torch.kernels import flash_attention  # noqa: F401
 from repro_torch.kernels import polyline_codec  # noqa: F401
 from repro_torch.kernels import ref  # noqa: F401

@@ -648,6 +648,32 @@ def ssd_chunked_backward(x: torch.Tensor, Bm: torch.Tensor, Cm: torch.Tensor,
     return dx, dB.sum(2), dC.sum(2), dda, dh0
 
 
+# --- the CNN's conv block: im2col, bias + ReLU + 2x2 max-pool ---------------
+#
+# The elementwise glue around the CNN's products (models/cnn.py), as
+# autograd's composite ops compute it.  The kernels that replace it
+# (kernels/cnn_block.py) are held to these bit for bit, forward and
+# backward; the plain backward is autograd through these same ops.
+
+def im2col(x: torch.Tensor, kh: int, kw: int) -> torch.Tensor:
+    """x (K, B, H, W, C) -> patches (K, B, H, W, kh*kw*C) of a SAME-padded
+    stride-1 conv, taps in (i, j, c) order (odd kernels)."""
+    K, B, H, W, C = x.shape
+    xp = F.pad(x, (0, 0, kw // 2, kw // 2, kh // 2, kh // 2))
+    return torch.cat(
+        [xp[:, :, i:i + H, j:j + W, :] for i in range(kh) for j in range(kw)],
+        dim=-1)
+
+
+def bias_relu_pool(y: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """y (K, B, H, W, O), b (K, O) -> the 2x2 stride-2 max-pool of
+    relu(y + b) over (H, W), cropped to even sizes: (K, B, H//2, W//2, O)."""
+    K, B, H, W, O = y.shape
+    r = torch.relu(y + b[:, None, None, None, :])
+    r = r[:, :, :H // 2 * 2, :W // 2 * 2]
+    return r.reshape(K, B, H // 2, 2, W // 2, 2, O).amax(dim=(3, 5))
+
+
 # --- meta tensors: shape-only routes -----------------------------------------
 #
 # A ``meta`` tensor (the dry-run's stand-ins, launch/dryrun.py) takes each

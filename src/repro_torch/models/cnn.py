@@ -12,7 +12,13 @@ batched products, the written-out form of the reference's ``vmap``.
 
 The convolution is im2col + ``torch.matmul``, as in the reference
 (``repro/models/cnn.py:_conv``): a batched GEMM over clients, never
-cuDNN, so no TF32 convolution path is involved.
+cuDNN, so no TF32 convolution path is involved.  The glue around each
+conv's product runs through ``kernels/cnn_block.py``: ``Im2col`` builds
+the patches, and ``BiasReluPool`` adds the bias, applies ReLU and pools,
+each with its own backward; on the card they are hand-written kernels,
+on the CPU the plain versions.  Both are bit for bit what autograd
+computed through the composite ops (pad, slices, ``cat``; ``+ b``,
+``relu``, ``amax``) they replace.
 """
 from __future__ import annotations
 
@@ -22,32 +28,26 @@ from typing import Dict, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.kernels import cnn_block
+
 Params = Dict[str, torch.Tensor]
 
 
-def _conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """SAME-padded stride-1 conv as im2col + matmul (odd kernels only).
+def _conv_block(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor
+                ) -> torch.Tensor:
+    """SAME-padded stride-1 conv as im2col + matmul (odd kernels only),
+    then bias, ReLU and a 2x2 stride-2 VALID max-pool over (H, W).
 
-    x (K, B, H, W, C), w (K, kh, kw, C, O), b (K, O) -> (K, B, H, W, O).
+    x (K, B, H, W, C), w (K, kh, kw, C, O), b (K, O) -> (K, B, H//2,
+    W//2, O).
     """
     K, B, H, W, C = x.shape
     kh, kw, _, O = w.shape[1:]
-    if kh % 2 == 0 or kw % 2 == 0:
-        raise ValueError("im2col conv assumes odd kernels")
-    xp = F.pad(x, (0, 0, kw // 2, kw // 2, kh // 2, kh // 2))
-    patches = torch.cat(
-        [xp[:, :, i:i + H, j:j + W, :] for i in range(kh) for j in range(kw)],
-        dim=-1)                                       # (K, B, H, W, kh*kw*C)
+    patches = cnn_block.Im2col.apply(x, kh, kw)       # (K, B, H, W, kh*kw*C)
     y = torch.matmul(patches.reshape(K, B * H * W, kh * kw * C),
                      w.reshape(K, kh * kw * C, O))
-    return y.reshape(K, B, H, W, O) + b[:, None, None, None, :]
-
-
-def _maxpool(x: torch.Tensor) -> torch.Tensor:
-    """2x2 stride-2 VALID max-pool over (H, W) of (K, B, H, W, C)."""
-    K, B, H, W, C = x.shape
-    x = x[:, :, :H // 2 * 2, :W // 2 * 2]
-    return x.reshape(K, B, H // 2, 2, W // 2, 2, C).amax(dim=(3, 5))
+    return cnn_block.BiasReluPool.apply(y.reshape(K, B, H, W, O), b,
+                                        torch.is_grad_enabled())
 
 
 def cnn_init(generator: torch.Generator,
@@ -75,9 +75,9 @@ def cnn_init(generator: torch.Generator,
 
 def cnn_apply_clients(p: Params, x: torch.Tensor) -> torch.Tensor:
     """x (K, B, H, W, C) with per-client params (K, ...) -> (K, B, classes)."""
-    x = _maxpool(torch.relu(_conv(x, p["c1_w"], p["c1_b"])))
-    x = _maxpool(torch.relu(_conv(x, p["c2_w"], p["c2_b"])))
-    x = _maxpool(torch.relu(_conv(x, p["c3_w"], p["c3_b"])))
+    x = _conv_block(x, p["c1_w"], p["c1_b"])
+    x = _conv_block(x, p["c2_w"], p["c2_b"])
+    x = _conv_block(x, p["c3_w"], p["c3_b"])
     x = x.reshape(x.shape[0], x.shape[1], -1)
     x = torch.relu(torch.matmul(x, p["d1_w"]) + p["d1_b"][:, None, :])
     return torch.matmul(x, p["d2_w"]) + p["d2_b"][:, None, :]

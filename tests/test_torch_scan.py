@@ -214,7 +214,7 @@ def test_launch_counts_gather_every_kernel():
         "compress": 0, "decompress": 0, "roundtrip": 0,
         "flash_attention": 0, "flash_attention_bwd": 0, "wkv6": 0,
         "wkv6_bwd_dstate": 0, "wkv6_bwd": 0, "ssd": 0, "ssd_bwd_dstate": 0,
-        "ssd_bwd": 0}
+        "ssd_bwd": 0, "im2col": 0, "col2im": 0, "pool": 0, "pool_bwd": 0}
 
 
 def test_library_counts_only_successful_launches(monkeypatch):
